@@ -27,6 +27,27 @@ Phases (any failure exits non-zero before the result line):
    the plain versions must not run.
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions).
+5. The training path's kernels against their plain versions at the
+   training shape (B 16, L 2048, H 16, Hkv 4, D 128, bf16, causal): K1/K2
+   forward (out, lse), K3 delta, K4 dK/dV, K5 dQ, K6 RoPE (forward and
+   inverse, bitwise); the forward, delta and dQ again at the long-context
+   shape (B 1, L 16384), the flash kernels once at head_dim 64.  Each
+   kernel's time, its plain version's, its bound and the library
+   yardstick (scaled_dot_product_attention forward; its backward stands
+   for K3+K4+K5 together).
+6. Training at full width: the ``bench_llama`` configuration (the
+   serving model's widths, recompute of the first 7 layers, loss chunks
+   of 8192 tokens) with AdamW and f32 moments, batch 16, seq 2048,
+   random weights and data from seed 0: 2 warm-up and 5 timed steps;
+   the loss must be finite and fall; every training kernel must launch
+   exactly as often as the model calls it (counters set to 0 just before
+   the timed steps), and no plain version or dense attention may run.
+   Prints tokens/s, step ms, MFU (``bench.py``'s FLOP count over the
+   dense bf16 peak), peak memory, and a profiled step's device-busy
+   share and top device operations.
+7. Training parity: the same trainer at full width, 2 layers, f32,
+   batch 2, seq 256, 3 steps, on the card (kernels) and on the CPU
+   (plain versions).
 
 The last lines are the ``kernels`` JSON, the card line and the result
 JSON ``{"ok": true, "device": {...}}``.
@@ -480,6 +501,375 @@ def phase_parity(torch, dev):
     return dict(match=match, total=total, logits_max_abs_diff=float(dl.max()))
 
 
+# ----------------------------------------------------------------- phase 5
+FLASH_TRAIN = dict(B=16, L=2048, H=16, HKV=4, D=128)     # bench_llama
+FLASH_LONG = dict(B=1, L=16384, H=16, HKV=4, D=128)      # bench_llama_long
+FLASH_D64 = dict(B=2, L=256, H=8, HKV=8, D=64)           # entry() widths
+
+
+def check_bf16(name, got, ref, ulps=2, atol=1e-5):
+    """bf16 results within ``ulps`` units in the last place of the plain
+    version's, or at most ``atol`` (a number or a per-element tensor)
+    apart — near zero, where the two may differ in sign and their ulp
+    distance means nothing."""
+    d = (got.float() - ref.float()).abs()
+    far = d > atol
+    u = bf16_ulps(got, ref) * far
+    ok = bool((u <= ulps).all())
+    print(f"{name}: max_abs_err {float(d.max()):.3e} max_ulps {int(u.max())}"
+          f" (elements beyond the absolute slack: {int(far.sum())}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{name} beyond {ulps} bf16 ulps of its plain version")
+    return float(d.max())
+
+
+def grad_slack(ref):
+    return 2.0 ** -16 * float(ref.float().abs().max())
+
+
+def check_f32(name, got, ref, atol, rtol):
+    d = (got - ref).abs()
+    ok = bool((d <= atol + rtol * ref.abs()).all())
+    print(f"{name}: max_abs_err {float(d.max()):.3e} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{name} beyond atol={atol} rtol={rtol} of its plain version")
+    return float(d.max())
+
+
+def flash_case(torch, dev, gen, B, L, H, HKV, D, dtype=None):
+    dtype = dtype or torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    return (rnd(B, L, H * D), rnd(B, L, HKV * D), rnd(B, L, HKV * D),
+            rnd(B, L, H * D))
+
+
+def causal_pairs(lq, lk):
+    off = lk - lq
+    return sum(min(lk, off + p + 1) for p in range(lq))
+
+
+def phase_train_kernels(torch, dev):
+    """The training path's kernels (K1/K2 forward, K3 delta, K4 dK/dV, K5
+    dQ, K6 RoPE) against their plain versions at the training shapes, the
+    forward and dQ at the long-context (streamed) shape, the flash kernels
+    once at head_dim 64; then their times, bounds and library yardsticks.
+    Tolerances: f32 statistics (lse, delta) ``atol=rtol=1e-5``; bf16
+    gradients within 2 bf16 ulps of the plain version, or near zero within
+    2^-16 of the tensor's largest magnitude (f32 sums over up to Lq*G rows
+    in another order); the bf16 forward output within 2 ulps or
+    ``2^-8 * (P|V|)`` (the bf16 rounding of p, against different maxima);
+    RoPE bitwise."""
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+    from paddle_tpu_torch.ops import fused_rope as trope
+    from paddle_tpu_torch.ops import fused_rope_cuda as k6
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    err = {}
+
+    def check_flash(tag, cfg, backward=True, dq_only=False):
+        B, L, H, HKV, D = (cfg[k] for k in ("B", "L", "H", "HKV", "D"))
+        q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+        sc = D ** -0.5
+        out, lse = kfa.flash_fwd(q, k, v, H, HKV, True, sc)
+        ref, rlse = tfa.flash_fwd_reference(q, k, v, H, HKV, True, sc)
+        # p is rounded to bf16 before p.V in both, against the running
+        # max in the kernel and the final max in the plain version: the
+        # outputs may differ by 2^-8 * sum(p |v|) / l
+        pv_abs = tfa.flash_fwd_reference(q, k, v.abs(), H, HKV, True,
+                                         sc)[0].float()
+        torch.cuda.synchronize()
+        e = check_bf16(f"K1/K2 forward out {tag}", out, ref,
+                       atol=2.0 ** -8 * pv_abs + 1e-5)
+        del pv_abs
+        err["fwd"] = max(err.get("fwd", 0.0), e,
+                         check_f32(f"K1/K2 forward lse {tag}", lse, rlse,
+                                   1e-5, 1e-5))
+        del ref, rlse
+        if not backward:
+            return
+        delta = kfa.flash_delta(do, out, H)
+        err["delta"] = max(err.get("delta", 0.0), check_f32(
+            f"K3 delta {tag}", delta, tfa.flash_delta_reference(do, out, H),
+            1e-5, 1e-5))
+        dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV, True, sc)
+        if not dq_only:
+            dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV, True,
+                                       sc)
+        rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, H,
+                                                HKV, True, sc)
+        torch.cuda.synchronize()
+        # gradients are f32 sums over up to Lq*G rows: near zero, hold
+        # them to 2^-16 of the tensor's largest magnitude
+        err["dq"] = max(err.get("dq", 0.0), check_bf16(
+            f"K5 dQ {tag}", dq, rdq, atol=grad_slack(rdq)))
+        if not dq_only:
+            err["dkv"] = max(err.get("dkv", 0.0),
+                             check_bf16(f"K4 dK {tag}", dk, rdk,
+                                        atol=grad_slack(rdk)),
+                             check_bf16(f"K4 dV {tag}", dv, rdv,
+                                        atol=grad_slack(rdv)))
+
+    check_flash("training shape", FLASH_TRAIN)
+    check_flash("L 16384 (streamed shape)", FLASH_LONG, dq_only=True)
+    check_flash("head_dim 64", FLASH_D64)
+    torch.cuda.empty_cache()
+
+    # ---- K6 at the training shape, forward and inverse: bitwise
+    B, L, H, HKV, D = (FLASH_TRAIN[k] for k in ("B", "L", "H", "HKV", "D"))
+    q, k, _, _ = flash_case(torch, dev, gen, B, L, H, HKV, D)
+    ang = torch.rand(L, D, generator=gen, device=dev) * 6.0
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    for neg in (False, True):
+        oq, ok_ = k6.rope(q, k, cos, sin, H, HKV, neg)
+        rq, rk = trope.rope_reference(q, k, cos, sin, H, HKV, neg)
+        torch.cuda.synchronize()
+        same = torch.equal(oq, rq) and torch.equal(ok_, rk)
+        print(f"K6 rope {'inverse' if neg else 'forward'} training shape: "
+              f"{'bitwise equal, ok' if same else 'MISMATCH'}", flush=True)
+        check(same, "K6 differs from its plain version")
+    err["rope"] = 0.0
+    del oq, ok_, rq, rk
+
+    # ---- times at the training shape (CUDA events, after warm-up)
+    q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+    sc = D ** -0.5
+    out, lse = kfa.flash_fwd(q, k, v, H, HKV, True, sc)
+    delta = kfa.flash_delta(do, out, H)
+    it = 10
+    ms = dict(
+        fwd=time_ms(torch, lambda i: kfa.flash_fwd(q, k, v, H, HKV, True,
+                                                   sc), it),
+        delta=time_ms(torch, lambda i: kfa.flash_delta(do, out, H), 50),
+        dkv=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
+            q, k, v, do, lse, delta, H, HKV, True, sc), it),
+        dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
+            q, k, v, do, lse, delta, H, HKV, True, sc), it),
+        rope=time_ms(torch, lambda i: k6.rope(q, k, cos, sin, H, HKV), 50))
+    plain_bwd = time_ms(torch, lambda i: tfa.flash_bwd_reference(
+        q, k, v, do, lse, delta, H, HKV, True, sc), 2, warm=1)
+    plain = dict(
+        fwd=time_ms(torch, lambda i: tfa.flash_fwd_reference(
+            q, k, v, H, HKV, True, sc), 2, warm=1),
+        delta=time_ms(torch, lambda i: tfa.flash_delta_reference(do, out, H),
+                      10, warm=1),
+        dkv=plain_bwd, dq=plain_bwd,
+        rope=time_ms(torch, lambda i: trope.rope_reference(
+            q, k, cos, sin, H, HKV), 10, warm=1))
+    # library yardsticks (never called by the port): SDPA forward, and its
+    # backward — which computes K3 + K4 + K5 together
+    F = torch.nn.functional
+    q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2) for x in (q, k, v))
+    lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), it)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        enable_gqa=True)
+    do4 = do.view(B, L, H, D).transpose(1, 2)
+    lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
+        o4, (qg, kg, vg), do4, retain_graph=True), it)
+    del o4, qg, kg, vg
+
+    pairs = B * H * causal_pairs(L, L)
+    el = 2                                            # bf16 bytes
+    qb, kb = B * L * H * D * el, B * L * HKV * D * el
+    stat = B * H * L * 4
+    bounds = dict(
+        fwd=bound(qb + 2 * kb + qb + stat, 4 * D * pairs),
+        delta=bound(2 * qb + stat, 2 * B * L * H * D),
+        # dK/dV must rebuild s and dp and form dv and dk: 8 D per pair;
+        # dQ rebuilds s and dp and forms dq: 6 D per pair (one backward
+        # doing all of it needs 10 D: 2.5x the forward's 4 D)
+        dkv=bound(2 * qb + 2 * kb + 2 * stat + 2 * kb, 8 * D * pairs),
+        dq=bound(2 * qb + 2 * kb + 2 * stat + qb, 6 * D * pairs),
+        rope=bound(2 * (qb + kb) + 2 * L * D * el, 6 * B * L * (H + HKV) * D))
+    lib = dict(fwd=lib_fwd, delta=None, dkv=lib_bwd, dq=None, rope=None)
+    res = {}
+    for name in ("fwd", "delta", "dkv", "dq", "rope"):
+        b_ms, b_by = bounds[name]
+        res[name] = dict(max_abs_err=err[name], ms=ms[name],
+                         plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib[name])
+        libs = "—" if lib[name] is None else f"{lib[name] * 1e3:.1f} us"
+        print(f"{name}: {ms[name] * 1e3:.1f} us/launch, plain "
+              f"{plain[name] * 1e3:.1f} us, library {libs}, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    print(f"library SDPA backward {lib_bwd * 1e3:.1f} us vs K3+K4+K5 "
+          f"{(ms['delta'] + ms['dkv'] + ms['dq']) * 1e3:.1f} us", flush=True)
+    res["dkv"]["library_covers"] = "K3+K4+K5 (SDPA backward)"
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------- phase 6
+TRAIN_CFG = dict(SERVE_CFG, recompute=True, recompute_layers=7,
+                 loss_chunk_size=8192)
+TRAIN_BATCH, TRAIN_SEQ = 16, 2048
+
+
+def kernel_counters():
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+    from paddle_tpu_torch.ops import fused_rope as trope
+    from paddle_tpu_torch.ops import fused_rope_cuda as k6
+
+    def read():
+        return dict(fwd=kfa.launches["fwd"], delta=kfa.launches["delta"],
+                    dkv=kfa.launches["dkv"], dq=kfa.launches["dq"],
+                    rope=k6.launches, plain_flash=sum(tfa.plain_runs.values()),
+                    plain_rope=trope.plain_runs, dense_sdpa=attn.dense_runs)
+
+    def zero():
+        for key in kfa.launches:
+            kfa.launches[key] = 0
+        for key in tfa.plain_runs:
+            tfa.plain_runs[key] = 0
+        k6.launches = trope.plain_runs = attn.dense_runs = 0
+    return read, zero
+
+
+def phase_train(torch, dev, n_warm=2, n_steps=5):
+    """The bench_llama training step (f32 moments) at full width."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, moment_dtype=None)
+    step = build_train_step(model, None, opt)
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    read, zero = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, labels)) for _ in range(n_warm)]
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(ids, labels) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    counts = read()
+    losses += [float(x) for x in timed]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("train losses " + " ".join(f"{x:.5f}" for x in losses), flush=True)
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    L, n = cfg.num_hidden_layers, n_steps
+    rl = cfg.recompute_layers
+    want = dict(fwd=(L + rl) * n, delta=L * n, dkv=L * n, dq=L * n,
+                rope=(L + rl + L) * n, plain_flash=0, plain_rope=0,
+                dense_sdpa=0)
+    print(f"train launches over {n} steps: {counts}", flush=True)
+    check(counts == want, f"kernel launches {counts}, expected {want}")
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / dt
+    flops_tok = 6 * n_params + 6 * L * cfg.hidden_size * TRAIN_SEQ
+    mfu = flops_tok * tok_s / H100_BF16_FLOPS
+    out = dict(params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               step_ms=dt * 1e3, tokens_per_s=tok_s, mfu=mfu,
+               peak_mem_gb=peak_gb, losses=losses,
+               launches_per_step={k: v / n for k, v in counts.items()})
+    print("train " + json.dumps(out), flush=True)
+
+    # one profiled step: device time by kernel, device-busy share of the
+    # unprofiled step's wall
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ids, labels)
+        torch.cuda.synchronize()
+    rows = sorted(((float(e.self_device_time_total), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    if not total:
+        print("profile: the profiler recorded no device time (not "
+              "measured)", flush=True)
+    else:
+        print(f"profile train step: wall {dt * 1e3:.1f} ms unprofiled, "
+              f"device {total / 1e3:.1f} ms, device busy "
+              f"{total / 1e3 / (dt * 1e3):.3f}", flush=True)
+        for us, key, count in rows[:15]:
+            print(f"profile: {us / 1e3:9.2f} ms {count:6d} launches  "
+                  f"{key[:80]}", flush=True)
+        out["device_busy"] = total / 1e3 / (dt * 1e3)
+    del model, opt, step, timed
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# ----------------------------------------------------------------- phase 7
+def phase_train_parity(torch, dev, n_steps=3, lr=1e-4):
+    """The same trainer at full width, 2 layers, f32, batch 2, seq 256, on
+    the card (kernels) and on the CPU (plain versions), from the same
+    weights and data.  Losses agree to 1e-4 relative.  Parameters: 99.99%
+    of elements within 1e-5 + 1e-5·|p| and every element within 10·lr —
+    AdamW's first updates are ~lr·sign(g), so an element whose gradient
+    is near zero may move by ~lr in opposite directions on the two
+    devices."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**{**TRAIN_CFG, "num_hidden_layers": 2,
+                         "recompute_layers": 1, "dtype": "float32"})
+    gpu = LlamaForCausalLM(cfg, device=dev, seed=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=2)
+    cpu.load_numpy_state(gpu.numpy_state())
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    read, zero = kernel_counters()
+    steps = {}
+    losses = {}
+    for tag, model in (("card", gpu), ("cpu", cpu)):
+        d = model.llama.embed_tokens.weight.device
+        st = build_train_step(model, None, AdamW(
+            learning_rate=lr, parameters=model.parameters(),
+            weight_decay=0.01))
+        zero()
+        losses[tag] = [float(st(ids.to(d), labels.to(d)))
+                       for _ in range(n_steps)]
+        steps[tag] = read()
+    print(f"parity train launches: {steps}", flush=True)
+    check(steps["card"]["fwd"] > 0 and steps["card"]["plain_flash"] == 0,
+          f"card run did not take the kernels: {steps['card']}")
+    check(steps["cpu"]["fwd"] == 0 and steps["cpu"]["plain_flash"] > 0,
+          f"cpu run did not take the plain versions: {steps['cpu']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                    losses["cpu"]))
+    print(f"parity train losses card {losses['card']} cpu {losses['cpu']} "
+          f"max rel diff {rel:.3e}", flush=True)
+    check(rel <= 1e-4, f"training losses differ card vs cpu: {rel:.3e}")
+    pg, pc = gpu.numpy_state(), cpu.numpy_state()
+    worst, n_off, n_all = 0.0, 0, 0
+    for name in pc:
+        diff = np.abs(pg[name] - pc[name])
+        worst = max(worst, float(diff.max()))
+        n_off += int((diff > 1e-5 + 1e-5 * np.abs(pc[name])).sum())
+        n_all += diff.size
+    frac = n_off / n_all
+    print(f"parity train params after {n_steps} steps: max abs diff "
+          f"{worst:.3e}, {n_off}/{n_all} ({frac:.2e}) beyond 1e-5",
+          flush=True)
+    check(frac <= 1e-4 and worst <= 10 * lr,
+          f"parameters differ card vs cpu (max {worst:.3e}, {frac:.2e})")
+    return dict(losses=losses, max_rel_loss=rel, max_param_diff=worst,
+                frac_param_off=frac)
+
+
 def main():
     try:
         import torch
@@ -519,6 +909,15 @@ def main():
     t = time.perf_counter()
     phase_parity(torch, dev)
     print(f"phase parity: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    tk = phase_train_kernels(torch, dev)
+    print(f"phase train kernels: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _, train_launches = phase_train(torch, dev)
+    print(f"phase train: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_train_parity(torch, dev)
+    print(f"phase train parity: {time.perf_counter() - t:.1f} s", flush=True)
 
     launches = serving["launches"]
     kernels = [
@@ -531,6 +930,25 @@ def main():
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",
              launches=launches["k9"], **kern["prefill_attention"]),
     ]
+    fa = "paddle_tpu/ops/flash_attention.py"
+    for kname, key, src, replaces, also in (
+            ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu",
+             f"{fa}:653", f"{fa}:571"),
+            ("flash_attention_delta", "delta", "flash_attention_bwd.cu",
+             f"{fa}:714", None),
+            ("flash_attention_bwd_dkv", "dkv", "flash_attention_bwd.cu",
+             f"{fa}:1131", None),
+            ("flash_attention_bwd_dq", "dq", "flash_attention_bwd.cu",
+             f"{fa}:1242", f"{fa}:1175"),
+            ("fused_rope", "rope", "fused_rope.cu",
+             "paddle_tpu/ops/fused_rope.py:84", None)):
+        entry = dict(name=kname, route="cuda",
+                     source=f"paddle_tpu_torch/ops/csrc/{src}",
+                     replaces=replaces, launches=train_launches[key],
+                     **tk[key])
+        if also:
+            entry["also_replaces"] = also
+        kernels.append(entry)
     for k in kernels:
         k.pop("max_ulps", None)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_impl", "h2d", "torch_dtype"]
+__all__ = ["compute_capability", "resolve_device", "resolve_impl", "h2d",
+           "torch_dtype"]
 
 IMPLS = (None, "reference", "cuda")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -39,6 +40,16 @@ def resolve_device(device=None):
             "no CUDA device is available — the port runs on the card by "
             "default; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def compute_capability(device=None):
+    """``(major, minor)`` compute capability of the CUDA card ``device``
+    (default: the current one); raises without a card.  The port's
+    kernels are built for 9.0 (Hopper, ``sm_90a``)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"compute_capability: {dev} is not a CUDA device")
+    return tuple(torch.cuda.get_device_capability(dev))
 
 
 def resolve_impl(impl, device, where):

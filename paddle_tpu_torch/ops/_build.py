@@ -21,21 +21,42 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "ptxas_report", "SOURCES"]
+__all__ = ["build", "check_card", "load", "ptxas_report", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode_attention", "prefill_attention")
+SOURCES = ("paged_decode_attention", "prefill_attention",
+           "flash_attention_fwd", "flash_attention_bwd", "fused_rope")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the only card the libraries are built for (compute capability 9.0)
+TARGET = "sm_90a"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures (every pointer and the stream as void*, ints as int)
+# C entry points of each source and their signatures (every pointer and
+# the stream as void*, ints as int)
+_FLASH_BWD = [_I, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
-    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "prefill_attention": [_I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "paged_decode_attention": {
+        "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                   _P]},
+    "prefill_attention": {
+        "prefill_attention": [_I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P]},
+    "flash_attention_fwd": {
+        "flash_attention_fwd": [_I, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "flash_attention_bwd": {
+        "flash_attention_delta": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "flash_attention_bwd_dkv": _FLASH_BWD + [
+            _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_bwd_dq": _FLASH_BWD + [
+            _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "fused_rope": {
+        "fused_rope": [_I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -96,16 +117,35 @@ def build(names=SOURCES):
     return out
 
 
+def check_card():
+    """Raise unless the current CUDA card is the one the libraries are
+    built for: compute capability 9.0, i.e. ``sm_90a`` (H100/H200).
+    Another card would only fail later, at ``ctypes`` load or launch,
+    with an error that does not say why."""
+    from paddle_tpu_torch.core import device
+
+    cc = device.compute_capability()
+    if cc != (9, 0):
+        raise RuntimeError(
+            f"the port's CUDA kernels are built for {TARGET} (compute "
+            f"capability 9.0, NVIDIA Hopper: H100/H200); this card reports "
+            f"{cc[0]}.{cc[1]} — run on a Hopper card")
+
+
 def load(name):
-    """The ctypes handle of kernel library ``name``, built if needed."""
+    """The ctypes handle of kernel library ``name``, built if needed, with
+    the signatures of its C entry points set.  Raises on a card that is
+    not ``sm_90a``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            check_card()
             build((name,))
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = _SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

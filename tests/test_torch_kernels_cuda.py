@@ -12,7 +12,11 @@ small and cover what ``chip_smoke.py`` (serving shapes, bf16) does not:
 every cache dtype the kernels take, T > 1 decode rows, C > T prefill,
 head_dim 64.  Tolerances: f32 outputs ``atol=rtol=1e-4`` (summation
 order only); K9 outputs in the cache dtype within ``2e-2`` (a few bf16
-ulps); caches after a K9 append BITWISE equal to the plain append.
+ulps); caches after a K9 append BITWISE equal to the plain append.  The
+training kernels (K1-K5 flash attention, K6 RoPE) run at every dtype,
+head_dim 64/128/256, G 1/2/3/4/8, Lq < Lk and non-causal, against their
+plain versions (tolerances at ``FLASH_TOL``; RoPE bitwise) and against
+themselves (bitwise, run to run).
 """
 import pytest
 import torch
@@ -122,3 +126,121 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tda.decode_attention(q.cpu(), kn.cpu(), kn.cpu(), kc.cpu(),
                              kc.cpu(), lengths.cpu(), chunk_size=C,
                              impl="cuda")
+
+
+# ------------------------------------------------- training kernels (K1-K6)
+from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention_cuda as kfa  # noqa: E402
+from paddle_tpu_torch.ops import fused_rope as trope  # noqa: E402
+from paddle_tpu_torch.ops import fused_rope_cuda as k6  # noqa: E402
+
+# f32: summation order only; bf16/f16: a few units in the last place of
+# the output dtype (the forward rounds p to the input dtype before p·V in
+# both, against the running max in the kernel and the final max in the
+# plain version; the backward keeps p and ds in f32, ~16 bits on the
+# tensor cores)
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+             torch.float16: dict(atol=4e-3, rtol=4e-3)}
+
+
+def _flash_inputs(dev, dtype, b, lq, lk, h, hkv, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+    return (rnd(b, lq, h * d), rnd(b, lk, hkv * d), rnd(b, lk, hkv * d),
+            rnd(b, lq, h * d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("geom", [
+    (2, 128, 128, 4, 4, 64, True), (1, 128, 256, 4, 2, 128, True),
+    (2, 128, 128, 8, 1, 128, False), (1, 64, 128, 2, 1, 256, True),
+    (1, 192, 192, 6, 2, 64, True)],
+    ids=["mha-d64", "gqa-lq<lk", "mqa-noncausal", "d256", "g3"])
+def test_flash_kernels_match_plain(dtype, geom):
+    """K1/K2 forward (out, lse), K3 delta, K4 dK/dV and K5 dQ against
+    the plain versions on the same inputs; the kernels run twice and
+    must agree bitwise with themselves (deterministic)."""
+    dev = _card()
+    b, lq, lk, h, hkv, d, causal = geom
+    q, k, v, do = _flash_inputs(dev, dtype, b, lq, lk, h, hkv, d, 11)
+    scale = d ** -0.5
+    out, lse = kfa.flash_fwd(q, k, v, h, hkv, causal, scale)
+    ref, rlse = tfa.flash_fwd_reference(q, k, v, h, hkv, causal, scale)
+    delta = kfa.flash_delta(do, out, h)
+    rdelta = tfa.flash_delta_reference(do, out, h)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                               scale)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale)
+    rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, h,
+                                            hkv, causal, scale)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(delta, rdelta, atol=1e-4, rtol=1e-5)
+    for a, r in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    dk2, dv2 = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                                 scale)
+    dq2 = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale)
+    out2, lse2 = kfa.flash_fwd(q, k, v, h, hkv, causal, scale)
+    for a, a2 in ((dq, dq2), (dk, dk2), (dv, dv2), (out, out2),
+                  (lse, lse2)):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_autograd_on_the_card_matches_cpu(dtype):
+    dev = _card()
+    q, k, v, do = _flash_inputs("cpu", dtype, 1, 128, 128, 4, 2, 128, 12)
+    grads = []
+    for device in ("cpu", dev):
+        xs = [x.detach().to(device).requires_grad_(True) for x in (q, k, v)]
+        out = tfa.flash_attention_packed(*xs, 4, 2, causal=True)
+        out.backward(do.to(device))
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for a, c in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.float(), c.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("neg", [False, True], ids=["fwd", "inverse"])
+def test_rope_kernel_matches_plain_bitwise(dtype, neg):
+    dev = _card()
+    gen = torch.Generator().manual_seed(13)
+    b, l, nh, nkv, d = 2, 256, 4, 2, 128
+    q = torch.randn(b, l, nh * d, generator=gen).to(dev, dtype)
+    k = torch.randn(b, l, nkv * d, generator=gen).to(dev, dtype)
+    ang = torch.rand(l, d, generator=gen).to(dev) * 6.0
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    oq, ok = k6.rope(q, k, cos, sin, nh, nkv, neg)
+    rq, rk = trope.rope_reference(q, k, cos, sin, nh, nkv, neg)
+    torch.cuda.synchronize()
+    assert torch.equal(oq, rq) and torch.equal(ok, rk)
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    q = torch.zeros((1, 128, 4 * 96), device=dev)
+    k = torch.zeros((1, 128, 2 * 96), device=dev)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        kfa.flash_fwd(q, k, k, 4, 2, True, 1.0)
+    q = torch.zeros((1, 256, 4 * 64), device=dev)
+    k = torch.zeros((1, 128, 2 * 64), device=dev)
+    with pytest.raises(ValueError, match="Lq <= Lk"):
+        kfa.flash_fwd(q, k, k, 4, 2, True, 1.0)
+    q1 = torch.zeros((1, 100, 4 * 64), device=dev)
+    k1 = torch.zeros((1, 128, 4 * 64), device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        kfa.flash_fwd(q1, k1, k1, 4, 4, False, 1.0)
+    with pytest.raises(ValueError, match="share one of"):
+        kfa.flash_fwd(q, k.half(), k, 4, 2, False, 1.0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        k6.rope(q.cpu(), k.cpu(), q.cpu(), q.cpu(), 4, 2)

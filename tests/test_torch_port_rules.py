@@ -24,7 +24,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def test_import_pulls_in_neither_jax_nor_the_reference():
     # a subprocess: this test process already imported jax (conftest)
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.interop, paddle_tpu_torch.ops._build\n"
+            "paddle_tpu_torch.interop, paddle_tpu_torch.ops._build, "
+            "paddle_tpu_torch.static, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.ops.chunked_ce, "
+            "paddle_tpu_torch.ops.flash_attention_cuda, "
+            "paddle_tpu_torch.ops.fused_rope_cuda, "
+            "paddle_tpu_torch.distributed.fleet\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"
@@ -62,7 +68,54 @@ def test_default_device_is_the_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tda.init_kv_cache(1, 16, 1, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(LlamaConfig.tiny())
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_training_kernels_take_no_cpu_tensors():
+    """The training path's wrappers launch their kernel or raise: a CPU
+    tensor handed to one is refused, never run through a plain version."""
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+    from paddle_tpu_torch.ops import fused_rope_cuda as k6
+
+    q = torch.zeros((1, 128, 4 * 64))
+    k = torch.zeros((1, 128, 2 * 64))
+    st = torch.zeros((1, 4, 128))
+    for call in (lambda: kfa.flash_fwd(q, k, k, 4, 2, True, 1.0),
+                 lambda: kfa.flash_delta(q, q, 4),
+                 lambda: kfa.flash_bwd_dkv(q, k, k, q, st, st, 4, 2, True,
+                                           1.0),
+                 lambda: kfa.flash_bwd_dq(q, k, k, q, st, st, 4, 2, True,
+                                          1.0),
+                 lambda: k6.rope(q, k, st[0], st[0], 4, 2)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
+
+
+@pytest.mark.parametrize("cc", [(8, 0), (9, 0), (10, 0)], ids=str)
+def test_kernels_load_only_on_hopper(cc, monkeypatch):
+    """``_build.load`` refuses any card but compute capability 9.0
+    (``sm_90a``) with an error that names it, before building."""
+    from paddle_tpu_torch.core import device
+    from paddle_tpu_torch.ops import _build
+
+    monkeypatch.setattr(device, "compute_capability", lambda dev=None: cc)
+    monkeypatch.setattr(_build, "_libs", {})
+    built = []
+
+    def build(names):
+        built.append(names)
+        raise RuntimeError("built")
+
+    monkeypatch.setattr(_build, "build", build)
+    with pytest.raises(RuntimeError) as err:
+        _build.load("fused_rope")
+    if cc == (9, 0):
+        assert str(err.value) == "built" and built == [("fused_rope",)]
+    else:
+        assert "sm_90a" in str(err.value) and not built
+        assert f"{cc[0]}.{cc[1]}" in str(err.value)
 
 
 def test_kernel_on_cpu_tensors_raises():
