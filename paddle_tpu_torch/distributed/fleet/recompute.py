@@ -15,12 +15,9 @@ __all__ = ["recompute"]
 _POLICIES = (None, "full", "dots", "dots_no_batch", "named")
 
 
-def recompute(function, *args, policy=None, preserve_rng_state=True,
-              use_reentrant=False, **kwargs):
+def recompute(function, *args, policy=None, **kwargs):
     """Run ``function(*args, **kwargs)`` keeping only its inputs for the
-    backward.  ``use_reentrant`` is accepted for API parity, as in the
-    reference; the port always uses the non-reentrant checkpoint."""
-    del use_reentrant
+    backward (the non-reentrant checkpoint)."""
     if policy not in _POLICIES:
         raise ValueError(
             f"unknown recompute policy {policy!r}; one of {_POLICIES}")
@@ -28,5 +25,4 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
         raise NotImplementedError(
             f"recompute policy {policy!r} (save selected activations) is "
             "not ported yet; None/'full' is")
-    return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=preserve_rng_state, **kwargs)
+    return checkpoint(function, *args, use_reentrant=False, **kwargs)

@@ -29,11 +29,11 @@
 // (the training path) both run their products on the tensor cores (the
 // `mma` paths below); f32, f16 and head_dim 256 run in f32 on the CUDA
 // cores with register micro-tiles.  wgmma, TMA, a pipelined tile ring and
-// a single fused pass are later work.  p and ds stay in f32 (~16 bits on
-// the tensor cores, as hi + lo bf16 parts; the reference rounds both to
-// the input dtype before the products), so bf16 gradients differ from the
-// reference's by rounding.  Every sum runs in a fixed order: results are
-// bitwise reproducible.
+// a single fused pass are later work.  As in the reference, p and ds are
+// computed in f32 and rounded to the input dtype where they enter a
+// product (dV = p^T·do, dK = ds^T·q, dQ = ds·k); ds is built from the
+// unrounded p.  Every sum runs in a fixed order: results are bitwise
+// reproducible.
 #include "flash_tile.cuh"
 
 namespace ptf {
@@ -124,8 +124,9 @@ __global__ void __launch_bounds__(kThreads)
         const int col = tx + 16 * j;
         const float p =
             key0 + col <= vis ? expf(s[i][j] * g.scale - lse_s[rr]) : 0.f;
-        Ps[rr * PS + col] = p;
-        dSs[rr * PS + col] = p * (dp[i][j] - dl_s[rr]) * g.scale;
+        Ps[rr * PS + col] = to_f32(from_f32<T>(p));
+        dSs[rr * PS + col] =
+            to_f32(from_f32<T>(p * (dp[i][j] - dl_s[rr]) * g.scale));
       }
     }
     __syncthreads();
@@ -223,7 +224,8 @@ __global__ void __launch_bounds__(kThreads)
         const int col = tx + 16 * j;
         const float p =
             key0 + col <= vis[i] ? expf(s[i][j] * g.scale - lse_s[rr]) : 0.f;
-        dSs[rr * PS + col] = p * (dp[i][j] - dl_s[rr]) * g.scale;
+        dSs[rr * PS + col] =
+            to_f32(from_f32<T>(p * (dp[i][j] - dl_s[rr]) * g.scale));
       }
     }
     __syncthreads();
@@ -252,11 +254,9 @@ __global__ void __launch_bounds__(kThreads)
 // dQ for bf16 at head_dim 64/128 with the three products on the tensor
 // cores (mma.sync, flash_tile.cuh): block = 4 warps over 64 rows, q
 // fragments in registers, per 64-key tile s = q·K^T and dp = do·V^T into
-// f32 fragments, ds = p (dp - delta) scale in registers, dq += ds·K.  ds
-// enters the last product as two bf16 parts (ds_hi + ds_lo, the
-// remainder), so the product keeps ~16 bits of ds instead of bf16's 8:
-// dq stays within f32 rounding of the plain version, where rounding ds
-// to bf16 (the reference's choice) would not.
+// f32 fragments, ds = p (dp - delta) scale in registers, dq += ds·K with
+// ds rounded to bf16 straight into the A fragments (the reference's
+// rounding point).
 namespace mma {
 
 template <int D>
@@ -347,14 +347,12 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      split_frag(s[2 * kk], s[2 * kk + 1], ah, al);
+      uint32_t a[4];
+      a_frag(s[2 * kk], s[2 * kk + 1], a);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const __nv_bfloat16* kr = Kt + (8 * n + gq) * VS + 16 * kk + 2 * tq;
-        const uint32_t b0 = ld32(kr), b1 = ld32(kr + 8);
-        mma16816(acc[n], ah, b0, b1);
-        mma16816(acc[n], al, b0, b1);
+        mma16816(acc[n], a, ld32(kr), ld32(kr + 8));
       }
     }
   }
@@ -395,9 +393,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // Per 64-row tile of the flattened query rows (q and do row-major and
 // transposed in shared memory), in two halves of 32 rows: s^T = K·q^T and
 // dp^T = V·do^T into f32 fragments, p^T and ds^T in registers, then
-// dV += p^T·do and dK += ds^T·q with p and ds entering as hi + lo bf16
-// parts (~16 bits, as K5's ds).  Causal blocks start at the first row
-// tile that sees their keys.
+// dV += p^T·do and dK += ds^T·q with p and ds rounded to bf16 into the A
+// fragments (the reference's rounding points).  Causal blocks start at
+// the first row tile that sees their keys.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const __nv_bfloat16* __restrict__ q,
@@ -491,19 +489,15 @@ __global__ void __launch_bounds__(kThreads)
         }
 #pragma unroll
       for (int x = 0; x < NH / 2; ++x) {
-        uint32_t ph[4], pl[4], dh[4], dl[4];
-        split_frag(s[2 * x], s[2 * x + 1], ph, pl);
-        split_frag(dp[2 * x], dp[2 * x + 1], dh, dl);
+        uint32_t pa[4], da[4];
+        a_frag(s[2 * x], s[2 * x + 1], pa);
+        a_frag(dp[2 * x], dp[2 * x + 1], da);
         const int ro = 16 * (2 * half + x) + 2 * tq;   // rows of this step
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
           const int t = (8 * n + gq) * TS + ro;
-          const uint32_t o0 = ld32(dOt + t), o1 = ld32(dOt + t + 8);
-          const uint32_t q0 = ld32(Qt + t), q1 = ld32(Qt + t + 8);
-          mma16816(dva[n], ph, o0, o1);
-          mma16816(dva[n], pl, o0, o1);
-          mma16816(dka[n], dh, q0, q1);
-          mma16816(dka[n], dl, q0, q1);
+          mma16816(dva[n], pa, ld32(dOt + t), ld32(dOt + t + 8));
+          mma16816(dka[n], da, ld32(Qt + t), ld32(Qt + t + 8));
         }
       }
     }

@@ -264,10 +264,8 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      a_frag(s[2 * kk], s[2 * kk + 1], pa);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const __nv_bfloat16* vr = Vt + (8 * n + gq) * VS + 16 * kk + 2 * tq;

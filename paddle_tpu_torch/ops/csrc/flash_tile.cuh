@@ -277,21 +277,15 @@ __device__ __forceinline__ void load_rows_t(__nv_bfloat16* rows,
   }
 }
 
-// A fragments of a 16 x 16 product operand taken from two adjacent 16x8
-// f32 C fragments (cols 0-7 in c0, 8-15 in c1) as two bf16 parts: hi the
-// rounded value, lo the rounded remainder, so hi·B + lo·B keeps ~16 bits
-template <typename F>
-__device__ __forceinline__ void split_frag(const F& c0, const F& c1,
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const float* f = (x < 2 ? c0 : c1) + 2 * (x & 1);
-    const float h0 = __bfloat162float(__float2bfloat16(f[0]));
-    const float h1 = __bfloat162float(__float2bfloat16(f[1]));
-    hi[x] = pack(h0, h1);
-    lo[x] = pack(f[0] - h0, f[1] - h1);
-  }
+// the A fragment of a 16 x 16 product operand from two adjacent 16x8 f32
+// C fragments (cols 0-7 in c0, 8-15 in c1), rounded to bf16
+__device__ __forceinline__ void a_frag(const float (&c0)[4],
+                                       const float (&c1)[4],
+                                       uint32_t (&a)[4]) {
+  a[0] = pack(c0[0], c0[1]);
+  a[1] = pack(c0[2], c0[3]);
+  a[2] = pack(c1[0], c1[1]);
+  a[3] = pack(c1[2], c1[3]);
 }
 
 }  // namespace mma

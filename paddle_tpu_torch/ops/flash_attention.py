@@ -12,8 +12,9 @@ plain PyTorch version below — there is no fallback on the card.
 
 The plain versions compute the same functions in f32 over blocks of
 query rows (so the ``[.., rows, Lk]`` scores stay bounded at long
-context), rounding ``p`` to the input dtype before ``p·V`` as the
-reference does; the forward returns ``out`` in the input dtype and
+context), rounding ``p`` and ``ds`` to the input dtype where they enter a
+product (``p·V``, ``p^T·dO``, ``ds^T·q``, ``ds·k``) as the reference
+does; the forward returns ``out`` in the input dtype and
 ``lse = m + log(l)`` f32 ``[B, H, Lq]`` (the reference stores the same
 rows as ``[B, Hkv, 8, Lq*G]``, sublane-replicated for TPU tiling); the
 backward rebuilds ``p = exp(s - lse)`` exactly as the kernels do.  The
@@ -179,9 +180,10 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
         qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
         s = _scores(qb, kf, scale, causal, q0, lk - lq)
         p = torch.exp(s - lse5[..., q0:q1, None])     # masked: exp(-inf)
-        dv += torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+        dv += torch.einsum("bhgqk,bhgqd->bhkd", p.to(q.dtype).float(), dob)
         dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vf)
-        ds = p * (dp - dl5[..., q0:q1, None]) * scale
+        # ds from the unrounded p, rounded once for both of its products
+        ds = (p * (dp - dl5[..., q0:q1, None]) * scale).to(q.dtype).float()
         dq[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
         dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb)
 

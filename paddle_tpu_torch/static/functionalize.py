@@ -28,7 +28,7 @@ class TrainStep:
     ``step(*inputs) -> loss`` (the network returns its loss)."""
 
     def __init__(self, network, loss_fn, optimizer, recompute=False,
-                 donate=True, amp_level=None, amp_dtype="bfloat16"):
+                 amp_level=None):
         if optimizer is None:
             raise ValueError("TrainStep needs an optimizer")
         if amp_level not in (None, "O0"):
@@ -83,6 +83,6 @@ class TrainStep:
 
 
 def build_train_step(network, loss_fn, optimizer, recompute=False,
-                     donate=True, amp_level=None, amp_dtype="bfloat16"):
+                     amp_level=None):
     return TrainStep(network, loss_fn, optimizer, recompute=recompute,
-                     donate=donate, amp_level=amp_level, amp_dtype=amp_dtype)
+                     amp_level=amp_level)

@@ -8,6 +8,8 @@ as ``[B, Hkv, 8, Lq*G]`` (sublane-replicated, row ``pos*G + g``); the
 port as ``[B, H, Lq]``: the tests compare row 0 of JAX's layout after
 that reshape.  Tolerances as the JAX package's own kernel tests
 (``tests/test_models.py``): 2e-5 forward, 2e-4 backward; delta 1e-5.
+One bf16 case holds the backward's rounding points (p and ds rounded to
+bf16 before their products) to the reference's: within one bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -91,6 +93,49 @@ def test_backward_and_delta_match_pallas_interpret(hkv, causal):
     td = tfa.flash_delta_reference(_t(do), out.detach(), h)
     np.testing.assert_allclose(td.numpy(), _stats(jd, h, hkv, l),
                                atol=1e-5, rtol=1e-5)
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in units in the last
+    place (sign-magnitude bit patterns mapped to ordered integers)."""
+    ia, ib = (x.contiguous().view(torch.int16).int() for x in (a, b))
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return (ia - ib).abs()
+
+
+@pytest.mark.parametrize("hkv,causal", [(2, True), (1, True), (4, False)],
+                         ids=["gqa", "mqa", "mha-full"])
+def test_bf16_backward_rounds_where_the_reference_rounds(hkv, causal):
+    """bf16 from the same forward residuals (JAX's out and lse): the
+    port's plain backward rounds p before p^T·dO and ds before ds^T·q and
+    ds·k, as ``_flash_bwd_pallas`` does, so dq/dk/dv land within 1 bf16
+    ulp of it; elements within 2^-12 of the tensor's largest magnitude
+    are held to that absolute bound instead (near zero, two f32 sums in
+    another order may round to values many ulps apart).  Keeping p and
+    ds in f32 puts thousands of elements beyond this bound."""
+    h, l, d = 4, 256, 128
+    q, k, v, do = _inputs(l, l, h, hkv, d, seed=21)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jo, jl = _flash_fwd_pallas(jq, jk, jv, h, hkv, causal=causal,
+                               interpret=True)
+    jg = _flash_bwd_pallas(jq, jk, jv, jo, jl, jdo, h, hkv, causal=causal,
+                           interpret=True)
+
+    def bf16(x):
+        return _t(np.asarray(x.astype(jnp.float32))).bfloat16()
+    tq, tk, tv, tdo, to = map(bf16, (jq, jk, jv, jdo, jo))
+    lse = _t(np.ascontiguousarray(_stats(jl, h, hkv, l)))
+    delta = tfa.flash_delta_reference(tdo, to, h)
+    got = tfa.flash_bwd_reference(tq, tk, tv, tdo, lse, delta, h, hkv,
+                                  causal)
+    for name, a, j in zip(("dq", "dk", "dv"), got, jg):
+        want = bf16(j)
+        assert a.dtype == torch.bfloat16
+        slack = 2.0 ** -12 * float(want.float().abs().max())
+        far = (a.float() - want.float()).abs() > slack
+        worst = int((_bf16_ulps(a, want) * far).max())
+        assert worst <= 1, f"{name}: {worst} bf16 ulps from the reference"
 
 
 def test_cross_length_causal_is_bottom_right_aligned():

@@ -16,7 +16,9 @@ ulps); caches after a K9 append BITWISE equal to the plain append.  The
 training kernels (K1-K5 flash attention, K6 RoPE) run at every dtype,
 head_dim 64/128/256, G 1/2/3/4/8, Lq < Lk and non-causal, against their
 plain versions (tolerances at ``FLASH_TOL``; RoPE bitwise) and against
-themselves (bitwise, run to run).
+themselves (bitwise, run to run).  The loss chunk's bf16 GEMM with an
+f32 result (the card's branch of ``ops/chunked_ce.py``) runs against the
+widened f32 branch.
 """
 import pytest
 import torch
@@ -137,8 +139,8 @@ from paddle_tpu_torch.ops import fused_rope_cuda as k6  # noqa: E402
 # f32: summation order only; bf16/f16: a few units in the last place of
 # the output dtype (the forward rounds p to the input dtype before p·V in
 # both, against the running max in the kernel and the final max in the
-# plain version; the backward keeps p and ds in f32, ~16 bits on the
-# tensor cores)
+# plain version; the backward rounds p and ds to the input dtype before
+# their products in both, from scores summed in another order)
 FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
              torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
              torch.float16: dict(atol=4e-3, rtol=4e-3)}
@@ -244,3 +246,34 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
         kfa.flash_fwd(q, k.half(), k, 4, 2, False, 1.0)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         k6.rope(q.cpu(), k.cpu(), q.cpu(), q.cpu(), 4, 2)
+
+
+@pytest.mark.cuda
+def test_chunked_loss_bf16_gemm_matches_the_widened_branch():
+    """The card's bf16 loss chunk (one GEMM with an f32 result) against
+    the same chunk widened to f32 first: loss within 1e-6 relative, the
+    bf16 gradients within one bf16 ulp (2^-7) of the f32 ones.  One chunk
+    (with ignored tokens): over several, a bf16 w's gradient sums the
+    chunks' parts in bf16, as the reference's scan does, and the f32
+    branch's in f32."""
+    from paddle_tpu_torch.ops.chunked_ce import chunked_token_ce
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(14)
+    n, hid, vocab = 512, 256, 1000
+    h = torch.randn(1, n, hid, generator=gen).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn(hid, vocab, generator=gen)).to(dev,
+                                                           torch.bfloat16)
+    labels = torch.randint(0, vocab, (1, n), generator=gen).to(dev)
+    labels[0, -7:] = -1
+    res = []
+    for dt in (torch.bfloat16, torch.float32):
+        hx, wx = h.to(dt).requires_grad_(True), w.to(dt).requires_grad_(True)
+        loss = chunked_token_ce(hx, labels, wx, n)
+        res.append((loss, *torch.autograd.grad(loss, (hx, wx))))
+    (lb, dhb, dwb), (lf, dhf, dwf) = res
+    torch.testing.assert_close(lb, lf, atol=0, rtol=1e-6)
+    for got, ref in ((dhb, dhf), (dwb, dwf)):
+        assert got.dtype == torch.bfloat16
+        lim = 2.0 ** -7 * ref.abs() + 2.0 ** -16 * ref.abs().max()
+        assert bool(((got.float() - ref).abs() <= lim).all())

@@ -18,6 +18,9 @@ reference's math.  All in f32:
   ``lr·g/(|g| + eps)``, so an element whose gradient is a near-cancelled
   sum ~eps moves by a visibly different amount on a different summation
   order.
+
+The chunked loss and RMSNorm are also held to the reference in bf16,
+within one bf16 unit in the last place.
 """
 import numpy as np
 import pytest
@@ -182,6 +185,39 @@ def test_chunked_loss_equals_unchunked():
     assert abs(float(l0) - float(l1)) <= 1e-6 * abs(float(l0))
     for name in g0:
         torch.testing.assert_close(g1[name], g0[name], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [512, 128], ids=["one-chunk", "4-chunks"])
+def test_bf16_chunked_loss_and_gradients_match_jax(chunk):
+    """bf16 h and w through the chunked loss against the reference's
+    ``chunked_token_ce_fn`` (f32 logits of the bf16 product): the loss
+    within 1e-6 relative; dh and dw within one bf16 unit in the last place
+    (near zero, 2^-16 of the largest magnitude).  Over several chunks the
+    bf16 w gradient sums the chunks' rounded parts in bf16 in both, so it
+    differs from one f32 sum rounded once."""
+    from paddle_tpu.ops.chunked_ce import chunked_token_ce_fn
+    from paddle_tpu_torch.ops.chunked_ce import chunked_token_ce
+
+    rng = np.random.default_rng(5)
+    n, hid, vocab = 512, 64, 300
+    h = rng.standard_normal((1, n, hid)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((hid, vocab))).astype(np.float32)
+    labels = rng.integers(0, vocab, (1, n))
+    labels[0, -5:] = -1
+    jh, jw = (jnp.asarray(x, jnp.bfloat16) for x in (h, w))
+    jl, (jdh, jdw) = jax.value_and_grad(chunked_token_ce_fn(chunk),
+                                        argnums=(0, 2))(
+        jh, jnp.asarray(labels), jw)
+    th, tw = (tensor_from_numpy(np.asarray(x)).requires_grad_(True)
+              for x in (jh, jw))
+    tl = chunked_token_ce(th, torch.from_numpy(labels), tw, chunk)
+    tdh, tdw = torch.autograd.grad(tl, (th, tw))
+    assert abs(float(tl) - float(jl)) <= 1e-6 * abs(float(jl))
+    for got, want in ((tdh, jdh), (tdw, jdw)):
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want).astype(np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
+                                   atol=2.0 ** -16 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
