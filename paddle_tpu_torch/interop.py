@@ -4,7 +4,10 @@ The two packages never share a process-level object: the tests (the only
 code that imports both) convert the reference's leaves with
 ``np.asarray`` and hand them over here.  bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16, which ``torch.from_numpy`` cannot take) cross
-by their raw 16-bit patterns, so every value arrives bit for bit.
+by their raw 16-bit patterns, so every value arrives bit for bit —
+int8 codes and f16 scales of quantized decode weights, and an
+optimizer's int8 first moments, f32 scales, bf16 second moments and f32
+master weights alike.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 
 from paddle_tpu_torch.core.device import resolve_device
 
-__all__ = ["decode_params_from_numpy", "tensor_from_numpy"]
+__all__ = ["decode_params_from_numpy", "optimizer_states_from_numpy",
+           "tensor_from_numpy"]
 
 
 def tensor_from_numpy(array):
@@ -38,3 +42,16 @@ def decode_params_from_numpy(tree, device=None):
             return type(x)(conv(v) for v in x)
         return tensor_from_numpy(np.asarray(x)).to(dev)
     return conv(tree)
+
+
+def optimizer_states_from_numpy(states, device=None):
+    """The reference's optimizer state dict ``{acc_name: {param_name:
+    array}}`` (``Optimizer.functional_init_states`` layout, as a
+    ``TrainStep`` carries it: ``moment1``/``moment2``, ``moment1@scale``
+    under int8 moments, ``master_weight`` under multi_precision),
+    converted leaf by leaf with ``np.asarray`` -> the port's, on
+    ``device``, every leaf bit for bit in its own dtype."""
+    dev = resolve_device(device)
+    return {n: {k: tensor_from_numpy(np.asarray(v)).to(dev)
+                for k, v in d.items()}
+            for n, d in states.items()}

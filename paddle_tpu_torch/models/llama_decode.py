@@ -11,6 +11,11 @@ loop of ``n_steps`` forward steps, and the caches are updated in place
 CUDA tensors (K8 decode, K9 prefill) and runs their plain versions for
 CPU tensors.
 
+``quantize_decode_weights`` makes the seven projections int8 with one
+f16 scale per output channel; ``_mm`` then dequantizes in the matmul,
+``(x @ w.to(x.dtype)) * s.to(x.dtype)``: a plain ``torch.matmul``, as
+the reference left this product to XLA outside any kernel.
+
 Rounding follows the reference: ``_rmsnorm`` normalises in f32 and
 casts to the model dtype BEFORE the gain multiply, the RoPE tables are
 in the model dtype, attention runs on f32 queries, and logits are cast
@@ -27,8 +32,13 @@ from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, init_kv_cache, slot_prefill_attention,
 )
 
-__all__ = ["extract_decode_params", "decode_greedy", "serving_prefill_chunk",
-           "serving_decode_steps"]
+__all__ = ["extract_decode_params", "decode_greedy", "quantize_decode_weights",
+           "serving_prefill_chunk", "serving_decode_steps"]
+
+#: the projections ``weight_dtype="int8"`` quantizes; norm gains, the
+#: embedding and ``lm_head`` keep the checkpoint dtype
+QUANT_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+_WEIGHT_DTYPES = ("int8",)
 
 
 def extract_decode_params(model):
@@ -56,8 +66,59 @@ def extract_decode_params(model):
     return p
 
 
+def canon_weight_dtype(dtype, where):
+    """Validate a decode-weight quantization dtype: ``None`` (off) or
+    ``"int8"``; anything else is a ValueError."""
+    if dtype is not None and str(dtype) not in _WEIGHT_DTYPES:
+        raise ValueError(f"{where}: unsupported decode weight dtype "
+                         f"{dtype!r} — supported: None, "
+                         f"{', '.join(_WEIGHT_DTYPES)}")
+    return None if dtype is None else str(dtype)
+
+
+def quantize_decode_weights(params, weight_dtype="int8"):
+    """The seven projections as int8 with symmetric per-OUTPUT-channel
+    f16 absmax scales.  Returns a NEW params dict (fresh top level,
+    layers list and per-layer dicts; the input — typically the model's
+    cached params — is never mutated): each ``lp[name] [in, out]``
+    becomes int8 codes plus ``lp[name + "_scale"]`` f16 ``[out]``.  The
+    recipe is the KV cache's over the input axis, with ``amax / 127``
+    divided as the reference engine runs it (eagerly, at construction):
+    ``scale = f16(amax / 127)``, codes ``clip(round(w / f32(scale)),
+    ±127)`` through the reciprocal of the f16 scale."""
+    if canon_weight_dtype(weight_dtype, "quantize_decode_weights") is None:
+        return params
+
+    def quant(w):
+        wf = w.float()
+        amax = wf.abs().amax(dim=0)
+        # a device tensor divisor: PyTorch's CUDA kernels would multiply
+        # by the reciprocal of a Python-scalar divisor
+        scale = (amax / amax.new_tensor(127.0)).to(torch.float16)
+        inv = 1.0 / torch.clamp(scale.float(), min=1e-8)
+        q = torch.clamp(torch.round(wf * inv[None, :]), -127.0, 127.0)
+        return q.to(torch.int8), scale
+
+    out = dict(params)
+    layers = []
+    for lp in params["layers"]:
+        nlp = dict(lp)
+        for name in QUANT_WEIGHTS:
+            nlp[name], nlp[name + "_scale"] = quant(lp[name])
+        layers.append(nlp)
+    out["layers"] = layers
+    return out
+
+
 def _mm(x, lp, name):
-    return x @ lp[name]
+    """``x @ lp[name]``; with a sibling ``name + "_scale"`` (int8 weights)
+    the codes cast into the activation dtype (exact: |code| <= 127) and
+    the per-output-channel scale multiplies the product."""
+    w = lp[name]
+    s = lp.get(name + "_scale")
+    if s is None:
+        return x @ w
+    return (x @ w.to(x.dtype)) * s.to(x.dtype)
 
 
 def _rmsnorm(x, w, eps):

@@ -26,23 +26,25 @@ __all__ = ["build", "check_card", "load", "ptxas_report", "SOURCES"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_decode_attention", "prefill_attention",
-           "flash_attention_fwd", "flash_attention_bwd", "fused_rope")
+           "flash_attention_fwd", "flash_attention_bwd", "fused_rope",
+           "fused_adamw")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the only card the libraries are built for (compute capability 9.0)
 TARGET = "sm_90a"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each source and their signatures (every pointer and
 # the stream as void*, ints as int)
 _FLASH_BWD = [_I, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     "paged_decode_attention": {
-        "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P,
+        "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                    _P]},
     "prefill_attention": {
-        "prefill_attention": [_I, _P, _P, _P, _P, _P, _P, _P,
+        "prefill_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                               _P]},
     "flash_attention_fwd": {
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "fused_rope": {
         "fused_rope": [_I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P]},
+    "fused_adamw": {
+        "fused_adamw_q8": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L]
+        + [_F] * 9 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,9 @@
 // rows of one kv head in shared memory and folds the keys into an f32
 // online softmax, 32 keys at a time — one warp lane per key for the
 // scores and the row max/sum, one thread per (row, dim) pair of the
-// accumulator, which lives in registers.
+// accumulator, which lives in registers.  Keys and values arrive in
+// shared memory as f32 whatever the cache stores: float caches widen,
+// int8 caches dequantize (code * f16 scale, exact in f32).
 //
 // The recurrence is the reference's (paddle_tpu/ops/decode_attention.py
 // _attend_chunked): scores s = q.k * scale, masked lanes held at -1e30
@@ -17,6 +19,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ptt {
 
@@ -69,6 +72,67 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
     const int s = e / D, d = e - s * D;
     dst[s * ld + d] = to_f32(src[base + s * stride + d]);
   }
+}
+
+// The int8 counterpart of load_rows: n rows of D codes, each with one f16
+// scale, dequantized into the shared tile as f32(code) * f32(scale) — the
+// reference's _q8_dequant, one exact product per element.  The codes of
+// row s start at element base + s * stride of src (a multiple of D), its
+// scale at element (base + s * stride) / D of scl.  With D a multiple of
+// 16 each thread moves 16 codes per 16-byte load (the caller guarantees
+// 16-byte alignment of src then).
+__device__ __forceinline__ void load_rows_q8(float* dst, int ld,
+                                             const int8_t* src,
+                                             const __half* scl,
+                                             long long base, long long stride,
+                                             int n, int D) {
+  if ((D & 15) == 0) {
+    const int per = D >> 4;
+    for (int e = threadIdx.x; e < n * per; e += kThreads) {
+      const int s = e / per, c = e - s * per;
+      const long long row = base + s * stride;
+      const uint4 w = *reinterpret_cast<const uint4*>(src + row + c * 16);
+      const float sc = __half2float(scl[row / D]);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+      float* o = dst + s * ld + c * 16;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        o[j] = __fmul_rn(static_cast<float>(b[j]), sc);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < n * D; e += kThreads) {
+    const int s = e / D, d = e - s * D;
+    const long long row = base + s * stride;
+    dst[s * ld + d] = __fmul_rn(static_cast<float>(src[row + d]),
+                                __half2float(scl[row / D]));
+  }
+}
+
+// The reference's _q8_quantize of one row of D <= kMaxD f32 values, by one
+// warp (lane holds d = lane + 32 j): scale = f16(amax * f32(1/127)) —
+// what XLA compiles the reference's amax / 127 into — and the codes
+// clip(rint(x * (1 / max(f32(scale), 1e-8))), +-127), each operation
+// rounded once, to nearest even.  Returns the scale; q[j] holds the code
+// of d = lane + 32 j as a float (0 past D).
+__device__ __forceinline__ __half q8_row(const float* x, int D, int lane,
+                                         float (&q)[kMaxD / 32]) {
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxD / 32; ++j) {
+    const int d = lane + 32 * j;
+    q[j] = d < D ? x[d] : 0.f;
+    amax = fmaxf(amax, fabsf(q[j]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const __half sc = __float2half_rn(__fmul_rn(amax, 1.f / 127.f));
+  const float inv = __fdiv_rn(1.f, fmaxf(__half2float(sc), 1e-8f));
+#pragma unroll
+  for (int j = 0; j < kMaxD / 32; ++j)
+    q[j] = fminf(fmaxf(rintf(__fmul_rn(q[j], inv)), -127.f), 127.f);
+  return sc;
 }
 
 // Copy R query rows (contiguous, f32) into shared memory and reset the

@@ -1,7 +1,7 @@
 """Incremental-decode attention over a preallocated KV cache.
 
-Counterpart of ``paddle_tpu/ops/decode_attention.py`` (float caches).
-Two cache geometries, both with the head axis at index 2:
+Counterpart of ``paddle_tpu/ops/decode_attention.py``.  Two cache
+geometries, both with the head axis at index 2:
 
 * DENSE ``[B, Lmax, Hkv, D]`` — one contiguous row span per slot;
 * PAGED — a global block pool ``[N, C, Hkv, D]`` indirected through a
@@ -16,12 +16,21 @@ sites read like the reference.  Porting notes, kept as invariants:
 * **Out-of-bounds semantics are explicit.**  JAX drops scatter writes
   past capacity (``mode="drop"``) and clamps gathers; PyTorch raises on
   the CPU and device-asserts on CUDA.  ``_append`` reproduces the drop
-  with a masked write (``_masked_row_write``) that never leaves the
+  with a masked write (``_write_rows``) that never leaves the
   device, and every gather clamps its index.
 * **Where dtypes round** follows the reference: queries are upcast to
   f32 before attention and the read runs in f32 whatever the cache
   dtype.
 * **Integer widths**: lengths, offsets and block tables are int32.
+
+``dtype="int8"`` makes each of k/v a ``(data int8 [..., D], scale f16
+[...])`` pair: one symmetric absmax scale per (position, head), stored
+with the same indices minus the head-dim axis.  Rows are quantized
+INSIDE the append (``_q8_quantize``: ``scale = f16(amax / 127)``, codes
+``clip(round(x / f32(scale)), ±127)`` through the reciprocal of the
+f16-ROUNDED scale, so dequantization with the stored scale reproduces
+each element to within half a step) and dequantized inside every read
+(``code * f32(scale)``, exact in f32).
 
 The cache READ has two implementations behind one wrapper per kernel:
 the plain PyTorch online-softmax loop here (``_attend_read``, the CPU
@@ -30,57 +39,99 @@ hand-written Hopper kernels — K8 (``ops/paged_attention_cuda.py``) for
 decode and K9 (``ops/prefill_attention_cuda.py``) for a chunked-prefill
 step, which also appends the chunk's K/V.  ``impl=None`` picks the
 kernel for CUDA tensors and the plain version for CPU tensors; nothing
-falls back silently.  int8 caches are not ported yet.
+falls back silently.
 """
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device, torch_dtype
+from paddle_tpu_torch.ops.fused_adamw import INV127
 from paddle_tpu_torch.ops import paged_attention_cuda as _k8
 from paddle_tpu_torch.ops import prefill_attention_cuda as _k9
 
-__all__ = ["init_kv_cache", "init_kv_pool", "decode_attention",
-           "masked_lengths", "slot_prefill_attention"]
+__all__ = ["init_kv_cache", "init_kv_pool", "decode_attention", "kv_data",
+           "kv_dtype", "masked_lengths", "slot_prefill_attention"]
 
 _NEG_INF = -1e30
 
-_KV_DTYPES = ("float32", "float16", "bfloat16")
+_KV_DTYPES = ("float32", "float16", "bfloat16", "int8")
+_Q8_MAX = 127.0
+#: the per-(position, head) scale of an int8 cache: f16 keeps the bytes
+#: per token at (D + 2) / (2 D) of a bf16 cache
+Q8_SCALE_DTYPE = torch.float16
 
 
 def kv_dtype(dtype, where):
-    """Validate a cache dtype (name or ``torch.dtype``) -> torch dtype.
-    ``int8`` (the quantized cache) belongs to a later slice and raises
-    ``NotImplementedError``; anything else unsupported is a ValueError."""
+    """Validate a cache dtype (name or ``torch.dtype``) -> torch dtype
+    (``torch.int8`` for the quantized cache); anything else unsupported
+    is a ValueError."""
     name = str(dtype).replace("torch.", "")
-    if name == "int8":
-        raise NotImplementedError(
-            f"{where}: int8 KV caches are not ported yet (the int8 KV and "
-            "weights slice brings them, with the int8 branches of K8/K9)")
     if name not in _KV_DTYPES:
         raise ValueError(f"{where}: unsupported KV cache dtype {dtype!r} — "
                          f"supported: {', '.join(_KV_DTYPES)}")
-    return torch_dtype(name)
+    return torch.int8 if name == "int8" else torch_dtype(name)
+
+
+def kv_data(cache):
+    """The storage leaf of one cache operand (an int8 cache is a
+    ``(data, scale)`` pair)."""
+    return cache[0] if isinstance(cache, tuple) else cache
+
+
+def _alloc(shape, dt, dev):
+    if dt == torch.int8:
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=Q8_SCALE_DTYPE, device=dev))
+    return torch.zeros(shape, dtype=dt, device=dev)
 
 
 def init_kv_cache(batch, max_len, num_kv_heads, head_dim, dtype="bfloat16",
                   device=None):
-    """Preallocate a dense (k, v) cache pair ``[B, Lmax, Hkv, D]``."""
+    """Preallocate a dense (k, v) cache pair ``[B, Lmax, Hkv, D]`` (for
+    ``"int8"`` each a ``(data, scale [B, Lmax, Hkv] f16)`` pair)."""
     dt = kv_dtype(dtype, "init_kv_cache")
     shape = (batch, max_len, num_kv_heads, head_dim)
     dev = resolve_device(device)
-    return (torch.zeros(shape, dtype=dt, device=dev),
-            torch.zeros(shape, dtype=dt, device=dev))
+    return _alloc(shape, dt, dev), _alloc(shape, dt, dev)
 
 
 def init_kv_pool(num_blocks, block, num_kv_heads, head_dim,
                  dtype="bfloat16", device=None):
-    """Preallocate a paged (k, v) pool pair ``[N, C, Hkv, D]``."""
+    """Preallocate a paged (k, v) pool pair ``[N, C, Hkv, D]`` (for
+    ``"int8"`` each a ``(data, scale [N, C, Hkv] f16)`` pair sharing the
+    block-table indirection)."""
     dt = kv_dtype(dtype, "init_kv_pool")
     shape = (num_blocks, block, num_kv_heads, head_dim)
     dev = resolve_device(device)
-    return (torch.zeros(shape, dtype=dt, device=dev),
-            torch.zeros(shape, dtype=dt, device=dev))
+    return _alloc(shape, dt, dev), _alloc(shape, dt, dev)
+
+
+def _q8_quantize(x):
+    """Symmetric absmax int8 quantization over the trailing (D) axis:
+    ``(codes int8 [..., D], scale f16 [...])``.  ``scale = f16(amax *
+    f32(1/127))`` — what XLA compiles the reference's ``amax / 127``
+    into inside its serving programs — and the codes divide by the
+    f16-ROUNDED scale (through its f32 reciprocal) and clip to ±127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = (amax * INV127).to(Q8_SCALE_DTYPE)
+    inv = 1.0 / torch.clamp(scale.float(), min=1e-8)
+    q = torch.clamp(torch.round(xf * inv[..., None]), -_Q8_MAX, _Q8_MAX)
+    return q.to(torch.int8), scale
+
+
+def _q8_dequant(q, scale):
+    """Inverse of ``_q8_quantize``: f32 values (``code * f32(scale)``,
+    exact in f32)."""
+    return q.float() * scale.float()[..., None]
+
+
+def _as_f32(cache):
+    """A cache operand (or a slice/gather of one) as f32 values."""
+    if isinstance(cache, tuple):
+        return _q8_dequant(*cache)
+    return cache.float()
 
 
 def masked_lengths(lengths, live, lmax):
@@ -94,67 +145,90 @@ def masked_lengths(lengths, live, lmax):
                                        dtype=torch.int32))
 
 
-def _masked_row_write(flat, target, valid, values):
-    """``flat[target[i]] = values[i]`` for every ``valid[i]``; invalid
-    writes are dropped.  Device-side only (no host sync): an invalid
-    write is re-pointed at the FIRST valid write's target with that
-    write's value — a duplicate index carrying an identical value, so the
-    result does not depend on the order ``index_put_`` applies them — or,
-    when nothing is valid, at row 0 with row 0's current value.  Every
-    index is a 1-element tensor: indexing with a 0-d tensor would turn
-    into a host read (``.item()``) and stall the stream."""
-    j = torch.argmax(valid.to(torch.int32)).reshape(1)
-    any_valid = valid.any()
-    t_fb = torch.where(any_valid, target.index_select(0, j),
-                       torch.zeros_like(j))
-    v_fb = torch.where(any_valid, values.index_select(0, j),
-                       flat.index_select(0, t_fb))
-    idx = torch.where(valid, target, t_fb)
-    shape = (-1,) + (1,) * (values.dim() - 1)
-    vals = torch.where(valid.view(shape), values, v_fb)
-    flat.index_put_((idx,), vals)
-
-
-def _append(cache, new, lengths, block_table=None):
-    """Write ``new [B, T, Hkv, D]`` into ``cache`` (in place) at per-row
-    offsets ``lengths [B]``.  Writes past the capacity are DROPPED, never
-    clamped.  With ``block_table [B, W]`` the cache is a pool
-    ``[N, C, Hkv, D]`` and any position past the table's ``W*C`` span, or
-    mapped to a sentinel entry ``>= N``, is dropped too — parked slots
-    (offset ``lmax``) write nothing."""
-    if not cache.is_contiguous():
-        raise ValueError("_append: the cache must be contiguous")
-    b, t = new.shape[0], new.shape[1]
-    dev = cache.device
+def _write_rows(leaves, lengths, block_table=None):
+    """Write each ``(cache, rows [B, T, ...])`` of ``leaves`` in place at
+    per-row offsets ``lengths [B]``; every leaf has the same leading
+    ``[B, Lmax]`` (dense) or ``[N, C]`` (pool) axes, so the positions and
+    the drop rule are computed once for all of them.  Writes past the
+    capacity are DROPPED, never clamped; with ``block_table [B, W]`` any
+    position past the table's ``W*C`` span, or mapped to a sentinel
+    entry ``>= N``, is dropped too — parked slots (offset ``lmax``) write
+    nothing.  Device-side only (no host sync): a dropped write is
+    re-pointed at the FIRST valid write's target with that write's value
+    — a duplicate index carrying an identical value, so the result does
+    not depend on the order ``index_put_`` applies them — or, when
+    nothing is valid, at row 0 with row 0's current value.  Every index
+    is a 1-element tensor: indexing with a 0-d tensor would turn into a
+    host read (``.item()``) and stall the stream."""
+    cache0, new0 = leaves[0]
+    for cache, _ in leaves:
+        if not cache.is_contiguous():
+            raise ValueError("_append: the cache must be contiguous")
+    b, t = new0.shape[0], new0.shape[1]
+    dev = cache0.device
     l = lengths.to(device=dev, dtype=torch.int32)[:, None] \
         + torch.arange(t, dtype=torch.int32, device=dev)[None, :]  # [B, T]
     if block_table is None:
-        lmax = cache.shape[1]
+        lmax = cache0.shape[1]
         valid = l < lmax
         rows = torch.arange(b, device=dev, dtype=torch.int64)[:, None]
         target = rows * lmax + l.clamp(0, lmax - 1).to(torch.int64)
     else:
-        n_blocks, c = cache.shape[0], cache.shape[1]
+        n_blocks, c = cache0.shape[0], cache0.shape[1]
         w = block_table.shape[1]
         tbl = block_table.to(device=dev, dtype=torch.int64)
         blk = torch.gather(tbl, 1, (l // c).clamp(0, w - 1).to(torch.int64))
         valid = (l < w * c) & (blk >= 0) & (blk < n_blocks)
         target = blk.clamp(0, n_blocks - 1) * c + (l % c).to(torch.int64)
-    flat = cache.view(cache.shape[0] * cache.shape[1], *cache.shape[2:])
-    _masked_row_write(flat, target.reshape(-1), valid.reshape(-1),
-                      new.reshape(b * t, *new.shape[2:]).to(cache.dtype))
+    target, valid = target.reshape(-1), valid.reshape(-1)
+    j = torch.argmax(valid.to(torch.int32)).reshape(1)
+    any_valid = valid.any()
+    t_fb = torch.where(any_valid, target.index_select(0, j),
+                       torch.zeros_like(j))
+    idx = torch.where(valid, target, t_fb)
+    for cache, new in leaves:
+        flat = cache.view(cache.shape[0] * cache.shape[1], *cache.shape[2:])
+        values = new.reshape(b * t, *new.shape[2:]).to(cache.dtype)
+        v_fb = torch.where(any_valid, values.index_select(0, j),
+                           flat.index_select(0, t_fb))
+        shape = (-1,) + (1,) * (values.dim() - 1)
+        flat.index_put_((idx,), torch.where(valid.view(shape), values, v_fb))
+
+
+def _leaves(cache, new):
+    """``(storage leaf, rows)`` pairs of one cache operand: an int8
+    ``(data, scale)`` cache quantizes ``new`` here, inside the append, and
+    writes codes and scales with the same indices, so the drop rules hold
+    for both."""
+    if isinstance(cache, tuple):
+        qn, sn = _q8_quantize(new)
+        return [(cache[0], qn), (cache[1], sn)]
+    return [(cache, new)]
+
+
+def _append(cache, new, lengths, block_table=None):
+    """Write ``new [B, T, Hkv, D]`` into ``cache`` (in place) at per-row
+    offsets ``lengths [B]`` under ``_write_rows``'s drop rules."""
+    _write_rows(_leaves(cache, new), lengths, block_table)
     return cache
+
+
+def _append_kv(k_cache, v_cache, k_new, v_new, lengths, block_table=None):
+    """``_append`` of K and V together: one position computation for
+    every leaf of both caches."""
+    _write_rows(_leaves(k_cache, k_new) + _leaves(v_cache, v_new), lengths,
+                block_table)
 
 
 def _attend_full(qg, k_cache, v_cache, q_pos, scale):
     """Single masked read over the whole dense ``[Lmax]`` cache."""
-    lmax = k_cache.shape[1]
-    s = torch.einsum("bkgtd,blkd->bkgtl", qg, k_cache.float()) * scale
+    lmax = kv_data(k_cache).shape[1]
+    s = torch.einsum("bkgtd,blkd->bkgtl", qg, _as_f32(k_cache)) * scale
     k_idx = torch.arange(lmax, dtype=torch.int32, device=qg.device)
     live = k_idx[None, None, :] <= q_pos[:, :, None]            # [B, T, L]
     s = torch.where(live[:, None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgtl,blkd->bkgtd", p, v_cache.float())
+    return torch.einsum("bkgtl,blkd->bkgtd", p, _as_f32(v_cache))
 
 
 def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
@@ -166,20 +240,23 @@ def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
     (length ``>= lmax``) do not extend it and come back as finite
     garbage.  With ``block_table`` the chunk ``i`` of row ``b`` is pool
     block ``clamp(table[b, i], 0, N-1)`` (a sentinel reads a real block
-    whose rows the causal mask discards)."""
+    whose rows the causal mask discards).  int8 caches dequantize each
+    chunk right after its slice / gather, scales through the same
+    indices."""
     b, hkv, g, t, d = qg.shape
     c = int(chunk)
     dev = qg.device
+    k_data = kv_data(k_cache)
     if block_table is not None:
-        if k_cache.shape[1] != c:
+        if k_data.shape[1] != c:
             raise ValueError(
                 f"paged _attend_chunked: chunk ({c}) must equal the pool "
-                f"block size ({k_cache.shape[1]})")
+                f"block size ({k_data.shape[1]})")
         tbl = block_table.to(device=dev, dtype=torch.int64)
         lmax = tbl.shape[1] * c
-        n_blocks = k_cache.shape[0]
+        n_blocks = k_data.shape[0]
     else:
-        lmax = k_cache.shape[1]
+        lmax = k_data.shape[1]
     n_chunks = -(-lmax // c)
     lengths = lengths.to(device=dev, dtype=torch.int32)
     eff = torch.where(lengths < lmax, lengths, torch.zeros_like(lengths))
@@ -191,12 +268,17 @@ def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
         start = min(i * c, lmax - c)  # clamped tail start
         if block_table is not None:
             idx = tbl[:, i].clamp(0, n_blocks - 1)
-            kb, vb = k_cache[idx], v_cache[idx]                # [B, C, Hkv, D]
+
+            def read(cache):
+                return _as_f32(tuple(x[idx] for x in cache)
+                               if isinstance(cache, tuple) else cache[idx])
         else:
-            kb = k_cache[:, start:start + c]
-            vb = v_cache[:, start:start + c]
-        kb = kb.transpose(1, 2).float()                        # [B, Hkv, C, D]
-        vb = vb.transpose(1, 2).float()
+            def read(cache):
+                return _as_f32(tuple(x[:, start:start + c] for x in cache)
+                               if isinstance(cache, tuple)
+                               else cache[:, start:start + c])
+        kb = read(k_cache).transpose(1, 2)                     # [B, Hkv, C, D]
+        vb = read(v_cache).transpose(1, 2)
         s = torch.einsum("bkgtd,bkcd->bkgtc", qg, kb) * scale
         k_idx = start + torch.arange(c, dtype=torch.int32, device=dev)
         # causal AND not already folded (the clamped tail re-reads
@@ -230,7 +312,7 @@ def _attend_read(qg, k_cache, v_cache, lengths, scale, chunk_size,
     if block_table is not None:
         return _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale,
                                int(chunk_size), block_table)
-    lmax = k_cache.shape[1]
+    lmax = kv_data(k_cache).shape[1]
     if chunk_size is not None and int(chunk_size) < lmax:
         return _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale,
                                int(chunk_size))
@@ -259,7 +341,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, lengths, scale=None,
     q ``[B, T, H, D]``; k_new/v_new ``[B, T, Hkv, D]``; caches dense
     ``[B, Lmax, Hkv, D]`` or, with ``block_table [B, W]`` (int32), a pool
     ``[N, C, Hkv, D]`` read through the table (``chunk_size`` must then
-    equal ``C``).  ``lengths [B]`` int32: valid positions BEFORE this
+    equal ``C``); an int8 cache is a ``(data, scale)`` pair of each.
+    ``lengths [B]`` int32: valid positions BEFORE this
     step; query ``t`` sits at ``lengths + t`` and sees every position up
     to it.  ``impl`` selects the read: ``None`` by device, ``"reference"``
     the plain loop, ``"cuda"`` the K8 kernel (raising on a geometry it
@@ -268,18 +351,18 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, lengths, scale=None,
     b, t, h, d = q.shape
     hkv = k_new.shape[2]
     if block_table is not None:
-        if chunk_size is None or int(chunk_size) != k_cache.shape[1]:
+        blk = kv_data(k_cache).shape[1]
+        if chunk_size is None or int(chunk_size) != blk:
             raise ValueError(
                 f"decode_attention: paged caches require chunk_size == pool "
-                f"block size ({k_cache.shape[1]}), got {chunk_size}")
+                f"block size ({blk}), got {chunk_size}")
     if hkv <= 0 or h % hkv:
         raise ValueError(
             f"decode_attention: query heads ({h}) must be an integer "
             f"multiple of kv heads ({hkv})")
     scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
     lengths = lengths.to(torch.int32)
-    _append(k_cache, k_new, lengths, block_table)
-    _append(v_cache, v_new, lengths, block_table)
+    _append_kv(k_cache, v_cache, k_new, v_new, lengths, block_table)
     qg = _group_queries(q, hkv)
     out = _k8.paged_decode_attention(qg, k_cache, v_cache, lengths, scale,
                                      chunk_size, block_table, impl=impl)
@@ -296,15 +379,16 @@ def _prefill_reference(q, k_new, v_new, k_cache, v_cache, slot, offset,
     off = torch.full((1,), int(offset), dtype=torch.int32, device=q.device)
     qg = _group_queries(q, hkv)
     if block_table is not None:
-        _append(k_cache, k_new, off, block_table)
-        _append(v_cache, v_new, off, block_table)
+        _append_kv(k_cache, v_cache, k_new, v_new, off, block_table)
         out = _attend_read(qg, k_cache, v_cache, off, scale, chunk_size,
                            block_table)
     else:
-        ks = k_cache[slot:slot + 1]    # views: the appends land in place
-        vs = v_cache[slot:slot + 1]
-        _append(ks, k_new, off)
-        _append(vs, v_new, off)
+        def row(cache):                # views: the appends land in place
+            if isinstance(cache, tuple):
+                return tuple(x[slot:slot + 1] for x in cache)
+            return cache[slot:slot + 1]
+        ks, vs = row(k_cache), row(v_cache)
+        _append_kv(ks, vs, k_new, v_new, off)
         out = _attend_read(qg, ks, vs, off, scale, chunk_size)
     return _ungroup(out, q.dtype), k_cache, v_cache
 
@@ -326,7 +410,8 @@ def slot_prefill_attention(q, k_new, v_new, k_cache, v_cache, slot, offset,
     launch; it needs ``offset`` to be a multiple of the chunk width).
 
     q ``[1, P, H, D]``; k_new/v_new ``[1, P, Hkv, D]``.  Returns
-    ``(out [1, P, H, D], k_cache, v_cache)``."""
+    ``(out [1, P, H, D], k_cache, v_cache)``; an int8 cache (a ``(data,
+    scale)`` pair of each) quantizes the chunk's rows on append."""
     b, t, h, d = q.shape
     if b != 1:
         raise ValueError(
@@ -340,15 +425,15 @@ def slot_prefill_attention(q, k_new, v_new, k_cache, v_cache, slot, offset,
     slot, offset = int(slot), int(offset)
     trow = None
     if block_table is not None:
-        blk = k_cache.shape[1]
+        blk = kv_data(k_cache).shape[1]
         if chunk_size is None or int(chunk_size) != blk:
             raise ValueError(
                 f"slot_prefill_attention: paged caches require "
                 f"chunk_size == kv_block (the pool block size): got "
                 f"chunk_size={chunk_size!r} with kv_block={blk}")
         trow = block_table[slot:slot + 1]
-    elif not 0 <= slot < k_cache.shape[0]:
+    elif not 0 <= slot < kv_data(k_cache).shape[0]:
         raise ValueError(f"slot_prefill_attention: slot {slot} out of range "
-                         f"[0, {k_cache.shape[0]})")
+                         f"[0, {kv_data(k_cache).shape[0]})")
     return _k9.prefill_attention(q, k_new, v_new, k_cache, v_cache, slot,
                                  offset, scale, chunk_size, trow, impl=impl)

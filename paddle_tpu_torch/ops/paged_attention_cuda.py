@@ -3,9 +3,11 @@ PyTorch version.
 
 Replaces the TPU kernel ``fused_decode_attention``
 (``paddle_tpu/ops/paged_attention_pallas.py:195``, its ``pallas_call``
-at :259, kernel body ``_fused_kernel`` :118) for float caches.  The
-kernel source is ``csrc/paged_decode_attention.cu``; its note says what
-bounds it on the card and how the design answers that.
+at :259, kernel body ``_fused_kernel`` :118) for float caches and, with
+``quant=True`` (:160-163), for int8 caches: a ``(data int8, scale f16)``
+pair per K and V, dequantized in the kernel as ``code * f32(scale)``.
+The kernel source is ``csrc/paged_decode_attention.cu``; its note says
+what bounds it on the card and how the design answers that.
 
 ``paged_decode_attention`` is the one entry: on CPU tensors it runs the
 plain version (``ops/decode_attention._attend_read``, the reference's
@@ -31,7 +33,46 @@ plain_runs = 0
 
 _KEYS = 32          # keys per kernel sub-tile (one warp lane per key)
 _MAX_D = 256        # head_dim the kernel's register accumulator covers
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3}
+
+
+def cache_operands(k_cache, v_cache, where):
+    """``(dtype code, k data, v data, k scale or None, v scale or None)``
+    of a float cache pair or an int8 ``(data, scale)`` pair — checked for
+    matching shapes and dtypes, contiguity, and the 16-byte alignment the
+    int8 loads need."""
+    if isinstance(k_cache, tuple) != isinstance(v_cache, tuple):
+        raise ValueError(f"{where}: k and v caches must both be int8 "
+                         "(data, scale) pairs or both float tensors")
+    if isinstance(k_cache, tuple):
+        (kd, ks), (vd, vs) = k_cache, v_cache
+        if kd.dtype != torch.int8 or vd.dtype != torch.int8 \
+                or ks.dtype != torch.float16 or vs.dtype != torch.float16 \
+                or ks.shape != kd.shape[:-1] or vs.shape != vd.shape[:-1]:
+            raise ValueError(f"{where}: an int8 cache is (data int8 "
+                             "[..., D], scale float16 [...]) per K and V")
+        if any(x.data_ptr() % 16 for x in (kd, vd)):
+            raise ValueError(f"{where}: int8 cache data must be 16-byte "
+                             "aligned")
+    else:
+        kd, vd, ks, vs = k_cache, v_cache, None, None
+        if kd.dtype not in _DTYPE_CODE or kd.dtype == torch.int8:
+            raise ValueError(
+                f"{where}: cache dtype {kd.dtype} — the kernel takes "
+                "float32/bfloat16/float16 or an int8 (data, scale) pair")
+    if vd.dtype != kd.dtype or vd.shape != kd.shape:
+        raise ValueError(f"{where}: k and v caches differ: "
+                         f"{kd.dtype} {tuple(kd.shape)} vs {vd.dtype} "
+                         f"{tuple(vd.shape)}")
+    for x in (kd, vd, ks, vs):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{where}: the caches must be contiguous")
+    return _DTYPE_CODE[kd.dtype], kd, vd, ks, vs
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
 
 
 def fused_decode_supported(chunk_size, lmax, head_dim):
@@ -58,7 +99,8 @@ def paged_decode_attention_reference(qg, k_cache, v_cache, lengths, scale,
                                      chunk_size, block_table=None):
     """The plain version: ``qg [B, Hkv, G, T, D]`` f32 against the dense
     ``[B, Lmax, Hkv, D]`` cache or the ``[N, C, Hkv, D]`` pool through
-    ``block_table [B, W]``; returns ``[B, Hkv, G, T, D]`` f32."""
+    ``block_table [B, W]`` (float, or int8 ``(data, scale)`` pairs);
+    returns ``[B, Hkv, G, T, D]`` f32."""
     global plain_runs
     from paddle_tpu_torch.ops.decode_attention import _attend_read
 
@@ -73,7 +115,8 @@ def paged_decode_attention(qg, k_cache, v_cache, lengths, scale, chunk_size,
 
     ``qg [B, Hkv, G, T, D]`` f32 (queries at positions ``lengths + t``),
     caches dense ``[B, Lmax, Hkv, D]`` or paged ``[N, C, Hkv, D]`` with
-    ``block_table [B, W]`` int32, ``lengths [B]`` int32 (pre-append;
+    ``block_table [B, W]`` int32 — float tensors or int8 ``(data,
+    scale)`` pairs —, ``lengths [B]`` int32 (pre-append;
     parked slots at ``>= lmax`` return finite garbage).  ``impl``:
     ``None`` by device, ``"reference"`` the plain version, ``"cuda"`` the
     kernel.  Returns ``[B, Hkv, G, T, D]`` f32."""
@@ -94,19 +137,15 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
                          "[B, Hkv, G, T, D] float32 tensor")
     b, hkv, g, t, d = qg.shape
     dev = qg.device
-    if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype:
-        raise ValueError(
-            f"paged_decode_attention: cache dtypes {k_cache.dtype}/"
-            f"{v_cache.dtype} — the kernel takes float32/bfloat16/float16")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+    code, kd, vd, ks, vs = cache_operands(k_cache, v_cache,
+                                          "paged_decode_attention")
+    for name, x in (("k_cache", kd), ("v_cache", vd), ("lengths", lengths)):
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be a "
                              f"contiguous tensor on {dev}")
-    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 \
-            or k_cache.shape[2] != hkv or k_cache.shape[3] != d:
+    if kd.dim() != 4 or kd.shape[2] != hkv or kd.shape[3] != d:
         raise ValueError(
-            f"paged_decode_attention: cache shape {tuple(k_cache.shape)} "
+            f"paged_decode_attention: cache shape {tuple(kd.shape)} "
             f"does not match qg {tuple(qg.shape)}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError("paged_decode_attention: lengths must be int32 [B]")
@@ -116,19 +155,19 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
                 or not block_table.is_contiguous():
             raise ValueError("paged_decode_attention: block_table must be "
                              f"a contiguous int32 [B, W] tensor on {dev}")
-        c = k_cache.shape[1]
+        c = kd.shape[1]
         n_chunks = block_table.shape[1]
         lmax = n_chunks * c
-        n_blocks = k_cache.shape[0]
+        n_blocks = kd.shape[0]
         if chunk_size is not None and int(chunk_size) != c:
             raise ValueError(
                 f"paged_decode_attention: chunk_size ({chunk_size}) must "
                 f"equal the pool block ({c})")
     else:
-        if k_cache.shape[0] != b:
+        if kd.shape[0] != b:
             raise ValueError("paged_decode_attention: dense cache batch "
-                             f"{k_cache.shape[0]} != {b}")
-        lmax = k_cache.shape[1]
+                             f"{kd.shape[0]} != {b}")
+        lmax = kd.shape[1]
         n_blocks = 0
     reason = fused_decode_supported(chunk_size, lmax, d)
     if reason is not None:
@@ -140,9 +179,8 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_decode_attention(
-            _DTYPE_CODE[k_cache.dtype], qg.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(),
-            block_table.data_ptr() if block_table is not None else None,
+            code, qg.data_ptr(), kd.data_ptr(), vd.data_ptr(), _ptr(ks),
+            _ptr(vs), _ptr(block_table),
             lengths.data_ptr(), out.data_ptr(), b, hkv, g, t, d, c, n_chunks,
             lmax, n_blocks, float(scale), stream)
     if rc != 0:

@@ -3,8 +3,12 @@ Hopper kernel and its plain PyTorch version.
 
 Replaces the TPU kernel ``fused_prefill_attention``
 (``paddle_tpu/ops/prefill_attention_pallas.py:328``, its ``pallas_call``
-at :418, kernel body ``_prefill_kernel`` :102) for float caches.  The
-kernel source is ``csrc/prefill_attention.cu``.
+at :418, kernel body ``_prefill_kernel`` :102) for float caches and,
+with ``quant=True`` (:217-234, :265-267, :296-300), for int8 ``(data,
+scale)`` caches: the append quantizes each new row bit for bit as
+``decode_attention._q8_quantize`` does, and the chunk's own rows attend
+through their quantized-then-dequantized values.  The kernel source is
+``csrc/prefill_attention.cu``.
 
 ``prefill_attention`` is the one entry: on CPU tensors it runs the plain
 version (``ops/decode_attention._prefill_reference``: append, then the
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.device import resolve_impl
+from paddle_tpu_torch.ops.paged_attention_cuda import _ptr, cache_operands
 
 __all__ = ["fused_prefill_supported", "prefill_attention",
            "prefill_attention_reference"]
@@ -35,7 +40,6 @@ plain_runs = 0
 
 _KEYS = 32
 _MAX_D = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_prefill_supported(chunk_size, lmax, t, paged, head_dim):
@@ -82,7 +86,8 @@ def prefill_attention(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
     """One admission chunk: q ``[1, T, H, D]``, k_new/v_new
     ``[1, T, Hkv, D]``; caches dense ``[B, Lmax, Hkv, D]`` (rows of slot
     ``slot``) or a pool ``[N, C, Hkv, D]`` through ``block_table
-    [1, W]`` (the slot's table row).  ``offset`` (host int) is the write
+    [1, W]`` (the slot's table row), float or int8 ``(data, scale)``
+    pairs.  ``offset`` (host int) is the write
     cursor.  Returns ``(out [1, T, H, D] in q.dtype, k_cache, v_cache)``
     with the chunk appended in place."""
     impl = resolve_impl(impl, q.device, "prefill_attention")
@@ -105,23 +110,19 @@ def _launch(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
     hkv = k_new.shape[2]
     g = h // hkv
     dev = q.device
-    if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype:
-        raise ValueError(
-            f"prefill_attention: cache dtypes {k_cache.dtype}/"
-            f"{v_cache.dtype} — the kernel takes float32/bfloat16/float16")
+    code, kd, vd, ks, vs = cache_operands(k_cache, v_cache,
+                                          "prefill_attention")
     if k_new.shape != (1, t, hkv, d) or v_new.shape != k_new.shape:
         raise ValueError("prefill_attention: k_new/v_new must be "
                          f"[1, {t}, Hkv, {d}]")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("k_new", k_new), ("v_new", v_new)):
+    for name, x in (("k_cache", kd), ("v_cache", vd), ("k_new", k_new),
+                    ("v_new", v_new)):
         if x.device != dev:
             raise ValueError(f"prefill_attention: {name} is not on {dev}")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()) \
-            or k_cache.shape != v_cache.shape or k_cache.dim() != 4 \
-            or k_cache.shape[2] != hkv or k_cache.shape[3] != d:
+    if kd.dim() != 4 or kd.shape[2] != hkv or kd.shape[3] != d:
         raise ValueError(
-            f"prefill_attention: caches must be contiguous "
-            f"[., ., {hkv}, {d}], got {tuple(k_cache.shape)}")
+            f"prefill_attention: caches must be [., ., {hkv}, {d}], got "
+            f"{tuple(kd.shape)}")
     paged = block_table is not None
     if paged:
         if block_table.dtype != torch.int32 or block_table.dim() != 2 \
@@ -129,18 +130,18 @@ def _launch(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
             raise ValueError("prefill_attention: block_table must be the "
                              f"slot's int32 [1, W] row on {dev}")
         block_table = block_table.contiguous()
-        c = k_cache.shape[1]
+        c = kd.shape[1]
         w = block_table.shape[1]
         span = w * c
-        n_blocks = k_cache.shape[0]
+        n_blocks = kd.shape[0]
         if chunk_size is not None and int(chunk_size) != c:
             raise ValueError(
                 f"prefill_attention: chunk_size ({chunk_size}) must equal "
                 f"the pool block ({c})")
     else:
-        if not 0 <= slot < k_cache.shape[0]:
+        if not 0 <= slot < kd.shape[0]:
             raise ValueError(f"prefill_attention: slot {slot} out of range")
-        span = k_cache.shape[1]
+        span = kd.shape[1]
         w, n_blocks = 0, 0
     reason = fused_prefill_supported(chunk_size, span, t, paged, d)
     if reason is not None:
@@ -159,17 +160,19 @@ def _launch(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
     q2 = q.reshape(t, hkv, g, d).permute(1, 2, 0, 3).reshape(hkv, g * t, d) \
         .float().contiguous()
     # the new rows are rounded to the cache dtype BEFORE attention, as the
-    # reference reads them back from the cache after its scatter
-    kn = k_new.reshape(t, hkv, d).to(k_cache.dtype).contiguous()
-    vn = v_new.reshape(t, hkv, d).to(k_cache.dtype).contiguous()
+    # reference reads them back from the cache after its scatter; an int8
+    # cache takes them in f32 (exact) and quantizes them in the kernel
+    new_dt = torch.float32 if ks is not None else kd.dtype
+    kn = k_new.reshape(t, hkv, d).to(new_dt).contiguous()
+    vn = v_new.reshape(t, hkv, d).to(new_dt).contiguous()
     out = torch.empty((hkv, g * t, d), dtype=torch.float32, device=dev)
     lib = _build.load("prefill_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.prefill_attention(
-            _DTYPE_CODE[k_cache.dtype], q2.data_ptr(), kn.data_ptr(),
-            vn.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            block_table.data_ptr() if paged else None, out.data_ptr(),
+            code, q2.data_ptr(), kn.data_ptr(), vn.data_ptr(), kd.data_ptr(),
+            vd.data_ptr(), _ptr(ks), _ptr(vs), _ptr(block_table),
+            out.data_ptr(),
             hkv, g, t, d, c, w, n_blocks, span, slot, offset, float(scale),
             stream)
     if rc != 0:

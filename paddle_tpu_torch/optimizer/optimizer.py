@@ -1,7 +1,7 @@
 """Optimizer base: accumulator dtypes and the functional update.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py`` (:91-100,
-:238-336).  Each optimizer defines ``_update(param, grad, state, lr)`` on
+:212-336).  Each optimizer defines ``_update(param, grad, state, lr)`` on
 plain tensors; ``functional_init_states`` and ``functional_update`` run it
 over flat ``{name: tensor}`` dicts — what the training step
 (``static/functionalize.py``) calls.  As in the reference:
@@ -14,20 +14,30 @@ over flat ``{name: tensor}`` dicts — what the training step
 * ``multi_precision=True`` keeps f32 master weights of low-precision
   parameters, updated in f32.
 
-``moment_dtype="int8"`` (int8 first moments with a scale per 256 values,
-updated by the fused AdamW kernel K7) is not ported yet: the next slice
-brings it.  Gradient clipping and learning-rate schedulers are not
-ported yet either.
+``moment_dtype="int8"`` stores FIRST moments (``moment1``, ``moment``,
+``velocity``, ``avg_grad``) as int8 codes with one f32 absmax scale per
+256 values of the flat tensor (``<name>@scale``, ``ceil(n / 256)``
+long) and second moments as bf16 (``_moment_storage``).  On the CPU the
+update decodes the codes, runs ``_update`` in f32 and re-encodes, as the
+reference does off the TPU; on the card an optimizer may take the fused
+kernel instead (``_try_fused_q8``: Adam and AdamW route every int8-moment
+parameter through K7, ``ops/fused_adamw.py``, which updates the
+parameter and its state in place).  Gradient clipping and learning-rate
+schedulers are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops.fused_adamw import q8_decode, q8_encode
+
 __all__ = ["Optimizer"]
 
 _LOW = (torch.bfloat16, torch.float16)
 _MOMENT_DTYPES = {None: None, "float32": torch.float32,
-                  "bfloat16": torch.bfloat16}
+                  "bfloat16": torch.bfloat16, "int8": torch.int8}
+#: the accumulators ``moment_dtype="int8"`` stores as int8 codes
+_FIRST_MOMENTS = ("moment1", "moment", "velocity", "avg_grad")
 
 
 class Optimizer:
@@ -41,11 +51,6 @@ class Optimizer:
                 "learning-rate schedulers are not ported yet: pass a float")
         if grad_clip is not None:
             raise NotImplementedError("gradient clipping is not ported yet")
-        if moment_dtype == "int8":
-            raise NotImplementedError(
-                "moment_dtype='int8' (int8 first moments, updated by the "
-                "fused AdamW kernel K7) is not ported yet: the next slice "
-                "brings it; use None, 'float32' or 'bfloat16'")
         if moment_dtype not in _MOMENT_DTYPES:
             raise ValueError(f"unknown moment_dtype {moment_dtype!r}; one of "
                              f"{sorted(k for k in _MOMENT_DTYPES if k)}, None")
@@ -70,32 +75,60 @@ class Optimizer:
         optimizer."""
         raise NotImplementedError
 
-    def _acc_dtype(self, v):
-        if self._moment_dtype is not None and v.is_floating_point():
-            return self._moment_dtype
-        return torch.float32 if v.dtype in _LOW else v.dtype
+    def _moment_storage(self, name):
+        """Storage dtype of accumulator ``name`` (``None``: f32 for low
+        precision parameters, else the parameter's).  ``"int8"`` makes
+        first moments int8 and second moments bf16: grad² spans too much
+        range for linear int8."""
+        md = self._moment_dtype
+        if md == torch.int8:
+            return torch.int8 if name in _FIRST_MOMENTS else torch.bfloat16
+        return md
 
     def functional_init_states(self, params):
-        """``{acc_name: {param_name: zeros}}`` (plus ``master_weight``
-        under multi_precision) for ``params {name: tensor}``."""
-        states = {n: {k: torch.zeros(v.shape, dtype=self._acc_dtype(v),
-                                     device=v.device)
-                      for k, v in params.items()}
-                  for n in self._accum_names}
+        """``{acc_name: {param_name: zeros}}`` (plus ``<acc>@scale`` for
+        int8 accumulators and ``master_weight`` under multi_precision)
+        for ``params {name: tensor}``."""
+        states = {}
+        for n in self._accum_names:
+            stor = self._moment_storage(n)
+
+            def acc_dtype(v, stor=stor):
+                if stor is not None and v.is_floating_point():
+                    return stor
+                return torch.float32 if v.dtype in _LOW else v.dtype
+
+            states[n] = {k: torch.zeros(v.shape, dtype=acc_dtype(v),
+                                        device=v.device)
+                         for k, v in params.items()}
+            if stor == torch.int8:
+                states[n + "@scale"] = {
+                    k: torch.zeros((-(-v.numel() // 256),),
+                                   dtype=torch.float32, device=v.device)
+                    for k, v in params.items() if v.is_floating_point()}
         if self._multi_precision:
             states["master_weight"] = {
                 k: v.detach().float() for k, v in params.items()
                 if v.dtype in _LOW}
         return states
 
+    def _decode_state(self, states, n, k):
+        sv = states[n][k]
+        if sv.dtype == torch.int8 and n + "@scale" in states:
+            return q8_decode(sv, states[n + "@scale"][k])
+        return sv.float()
+
     @torch.no_grad()
     def functional_update(self, params, grads, states, lr):
         """One update over flat dicts: returns ``(new_params,
         new_states)``.  ``grads[k] is None`` passes a parameter (and its
-        state) through untouched."""
+        state) through untouched.  A parameter the fused int8 kernel
+        takes is updated in place, with its state; the returned dicts
+        then hold the same tensors."""
         new_params = {}
         new_states = {n: {} for n in states}
         masters = states.get("master_weight", {})
+        fused = getattr(self, "_try_fused_q8", None)
         for k, p in params.items():
             g = grads.get(k)
             if g is None:
@@ -104,15 +137,35 @@ class Optimizer:
                     if k in states[n]:
                         new_states[n][k] = states[n][k]
                 continue
-            g = g.float() if g.dtype == torch.bfloat16 else g
             base = masters.get(k, p)
+            # the reference widens a bf16 gradient to f32, then adds the
+            # L2 term; the fused kernel widens in registers (exact), so
+            # without an L2 term it reads the gradient as it is
             if self._l2_coeff and not getattr(self, "_decoupled", False):
+                g = g.float() if g.dtype == torch.bfloat16 else g
                 g = g + self._l2_coeff * base.to(g.dtype)
-            st = {n: states[n][k].float() for n in self._accum_names}
+            if fused is not None:
+                res = fused(k, p, g, states, masters, lr)
+                if res is not None:
+                    new_params[k] = res[0]
+                    if res[1] is not None:
+                        new_states["master_weight"][k] = res[1]
+                    for n, t in zip(("moment1", "moment1@scale", "moment2"),
+                                    res[2:]):
+                        new_states[n][k] = t
+                    continue
+            g = g.float() if g.dtype == torch.bfloat16 else g
+            st = {n: self._decode_state(states, n, k)
+                  for n in self._accum_names}
             new_p, ns = self._update(base, g, st, lr, k)
             new_params[k] = new_p.to(p.dtype)
             if k in masters:
                 new_states["master_weight"][k] = new_p.float()
             for n, v in ns.items():
-                new_states[n][k] = v.to(states[n][k].dtype)
+                if states[n][k].dtype == torch.int8 \
+                        and n + "@scale" in states:
+                    new_states[n][k], new_states[n + "@scale"][k] = \
+                        q8_encode(v)
+                else:
+                    new_states[n][k] = v.to(states[n][k].dtype)
         return new_params, new_states

@@ -1,18 +1,22 @@
 """Adam and AdamW.
 
 Counterpart of ``paddle_tpu/optimizer/optimizers.py`` (``_pow_t``,
-``Adam``, ``AdamW`` :14-83, :152-188): the same update, elementwise in
-f32 on plain tensors.  AdamW decays decoupled from the gradient:
+``Adam``, ``AdamW`` :14-188): the same update, elementwise in f32 on
+plain tensors.  AdamW decays decoupled from the gradient:
 ``p * (1 - lr * coeff) - lr * mhat / (sqrt(vhat) + eps)``.  The bias
 corrections use the step counter the training step sets
-(``_global_step``).  No kernel computes this update in the reference's
-f32-moment path either; the fused int8-moment kernel (K7) is the next
-slice's.
+(``_global_step``).  No kernel computes the f32-moment update, in the
+reference either.  With ``moment_dtype="int8"`` on the card, every
+parameter goes through the fused kernel K7 (``_try_fused_q8``, the
+counterpart of the reference's :85-149) whatever its size: the kernel
+handles a ragged last block itself, where the reference sent sizes that
+are not multiples of 256 to its jnp path.
 """
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops.fused_adamw import adamw_scalars, fused_adamw_q8
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
 __all__ = ["Adam", "AdamW"]
@@ -55,6 +59,29 @@ class Adam(Optimizer):
         upd = _f32(lr) * mhat / (vhat.sqrt() + self._eps)
         return p.float() - upd, new_state
 
+    def _decay_of(self, name):
+        return 0.0
+
+    def _try_fused_q8(self, k, p, g, states, masters, lr):
+        """Route an int8-moment parameter on the card through K7 (one
+        pass: decode, AdamW, re-encode), in place.  Returns ``(p,
+        master, codes, scales, v)``, or ``None`` where the kernel does
+        not apply: other moment storage, or CPU tensors, which take the
+        decode / ``_update`` / encode path as the reference does off the
+        TPU."""
+        m = states.get("moment1", {}).get(k)
+        v = states.get("moment2", {}).get(k)
+        sc = states.get("moment1@scale", {}).get(k)
+        if m is None or v is None or sc is None:
+            return None
+        if m.dtype != torch.int8 or v.dtype != torch.bfloat16 \
+                or m.device.type != "cuda":
+            return None
+        scal = adamw_scalars(self._beta1, self._beta2, self._eps, lr,
+                             self._global_step, self._decay_of(k))
+        return fused_adamw_q8(p, g.contiguous(), m, sc, v, scal,
+                              master=masters.get(k))
+
 
 class AdamW(Adam):
     """Decoupled weight decay (``weight_decay`` is its coefficient)."""
@@ -76,11 +103,14 @@ class AdamW(Adam):
                        if isinstance(weight_decay, (int, float)) else 0.01)
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _update(self, p, g, state, lr, name=""):
-        decay = self._coeff
+    def _decay_of(self, name):
         if (self._apply_decay_param_fun is not None
                 and not self._apply_decay_param_fun(name)):
-            decay = 0.0
+            return 0.0
+        return self._coeff
+
+    def _update(self, p, g, state, lr, name=""):
+        decay = self._decay_of(name)
         lr32 = _f32(lr)
         p_decayed = p.float() * (1.0 - lr32 * decay)
         mhat, vhat, new_state = self._moments(g, state)

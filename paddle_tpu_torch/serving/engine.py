@@ -39,8 +39,15 @@ hand-written kernels (K8 decode, K9 prefill); ``attn_impl`` /
 ``cpu``, a geometry the kernels do not cover fails at construction, and
 nothing falls back.
 
+* **int8 KV and weights**: ``kv_dtype="int8"`` stores every cache as
+  ``(data, scale)`` pairs, quantized on append and dequantized in the
+  kernels' reads (K8, K9); ``weight_dtype="int8"`` quantizes the seven
+  decode projections once, at construction, into a fresh params dict
+  (``quantize_decode_weights``), dequantized in the matmul.  Both are
+  axes of the ``ProgramKey``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-speculative decoding, int8 KV and weights, tensor parallelism, the
+speculative decoding, tensor parallelism, the
 reliability layer (deadlines, load shedding, retries, fault injection,
 preemption), the request-scoped observability layer (flight recorder,
 SLO tracker, watchdog), the host KV tier, prefill/decode disaggregation
@@ -58,7 +65,8 @@ import torch
 
 from paddle_tpu_torch.core.device import h2d, resolve_impl
 from paddle_tpu_torch.models.llama_decode import (
-    _decode_params_of, serving_decode_steps, serving_prefill_chunk,
+    QUANT_WEIGHTS, _decode_params_of, canon_weight_dtype,
+    quantize_decode_weights, serving_decode_steps, serving_prefill_chunk,
 )
 from paddle_tpu_torch.ops.decode_attention import kv_dtype as _kv_dtype
 from paddle_tpu_torch.ops.paged_attention_cuda import fused_decode_supported
@@ -192,7 +200,9 @@ class ServingEngine:
     ``prefill_budget``: prompt tokens per prefill dispatch and dispatches
     per step.  ``kv_block`` / ``max_live_tokens``: the paged KV pool
     (forces ``decode_chunk = kv_block``).  ``kv_dtype``: cache storage
-    dtype override (float dtypes).  ``attn_impl`` / ``prefill_impl``:
+    dtype override (a float dtype, or ``"int8"``).  ``weight_dtype``:
+    ``"int8"`` quantizes the decode projections.  ``attn_impl`` /
+    ``prefill_impl``:
     ``None`` (by device), ``"cuda"`` (kernels; the only choice on the
     card) or ``"reference"`` (plain versions; CPU only).  ``registry`` /
     ``instrument``: metrics.  ``recorder`` defaults to ``False`` here —
@@ -219,8 +229,6 @@ class ServingEngine:
             raise ValueError(f"unknown mode {mode!r}")
         if policy not in ("continuous", "gang"):
             raise ValueError(f"unknown policy {policy!r}")
-        if weight_dtype is not None:
-            _not_ported(where, "weight_dtype", "int8 KV and weights")
         if mesh is not None or tp_axis is not None or tp_overlap is not None:
             _not_ported(where, "tensor parallelism (mesh=, tp_axis=, "
                         "tp_overlap=)", "tensor-parallel serving")
@@ -272,6 +280,12 @@ class ServingEngine:
         nh, nkv, hd, _ = self._cfg
         dtype = (_kv_dtype(kv_dtype, where) if kv_dtype is not None
                  else self._params["embed"].dtype)
+        self._q8 = dtype == torch.int8
+        self._w8 = canon_weight_dtype(weight_dtype, where) == "int8"
+        if self._w8:
+            # a fresh dict: the model's cached params (views of its
+            # parameters) are never replaced or mutated
+            self._params = quantize_decode_weights(self._params, "int8")
         self._attn_impl = _resolve_engine_impl("attn_impl", attn_impl,
                                                self._device)
         self._prefill_impl = _resolve_engine_impl(
@@ -288,7 +302,9 @@ class ServingEngine:
                 raise ValueError(f"{where}: the prefill kernel (K9) does "
                                  f"not cover this geometry — {reason}")
         self._pk = ProgramKey(attn_impl=self._attn_impl,
-                              prefill_impl=self._prefill_impl)
+                              prefill_impl=self._prefill_impl,
+                              kv_dtype="int8" if self._q8 else None,
+                              weight_dtype="int8" if self._w8 else None)
         if self._paged:
             self._kv = PagedKVCacheManager(
                 len(self._params["layers"]), self._B, self._lmax, nkv, hd,
@@ -302,6 +318,22 @@ class ServingEngine:
                                       device=self._device)
         if self._m is not None:
             self._m.set_kernels(self._attn_impl, self._prefill_impl)
+            self._m.set_kv_quant("int8" if self._q8 else "off")
+            self._m.set_weight_quant("int8" if self._w8 else "off")
+            n_layers = len(self._params["layers"])
+            if self._q8:
+                # per context token: 1 byte per (head, dim) element plus a
+                # 2-byte f16 scale per (position, head), k and v, every
+                # layer
+                self._m.hbm_gb_per_tok_q8.set(
+                    n_layers * 2 * nkv * (hd + 2) / 1e9)
+            if self._w8:
+                # per generated token: every projection element once (1
+                # byte) plus 2 bytes of scale per output channel
+                self._m.hbm_gb_per_tok_w8.set(sum(
+                    lp[n].numel() + 2 * lp[n + "_scale"].numel()
+                    for lp in self._params["layers"]
+                    for n in QUANT_WEIGHTS) / 1e9)
         # paged decode-time row growth is capped per slot by the token
         # budget reserved at admission (prompt + max_new + headroom)
         self._need_rows = np.zeros((self._B,), np.int64)

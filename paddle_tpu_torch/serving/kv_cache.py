@@ -5,9 +5,10 @@ Counterpart of ``paddle_tpu/serving/kv_cache.py`` (``KVCacheManager`` and
 block-chain export/import are not ported yet).  The manager owns the
 per-slot facts the scheduler reads and the device steps consume:
 
-* ``caches`` — the per-layer ``(k, v)`` tensors, allocated once and then
-  updated IN PLACE by every dispatch (the reference rebound donated
-  outputs instead).  Nothing here keeps an older copy of them.
+* ``caches`` — the per-layer ``(k, v)`` tensors (for an int8 cache, each
+  a ``(data, scale)`` pair), allocated once and then updated IN PLACE by
+  every dispatch (the reference rebound donated outputs instead).
+  Nothing here keeps an older copy of them.
 * ``lengths`` — the host int32 mirror of each slot's write offset.
   ``device_lengths`` masks it: a dead slot gets ``max_len``, so its cache
   writes drop (the write-drop parking invariant).
@@ -25,7 +26,9 @@ from __future__ import annotations
 import numpy as np
 
 from paddle_tpu_torch.core.device import h2d
-from paddle_tpu_torch.ops.decode_attention import init_kv_cache, init_kv_pool
+from paddle_tpu_torch.ops.decode_attention import (
+    init_kv_cache, init_kv_pool, kv_data,
+)
 
 __all__ = ["KVCacheManager", "PagedKVCacheManager", "KVPoolExhausted"]
 
@@ -46,7 +49,7 @@ class KVCacheManager:
         self.caches = [init_kv_cache(self.batch_size, self.max_len,
                                      num_kv_heads, head_dim, dtype, device)
                        for _ in range(n_layers)]
-        self.device = self.caches[0][0].device
+        self.device = kv_data(self.caches[0][0]).device
         self.lengths = np.zeros((self.batch_size,), np.int32)
         self.reqs = [None] * self.batch_size
 
@@ -131,7 +134,7 @@ class PagedKVCacheManager(KVCacheManager):
         self.caches = [init_kv_pool(self.num_blocks, self.block,
                                     num_kv_heads, head_dim, dtype, device)
                        for _ in range(n_layers)]
-        self.device = self.caches[0][0].device
+        self.device = kv_data(self.caches[0][0]).device
         self.lengths = np.zeros((self.batch_size,), np.int32)
         self.reqs = [None] * self.batch_size
         self.block_tables = np.full((self.batch_size, self.width),

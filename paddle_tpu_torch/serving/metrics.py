@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``,
 trimmed to the families this slice's engine posts: request and token
 counters, TTFT / TPOT / end-to-end latency, queue wait, chunked-prefill
 progress, the pipelined-dispatch stall, paged-pool occupancy, prefix
-reuse, and the decode / prefill implementation info gauges.  The series
+reuse, the decode / prefill implementation info gauges, and the int8
+KV / weight quantization info gauges with their analytic bytes per
+token (``paddle_tpu/serving/metrics.py:279-290, 323-335``).  The series
 live in ``registry`` (default: the process-wide one) under a ``policy``
 label; every touch is host-side bookkeeping.
 """
@@ -15,6 +17,7 @@ from paddle_tpu_torch.observability.metrics import get_registry
 __all__ = ["EngineMetrics"]
 
 _IMPLS = ("reference", "cuda")
+_QUANT_MODES = ("off", "int8")
 
 
 class EngineMetrics:
@@ -122,6 +125,34 @@ class EngineMetrics:
         for impl in _IMPLS:
             self._decode_kernel.labels(policy=policy, impl=impl).set(0)
             self._prefill_kernel.labels(policy=policy, impl=impl).set(0)
+        # quantization info gauges (every mode pre-registered to 0, the
+        # active one set to 1 at construction) and the analytic bytes
+        # per token at int8 (0 when unquantized)
+        self._kv_quant_mode = reg.gauge(
+            "serving_kv_quant_mode",
+            "KV cache quantization mode info gauge: the child whose "
+            "mode label names the active storage scheme reads 1, every "
+            "other pre-registered child 0", ("policy", "mode"))
+        self.hbm_gb_per_tok_q8 = reg.gauge(
+            "serving_hbm_gb_per_tok_q8",
+            "analytic KV bytes (GB) read per context token at int8 "
+            "storage: layers * 2 * Hkv * (D + 2 scale bytes); zero when "
+            "kv_dtype is unquantized", L).labels(**lbl)
+        self._weight_quant_mode = reg.gauge(
+            "serving_weight_quant_mode",
+            "decode matmul weight quantization mode info gauge: the "
+            "child whose mode label names the active storage scheme "
+            "reads 1, every other pre-registered child 0",
+            ("policy", "mode"))
+        self.hbm_gb_per_tok_w8 = reg.gauge(
+            "serving_hbm_gb_per_tok_w8",
+            "analytic decode-weight bytes (GB) read per generated token "
+            "at int8 storage: every projection element once (1 byte) + "
+            "2 f16 scale bytes per output channel; zero when "
+            "weight_dtype is unquantized", L).labels(**lbl)
+        for mode in _QUANT_MODES:
+            self._kv_quant_mode.labels(policy=policy, mode=mode).set(0)
+            self._weight_quant_mode.labels(policy=policy, mode=mode).set(0)
 
     def prefill(self, bucket):
         self._prefills.labels(policy=self._policy, bucket=bucket).inc()
@@ -133,6 +164,18 @@ class EngineMetrics:
                 1 if i == decode_impl else 0)
             self._prefill_kernel.labels(policy=self._policy, impl=i).set(
                 1 if i == prefill_impl else 0)
+
+    def set_kv_quant(self, mode):
+        """Point the KV-quant info gauge at ``mode`` ('off' or 'int8')."""
+        for m in _QUANT_MODES:
+            self._kv_quant_mode.labels(policy=self._policy, mode=m).set(
+                1 if m == mode else 0)
+
+    def set_weight_quant(self, mode):
+        """Point the weight-quant info gauge at ``mode``."""
+        for m in _QUANT_MODES:
+            self._weight_quant_mode.labels(policy=self._policy, mode=m).set(
+                1 if m == mode else 0)
 
     def set_kv_blocks(self, used, free):
         self.kv_blocks_used.set(used)

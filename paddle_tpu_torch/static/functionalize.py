@@ -10,7 +10,11 @@ get no update), then the optimizer's ``functional_update`` over flat
 step.  After each step the module's parameters hold the new values: they
 are copied in place, so every view of a parameter (the serving path's
 decode params alias them) sees the update.  Optimizer state lives on the
-step object, as in the reference.
+step object, as in the reference, and is carried in each tensor's own
+storage dtype — with ``moment_dtype="int8"`` int8 codes, f32 scales and
+bf16 second moments, never widened between steps.  On the card the
+fused int8 AdamW (K7) updates parameters and state in place, so the
+copy back is a self copy, which PyTorch skips.
 
 Gradient clipping, amp, ZeRO sharding and gradient merge are not ported
 yet and raise.

@@ -9,6 +9,12 @@ port runs its plain versions (CPU tensors).  Tolerances are f32:
 BITWISE equal.  Parked rows (offset ``lmax``) are finite garbage in both
 packages and are compared only against the JAX reference path, which
 computes them the same way (the fused kernel reads one chunk for them).
+
+int8 caches (``(data, scale)`` pairs) run the same comparisons: the
+quantize-on-append must give BITWISE the reference's codes and f16
+scales — the reference compiled, as its serving programs run it, where
+XLA multiplies by ``f32(1/127)`` for ``amax / 127`` — and the attention
+outputs agree at the f32 tolerance (dequantization is exact in f32).
 """
 import jax
 import jax.numpy as jnp
@@ -44,21 +50,48 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _decode_case(rng, t, paged):
+def _q8_cache(rng, shape):
+    """A random int8 cache leaf pair: codes in [-127, 127] and positive
+    f16 scales (numpy, for both packages)."""
+    return (rng.integers(-127, 128, shape).astype(np.int8),
+            rng.uniform(1e-3, 5e-2, shape[:-1]).astype(np.float16))
+
+
+def _j(c):
+    return tuple(jnp.asarray(x) for x in c) if isinstance(c, tuple) \
+        else jnp.asarray(c)
+
+
+def _tt(c):
+    return tuple(_t(x) for x in c) if isinstance(c, tuple) else _t(c)
+
+
+def _same(tc, jc):
+    """Caches bitwise equal (both leaves of an int8 cache)."""
+    if isinstance(tc, tuple):
+        for a, b in zip(tc, jc):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    else:
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def _decode_case(rng, t, paged, q8=False):
     """Ragged lengths 0, C-1, C and a parked slot at lmax; a shuffled
     table whose unneeded entries (and the parked row) hold sentinels."""
     lengths = np.array([0, C - 1, C, LMAX], np.int32)
     q = rng.standard_normal((B, t, HKV * G, D)).astype(np.float32)
     kn = rng.standard_normal((B, t, HKV, D)).astype(np.float32)
     vn = rng.standard_normal((B, t, HKV, D)).astype(np.float32)
+
+    def cache(shape):
+        return _q8_cache(rng, shape) if q8 \
+            else rng.standard_normal(shape).astype(np.float32)
     if not paged:
         shape = (B, LMAX, HKV, D)
-        kc = rng.standard_normal(shape).astype(np.float32)
-        vc = rng.standard_normal(shape).astype(np.float32)
+        kc, vc = cache(shape), cache(shape)
         return q, kn, vn, kc, vc, lengths, None
     shape = (N_BLOCKS, C, HKV, D)
-    kc = rng.standard_normal(shape).astype(np.float32)
-    vc = rng.standard_normal(shape).astype(np.float32)
+    kc, vc = cache(shape), cache(shape)
     ids = list(rng.permutation(N_BLOCKS))
     table = np.full((B, W), N_BLOCKS, np.int32)
     for b in range(B - 1):
@@ -68,28 +101,68 @@ def _decode_case(rng, t, paged):
     return q, kn, vn, kc, vc, lengths, table
 
 
-@pytest.mark.parametrize("t", [1, 3])
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
-def test_decode_attention_matches_jax(paged, t, impl):
-    rng = np.random.default_rng(7 + t + 10 * paged)
-    q, kn, vn, kc, vc, lengths, table = _decode_case(rng, t, paged)
+def _decode_vs_jax(paged, t, impl, q8):
+    rng = np.random.default_rng(7 + t + 10 * paged + 100 * q8)
+    q, kn, vn, kc, vc, lengths, table = _decode_case(rng, t, paged, q8)
     jt = None if table is None else jnp.asarray(table)
     jo, jk, jv, jl = _jdecode(jnp.asarray(q), jnp.asarray(kn),
-                              jnp.asarray(vn), jnp.asarray(kc),
-                              jnp.asarray(vc), jnp.asarray(lengths),
+                              jnp.asarray(vn), _j(kc), _j(vc),
+                              jnp.asarray(lengths),
                               chunk_size=C, block_table=jt, attn_impl=impl)
-    tk, tv = _t(kc), _t(vc)
+    tk, tv = _tt(kc), _tt(vc)
     to, tk2, tv2, tl = tda.decode_attention(
         _t(q), _t(kn), _t(vn), tk, tv, _t(lengths), chunk_size=C,
         block_table=None if table is None else _t(table), impl="reference")
     assert tk2 is tk and tv2 is tv            # updated in place
-    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    _same(tk, jk)
+    _same(tv, jv)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     rows = slice(None) if impl is None else slice(0, B - 1)
     np.testing.assert_allclose(to.numpy()[rows], np.asarray(jo)[rows], **TOL)
     assert np.isfinite(to.numpy()).all()
+
+
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
+def test_decode_attention_matches_jax(paged, t, impl):
+    _decode_vs_jax(paged, t, impl, q8=False)
+
+
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
+def test_int8_decode_attention_matches_jax(paged, t, impl):
+    """int8 caches: the appended codes and scales bitwise, the read
+    (dequantized in the loop; in the K8 kernel when ``jpallas``) within
+    the f32 tolerance."""
+    _decode_vs_jax(paged, t, impl, q8=True)
+
+
+def test_q8_quantize_matches_jax_bitwise():
+    """Codes and f16 scales bitwise equal to the reference's compiled
+    ``_q8_quantize``, over magnitudes from 1e-6 to 1e3, an all-zero row
+    and rows whose absmax sits at a code boundary."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((64, 3, D))
+         * 10.0 ** rng.integers(-6, 4, (64, 3, 1))).astype(np.float32)
+    x[0, 0] = 0.0
+    x[1, 1, :] = np.arange(D) - D / 2
+    jq, js = jax.jit(jda._q8_quantize)(jnp.asarray(x))
+    tq, ts = tda._q8_quantize(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float16
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tda._q8_dequant(tq, ts).numpy(),
+        np.asarray(jax.jit(jda._q8_dequant)(jq, js)))
+    # bf16 input (the serving model's dtype) quantizes from its f32 value
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    jq, js = jax.jit(jda._q8_quantize)(
+        jnp.asarray(xb.view(torch.int16).numpy()).view(jnp.bfloat16))
+    tq, ts = tda._q8_quantize(xb)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 def test_decode_full_read_matches_jax():
@@ -106,18 +179,8 @@ def test_decode_full_read_matches_jax():
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
 
 
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-@pytest.mark.parametrize("c,t", [(16, 8), (16, 16)], ids=["C>T", "C=T"])
-@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
-def test_slot_prefill_matches_jax(paged, c, t, impl):
-    """Chained chunks at offsets 0, P, 2P of slot 1 — the cache carried
-    from step to step as the engine does — with the last destination
-    block a sentinel on the paged pool (its writes must drop).  At that
-    step the JAX reference attends to the rows it reads back (the
-    dropped write leaves the clamped block's bytes) while the fused
-    kernel attends to the staged new rows, so the output is held to the
-    reference only; the engine never reaches it for a real row."""
-    rng = np.random.default_rng(11 + t + 100 * paged)
+def _prefill_vs_jax(paged, c, t, impl, q8):
+    rng = np.random.default_rng(11 + t + 100 * paged + 1000 * q8)
     h = HKV * G
     if paged:
         shape = (N_BLOCKS, c, HKV, D)
@@ -128,10 +191,13 @@ def test_slot_prefill_matches_jax(paged, c, t, impl):
     else:
         shape = (B, LMAX, HKV, D)
         jt = tt = None
-    kc = rng.standard_normal(shape).astype(np.float32)
-    vc = rng.standard_normal(shape).astype(np.float32)
-    jk, jv = jnp.asarray(kc), jnp.asarray(vc)
-    tk, tv = _t(kc), _t(vc)
+    if q8:
+        kc, vc = _q8_cache(rng, shape), _q8_cache(rng, shape)
+    else:
+        kc = rng.standard_normal(shape).astype(np.float32)
+        vc = rng.standard_normal(shape).astype(np.float32)
+    jk, jv = _j(kc), _j(vc)
+    tk, tv = _tt(kc), _tt(vc)
     for off in (0, t, 2 * t):
         q = rng.standard_normal((1, t, h, D)).astype(np.float32)
         kn = rng.standard_normal((1, t, HKV, D)).astype(np.float32)
@@ -143,10 +209,36 @@ def test_slot_prefill_matches_jax(paged, c, t, impl):
         to, tk, tv = tda.slot_prefill_attention(
             _t(q), _t(kn), _t(vn), tk, tv, 1, off, chunk_size=c,
             block_table=tt, impl="reference")
-        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        _same(tk, jk)
+        _same(tv, jv)
         if impl is None or not paged or off < 2 * t:
             np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("c,t", [(16, 8), (16, 16)], ids=["C>T", "C=T"])
+@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
+def test_slot_prefill_matches_jax(paged, c, t, impl):
+    """Chained chunks at offsets 0, P, 2P of slot 1 — the cache carried
+    from step to step as the engine does — with the last destination
+    block a sentinel on the paged pool (its writes must drop).  At that
+    step the JAX reference attends to the rows it reads back (the
+    dropped write leaves the clamped block's bytes) while the fused
+    kernel attends to the staged new rows, so the output is held to the
+    reference only; the engine never reaches it for a real row."""
+    _prefill_vs_jax(paged, c, t, impl, q8=False)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("c,t", [(16, 8), (16, 16)], ids=["C>T", "C=T"])
+@pytest.mark.parametrize("impl", [None, "pallas"], ids=["jref", "jpallas"])
+def test_int8_slot_prefill_matches_jax(paged, c, t, impl):
+    """The same chained chunks on int8 caches: quantize-on-append bitwise
+    the reference's (its scatter + chunked read, and the K9 kernel's
+    int8 branch in interpret mode, whose chunk rows fold from the
+    quantized-then-dequantized copy); outputs where the destination is
+    mapped."""
+    _prefill_vs_jax(paged, c, t, impl, q8=True)
 
 
 def test_append_drops_out_of_span_writes():
@@ -202,9 +294,32 @@ def test_gates_name_offending_values():
                                                           16)
 
 
-def test_int8_cache_is_not_ported():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tda.init_kv_pool(4, 16, 2, 16, dtype="int8", device="cpu")
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_int8_append_drops_both_leaves(paged):
+    """Parked and out-of-span rows of an int8 cache write neither codes
+    nor scales; a row straddling the span's end writes its in-span
+    positions only."""
+    if paged:
+        k = tda.init_kv_pool(4, 8, 1, 4, dtype="int8", device="cpu")[0]
+        table = torch.tensor([[0, 1], [2, 4]], dtype=torch.int32)
+    else:
+        k = tda.init_kv_cache(2, 16, 1, 4, dtype="int8", device="cpu")[0]
+        table = None
+    assert k[0].dtype == torch.int8 and k[1].dtype == torch.float16
+    assert k[1].shape == k[0].shape[:-1]
+    new = torch.arange(1, 2 * 3 * 4 + 1, dtype=torch.float32) \
+        .reshape(2, 3, 1, 4)
+    tda._append(k, new, torch.tensor([14, 16], dtype=torch.int32), table)
+    data, scale = k
+    written = (data != 0).any(-1) | (scale != 0)
+    if paged:                       # row 0: block 1, rows 6-7 only
+        assert written[1, 6:].all() and int(written.sum()) == 2
+    else:
+        assert written[0, 14:].all() and int(written.sum()) == 2
+    q, s = tda._q8_quantize(new[0, :2])
+    # row 0's first write lands at flat row 14 in both geometries
+    assert torch.equal(data.reshape(-1, 1, 4)[14], q[0])
+    assert torch.equal(scale.reshape(-1, 1)[14], s[0])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -18,7 +18,11 @@ head_dim 64/128/256, G 1/2/3/4/8, Lq < Lk and non-causal, against their
 plain versions (tolerances at ``FLASH_TOL``; RoPE bitwise) and against
 themselves (bitwise, run to run).  The loss chunk's bf16 GEMM with an
 f32 result (the card's branch of ``ops/chunked_ce.py``) runs against the
-widened f32 branch.
+widened f32 branch.  The int8 kernels: K8's and K9's int8 branches
+against their plain versions (K9's appended codes and scales bitwise,
+and equal to ``_q8_quantize``), and K7, the fused int8 AdamW, bitwise
+against its plain version for bf16/f32/f16 parameters, with and without
+an f32 master, whole and ragged blocks, aligned and not.
 """
 import pytest
 import torch
@@ -277,3 +281,171 @@ def test_chunked_loss_bf16_gemm_matches_the_widened_branch():
         assert got.dtype == torch.bfloat16
         lim = 2.0 ** -7 * ref.abs() + 2.0 ** -16 * ref.abs().max()
         assert bool(((got.float() - ref).abs() <= lim).all())
+
+
+# --------------------------------------- int8 kernels (K7, K8-int8, K9-int8)
+from paddle_tpu_torch.ops import fused_adamw as k7  # noqa: E402
+
+
+def _q8_caches(dev, gen, paged):
+    shape = (N, C, HKV, D) if paged else (B, LMAX, HKV, D)
+
+    def leaf():
+        return (torch.randint(-127, 128, shape, generator=gen,
+                              dtype=torch.int8).to(dev),
+                (0.001 + 0.05 * torch.rand(shape[:-1], generator=gen))
+                .to(dev, torch.float16))
+    return leaf(), leaf()
+
+
+def _clone(c):
+    return tuple(x.clone() for x in c)
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("t", [1, 3])
+def test_decode_kernel_int8_matches_plain(paged, t):
+    """K8's int8 branch: codes times f16 scales dequantized in the
+    kernel; f32 output within atol=rtol=1e-4 (summation order only)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(13)
+    kc, vc = _q8_caches(dev, gen, paged)
+    table = _table(dev, gen) if paged else None
+    lengths = torch.tensor([0, C - 1, 2 * C + 5, LMAX], dtype=torch.int32,
+                           device=dev)
+    qg = torch.randn(B, HKV, G, t, D, generator=gen).to(dev)
+    before = k8.launches
+    out = k8.paged_decode_attention(qg, kc, vc, lengths, D ** -0.5, C,
+                                    table, impl="cuda")
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                              D ** -0.5, C, table)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1
+    torch.testing.assert_close(out[:B - 1], ref[:B - 1], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("t", [16, 32], ids=["C>T", "C=T"])
+def test_prefill_kernel_int8_matches_plain(dtype, paged, t):
+    """K9's int8 branch over chained chunks: the appended codes and f16
+    scales BITWISE the plain quantize-on-append (dropped rows write
+    neither), the output where the destination is mapped within
+    atol=rtol=1e-4 in f32 (summation order only) or, for bf16 queries
+    (the output rounds to bf16), within 2e-2 as the float rows."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(17)
+    kc, vc = _q8_caches(dev, gen, paged)
+    trow = None
+    if paged:
+        trow = torch.tensor([[3, 9, 0, N]], dtype=torch.int32, device=dev)
+    k2, v2 = _clone(kc), _clone(vc)
+    for off in range(0, LMAX, t):
+        q = torch.randn(1, t, HKV * G, D, generator=gen).to(dev, dtype)
+        kn = torch.randn(1, t, HKV, D, generator=gen).to(dev, dtype)
+        vn = (3.0 * torch.randn(1, t, HKV, D, generator=gen)).to(dev, dtype)
+        o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, 1, off,
+                                        D ** -0.5, C, trow, impl="cuda")
+        o2, _, _ = k9.prefill_attention_reference(q, kn, vn, k2, v2, 1, off,
+                                                  D ** -0.5, C, trow)
+        torch.cuda.synchronize()
+        assert _equal(kc, k2) and _equal(vc, v2), off
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        if trow is None or int(trow[0, off // C]) < N:
+            torch.testing.assert_close(o1.float(), o2.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_int8_codes_are_q8_quantize():
+    """The codes and scales the kernel writes are ``_q8_quantize`` of the
+    new rows, bit for bit, including an all-zero row and rows of very
+    small and very large magnitude."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(19)
+    kc, vc = _q8_caches(dev, gen, False)
+    t = 32
+    kn = torch.randn(1, t, HKV, D, generator=gen)
+    kn[0, 0] = 0.0
+    kn[0, 1] *= 1e-5
+    kn[0, 2] *= 1e3
+    kn = kn.to(dev)
+    vn = torch.randn(1, t, HKV, D, generator=gen).to(dev)
+    q = torch.randn(1, t, HKV * G, D, generator=gen).to(dev)
+    k9.prefill_attention(q, kn, vn, kc, vc, 2, C, D ** -0.5, C,
+                         impl="cuda")
+    torch.cuda.synchronize()
+    want_q, want_s = tda._q8_quantize(kn[0])
+    assert torch.equal(kc[0][2, C:C + t], want_q)
+    assert torch.equal(kc[1][2, C:C + t], want_s)
+
+
+def _adam_case(dev, shape, p_dtype, g_dtype, master, seed):
+    gen = torch.Generator().manual_seed(seed)
+    p32 = torch.randn(shape, generator=gen)
+    codes, scales = k7.q8_encode(0.1 * torch.randn(shape, generator=gen))
+    return dict(
+        p=p32.to(dev, p_dtype),
+        g=torch.randn(shape, generator=gen).to(dev, g_dtype),
+        codes=codes.to(dev), scales=scales.to(dev),
+        v=torch.randn(shape, generator=gen).abs().to(dev, torch.bfloat16),
+        master=p32.to(dev) if master else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,g_dtype,master", [
+    (torch.bfloat16, torch.bfloat16, False),
+    (torch.bfloat16, torch.float32, True),
+    (torch.float32, torch.float32, False),
+    (torch.float16, torch.float16, False)],
+    ids=["bf16", "bf16-master", "f32", "f16"])
+@pytest.mark.parametrize("shape", [(8, 2048), (12, 256), (100,), (3, 1000)],
+                         ids=str)
+def test_fused_adamw_kernel_matches_plain_bitwise(shape, p_dtype, g_dtype,
+                                                  master):
+    """K7 in place against its plain version: parameter, master, codes,
+    scales and second moment BITWISE equal (both round every operation
+    once, in the same order), whole and ragged blocks alike."""
+    dev = _card()
+    a = _adam_case(dev, shape, p_dtype, g_dtype, master, 23)
+    b = {k: (v.clone() if v is not None else None) for k, v in a.items()}
+    sc = k7.adamw_scalars(0.9, 0.999, 1e-8, 1e-3, 5, 0.01)
+    before = k7.launches
+    k7.fused_adamw_q8(a["p"], a["g"], a["codes"], a["scales"], a["v"], sc,
+                      master=a["master"], impl="cuda")
+    k7.fused_adamw_q8(b["p"], b["g"], b["codes"], b["scales"], b["v"], sc,
+                      master=b["master"], impl="reference")
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    for k in ("p", "codes", "scales", "v", "master"):
+        if a[k] is not None:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_adamw_kernel_unaligned_view():
+    """Operands at an odd element offset take the element-by-element
+    path: still bitwise the plain version."""
+    dev = _card()
+    a = _adam_case(dev, (1, 2049), torch.bfloat16, torch.bfloat16, False, 29)
+    views = {k: (v.reshape(-1)[1:] if v is not None and k != "scales"
+                 else v) for k, v in a.items()}
+    n = views["p"].numel()
+    views["scales"] = a["scales"].new_zeros((-(-n // 256),))
+    b = {k: (v.clone() if v is not None else None) for k, v in views.items()}
+    sc = k7.adamw_scalars(0.9, 0.999, 1e-8, 1e-3, 2, 0.0)
+    k7.fused_adamw_q8(views["p"], views["g"], views["codes"],
+                      views["scales"], views["v"], sc, impl="cuda")
+    k7.fused_adamw_q8(b["p"], b["g"], b["codes"], b["scales"], b["v"], sc,
+                      impl="reference")
+    torch.cuda.synchronize()
+    for k in ("p", "codes", "scales", "v"):
+        assert torch.equal(views[k], b[k]), k

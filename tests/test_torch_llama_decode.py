@@ -7,7 +7,10 @@ the same prompt goes through ``serving_prefill_chunk`` and
 ``serving_decode_steps`` / ``_forward_step`` in both packages, paged and
 dense.  JAX runs its fused kernels (interpret mode on the CPU), the
 port its plain versions.  Logits agree to ``1e-4``; greedy tokens are
-identical.
+identical.  The same holds with int8 KV caches and int8 decode weights
+(``quantize_decode_weights``, whose codes and scales are bitwise the
+reference's); quantized params also cross from the JAX package bit for
+bit through ``decode_params_from_numpy``.
 """
 import numpy as np
 import pytest
@@ -55,9 +58,33 @@ def _prompt(n, seed=1):
     return np.random.default_rng(seed).integers(1, 250, size=n)
 
 
+def _quantized(models):
+    """(JAX w8 params, the port's own quantization of its params)."""
+    jparams, tparams, _, _ = models
+    return (jld.quantize_decode_weights(jparams),
+            tld.quantize_decode_weights(tparams))
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_prefill_then_decode_matches_jax(models, paged):
+    _prefill_then_decode(models, paged)
+
+
+@pytest.mark.parametrize("paged,kv8,w8", [
+    (False, True, False), (True, True, False), (True, False, True),
+    (True, True, True)], ids=["kv8-dense", "kv8-paged", "w8-paged",
+                              "kv8-w8-paged"])
+def test_int8_prefill_then_decode_matches_jax(models, paged, kv8, w8):
+    _prefill_then_decode(models, paged, kv8, w8)
+
+
+def _prefill_then_decode(models, paged, kv8=False, w8=False):
     jparams, tparams, cfg, _ = models
+    if w8:
+        jparams, tparams = _quantized(models)
+    dt = "int8" if kv8 else "float32"
+    jkey = _JKEY.replace(kv_dtype="int8" if kv8 else None,
+                         weight_dtype="int8" if w8 else None)
     nh, nkv, hd, _ = cfg
     n_layers = len(jparams["layers"])
     prompt = _prompt(37)
@@ -65,14 +92,13 @@ def test_prefill_then_decode_matches_jax(models, paged):
     if paged:
         table = np.full((2, LMAX // C), N_BLOCKS, np.int32)
         table[slot] = [5, 2, 7, 0]
-        jc = [j_pool(N_BLOCKS, C, nkv, hd, "float32")
-              for _ in range(n_layers)]
-        tc = [init_kv_pool(N_BLOCKS, C, nkv, hd, "float32", "cpu")
+        jc = [j_pool(N_BLOCKS, C, nkv, hd, dt) for _ in range(n_layers)]
+        tc = [init_kv_pool(N_BLOCKS, C, nkv, hd, dt, "cpu")
               for _ in range(n_layers)]
         jt, tt = jnp.asarray(table), torch.from_numpy(table)
     else:
-        jc = [j_cache(2, LMAX, nkv, hd, "float32") for _ in range(n_layers)]
-        tc = [init_kv_cache(2, LMAX, nkv, hd, "float32", "cpu")
+        jc = [j_cache(2, LMAX, nkv, hd, dt) for _ in range(n_layers)]
+        tc = [init_kv_cache(2, LMAX, nkv, hd, dt, "cpu")
               for _ in range(n_layers)]
         jt = tt = None
     padded = np.zeros((48,), np.int32)
@@ -83,7 +109,7 @@ def test_prefill_then_decode_matches_jax(models, paged):
         jf, jok, jc, _, _ = jld.serving_prefill_chunk(
             jparams, cfg, jnp.asarray(chunk), jnp.int32(off),
             jplen, jc, jnp.int32(slot),
-            chunk_size=C, block_tables=jt, program_key=_JKEY)
+            chunk_size=C, block_tables=jt, program_key=jkey)
         tf, tok, tc = tld.serving_prefill_chunk(
             tparams, cfg, torch.from_numpy(chunk), off, prompt.size, tc,
             slot, chunk_size=C, block_tables=tt)
@@ -100,14 +126,39 @@ def test_prefill_then_decode_matches_jax(models, paged):
     np.testing.assert_allclose(tl.numpy()[slot], np.asarray(jl)[slot], **TOL)
     lengths[slot] += 1
     nxt = np.array([0, int(np.argmax(np.asarray(jl)[slot]))], np.int32)
-    jtoks, jok, _ = jld.serving_decode_steps(
+    jtoks, jok, jc = jld.serving_decode_steps(
         jparams, cfg, jnp.asarray(nxt), jc, jnp.asarray(lengths), n_steps=4,
-        chunk_size=C, block_tables=jt, program_key=_JKEY)
+        chunk_size=C, block_tables=jt, program_key=jkey)
     ttoks, tok, _ = tld.serving_decode_steps(
         tparams, cfg, torch.from_numpy(nxt), tc, torch.from_numpy(lengths),
         n_steps=4, chunk_size=C, block_tables=tt)
     assert ttoks.numpy()[slot].tolist() == np.asarray(jtoks)[slot].tolist()
     assert bool(tok[slot])
+    if kv8:                      # the appended caches, bitwise
+        for (tk, _), (jk, _) in zip(tc, jc):
+            np.testing.assert_array_equal(tk[0].numpy(), np.asarray(jk[0]))
+            np.testing.assert_array_equal(tk[1].numpy(), np.asarray(jk[1]))
+
+
+def test_quantize_decode_weights_matches_jax_bitwise(models):
+    """Codes and f16 scales bitwise the reference's, the input params
+    untouched; the reference's quantized tree crosses through
+    ``decode_params_from_numpy`` bit for bit (int8 and f16 leaves)."""
+    jq, tq = _quantized(models)
+    _, tparams, _, _ = models
+    assert tq is not tparams and tq["layers"][0] is not tparams["layers"][0]
+    assert tparams["layers"][0]["wq"].dtype == torch.float32
+    carried = decode_params_from_numpy(
+        {"layers": [{n: np.asarray(x) for n, x in lp.items()}
+                    for lp in jq["layers"]]}, device="cpu")
+    for tl, jl, cl in zip(tq["layers"], jq["layers"], carried["layers"]):
+        for name in tld.QUANT_WEIGHTS:
+            assert tl[name].dtype == torch.int8
+            assert tl[name + "_scale"].dtype == torch.float16
+            for leaf in (name, name + "_scale"):
+                np.testing.assert_array_equal(tl[leaf].numpy(),
+                                              np.asarray(jl[leaf]))
+                assert torch.equal(cl[leaf], tl[leaf])
 
 
 def test_load_numpy_state_and_decode_greedy_match_jax(models):

@@ -137,8 +137,7 @@ def tiny():
 
 @pytest.mark.parametrize("knob", [
     dict(mode="spec"), dict(spec={"source": "prompt_lookup"}),
-    dict(spec_k=4), dict(kv_dtype="int8"), dict(weight_dtype="int8"),
-    dict(mesh=object()), dict(tp_overlap=2), dict(faults=object()),
+    dict(spec_k=4), dict(mesh=object()), dict(tp_overlap=2), dict(faults=object()),
     dict(max_pending=4), dict(retry_attempts=3), dict(recorder=True),
     dict(slo=()), dict(watchdog=5.0), dict(host_tier_bytes=1 << 20),
     dict(prefill_only=True), dict(prefill_chunk=None),

@@ -11,7 +11,12 @@ reference's own contract — is the oracle.  The port's streams must be
 identical to it, dense and paged, with the same prefix-reuse count;
 within the port, paged == dense, pipeline on == off and gang ==
 continuous bit for bit, and the pool's accounting returns to zero after
-drain.  Each engine configuration runs once per module (memoised).
+drain.  The same holds with int8 KV caches (``kv_dtype="int8"``) and
+int8 decode weights (``weight_dtype="int8"``), alone and together: token
+for token against the JAX engine (``pipeline=False``), and within the
+port int8 paged == dense and pipeline on == off.  The quantization
+gauges read the values ``tests/test_serving_q8.py`` pins.  Each engine
+configuration runs once per module (memoised).
 """
 import numpy as np
 import pytest
@@ -72,10 +77,11 @@ def _run(E, R, model, key, **kw):
     return _MEMO[key]
 
 
-def _jax(models, paged):
+def _jax(models, paged, **extra):
     kw = dict(GEOM, recorder=False, pipeline=False, attn_impl="pallas",
-              prefill_impl="pallas", **(PAGED if paged else {}))
-    return _run(JEngine, JRequest, models[0], ("jax", paged), **kw)
+              prefill_impl="pallas", **(PAGED if paged else {}), **extra)
+    key = ("jax", paged) + tuple(sorted(extra.items()))
+    return _run(JEngine, JRequest, models[0], key, **kw)
 
 
 def _port(models, paged, **extra):
@@ -94,6 +100,82 @@ def test_streams_match_jax_engine(models, paged):
         reuse = teng.stats()["prefix_reuse_tokens"]
         assert reuse > 0
         assert reuse == jeng.stats()["prefix_reuse_tokens"]
+
+
+QUANT = {"kv8": dict(kv_dtype="int8"), "w8": dict(weight_dtype="int8"),
+         "kv8-w8": dict(kv_dtype="int8", weight_dtype="int8")}
+
+
+@pytest.mark.parametrize("paged,quant", [
+    (False, "kv8"), (True, "kv8"), (True, "w8"), (True, "kv8-w8")],
+    ids=["kv8-dense", "kv8-paged", "w8-paged", "kv8-w8-paged"])
+def test_int8_streams_match_jax_engine(models, paged, quant):
+    jout, jeng = _jax(models, paged, **QUANT[quant])
+    tout, teng = _port(models, paged, **QUANT[quant])
+    assert tout == jout
+    assert all(len(tout[i]) == n for i, n in enumerate(NEW))
+    if paged:
+        assert teng.stats()["prefix_reuse_tokens"] \
+            == jeng.stats()["prefix_reuse_tokens"] > 0
+    k = teng.kv_manager.caches[0][0]
+    assert isinstance(k, tuple) == ("kv8" in quant)
+    if "kv8" in quant:
+        assert k[0].dtype == torch.int8 and k[1].dtype == torch.float16
+    assert teng._pk.kv_dtype == ("int8" if "kv8" in quant else None)
+    assert teng._pk.weight_dtype == ("int8" if "w8" in quant else None)
+
+
+def test_int8_paged_equals_dense(models):
+    assert _port(models, True, **QUANT["kv8"])[0] \
+        == _port(models, False, **QUANT["kv8"])[0]
+
+
+@pytest.mark.parametrize("quant", ["kv8", "kv8-w8"])
+def test_int8_pipeline_on_equals_off(models, quant):
+    assert _port(models, True, pipeline=False, **QUANT[quant])[0] \
+        == _port(models, True, **QUANT[quant])[0]
+
+
+def test_quant_gauges_read_the_pinned_values(models):
+    """``serving_kv_quant_mode`` / ``serving_hbm_gb_per_tok_q8`` as
+    ``tests/test_serving_q8.py`` pins them (tiny model: 2 layers, 2 kv
+    heads, head_dim 16 -> 2*2*2*18 = 144 bytes a token), and the weight
+    gauges: one byte per projection element plus two per output
+    channel."""
+    reg = MetricsRegistry()
+    eng = ServingEngine(models[1], batch_size=2, max_len=64, registry=reg,
+                        kv_dtype="int8", weight_dtype="int8")
+    lbl = dict(policy="continuous")
+    kv = reg.get("serving_kv_quant_mode")
+    assert kv.labels(mode="int8", **lbl).value == 1
+    assert kv.labels(mode="off", **lbl).value == 0
+    assert reg.get("serving_hbm_gb_per_tok_q8").labels(**lbl).value \
+        == pytest.approx(144 / 1e9)
+    wq = reg.get("serving_weight_quant_mode")
+    assert wq.labels(mode="int8", **lbl).value == 1
+    assert wq.labels(mode="off", **lbl).value == 0
+    want = sum(lp[n].numel() + 2 * lp[n + "_scale"].numel()
+               for lp in eng._params["layers"] for n in
+               ("wq", "wk", "wv", "wo", "gate", "up", "down"))
+    assert reg.get("serving_hbm_gb_per_tok_w8").labels(**lbl).value \
+        == pytest.approx(want / 1e9)
+    reg2 = MetricsRegistry()
+    ServingEngine(models[1], batch_size=2, max_len=64, registry=reg2)
+    for fam in ("serving_kv_quant_mode", "serving_weight_quant_mode"):
+        assert reg2.get(fam).labels(mode="off", **lbl).value == 1
+        assert reg2.get(fam).labels(mode="int8", **lbl).value == 0
+    assert reg2.get("serving_hbm_gb_per_tok_q8").labels(**lbl).value == 0
+
+
+def test_w8_leaves_the_model_params_alone(models):
+    """The engine quantizes a fresh params dict: the model's cached
+    decode params (views of its parameters) stay float."""
+    from paddle_tpu_torch.models import llama_decode as tld
+
+    _, eng = _port(models, True, **QUANT["w8"])
+    cached, _ = tld._decode_params_of(models[1], GEOM["max_len"])
+    assert cached["layers"][0]["wq"].dtype == torch.float32
+    assert eng._params["layers"][0]["wq"].dtype == torch.int8
 
 
 def test_paged_equals_dense(models):
