@@ -61,9 +61,11 @@ Phases (any failure exits non-zero before the result line):
    share and top device operations.
 7. Training parity: the same trainer at full width, 2 layers, f32,
    batch 2, seq 256, 3 steps, on the card (kernels) and on the CPU
-   (plain versions), with f32 and with int8 moments.  f32 takes the CUDA-core templates of the flash
-   kernels; the bf16 tensor-core ones are held to their plain versions
-   one kernel at a time (phase 5).
+   (plain versions), with f32 and with int8 moments; with int8 moments
+   every first-moment code at every step is held within what the step
+   before carries (``code_drift``).  f32 takes the CUDA-core templates
+   of the flash kernels; the bf16 tensor-core ones are held to their
+   plain versions one kernel at a time (phase 5).
 
 The last lines are the ``kernels`` JSON, the card line and the result
 JSON ``{"ok": true, "device": {...}}``.
@@ -1013,8 +1015,9 @@ def phase_adamw_kernel(torch, dev, gen):
     gradient (the bench's), and an f32 master with an f32 gradient.
     Parameter, master, codes, scales and second moment must be BITWISE
     equal (both round every operation once, in the same order); if not,
-    the count and the largest difference are printed and the check fails
-    unless every code is within one.  Then one optimizer step's worth of
+    the count and the largest difference are printed and the check fails,
+    unless only codes differ, each by one, with everything else bitwise
+    (a tie rounded the other way).  Then one optimizer step's worth of
     launches (147, bf16, no master) timed against its plain version and
     its bound: 12.03 bytes an element moved, at 3.35 TB/s."""
     from paddle_tpu_torch.ops import fused_adamw as k7
@@ -1057,8 +1060,9 @@ def phase_adamw_kernel(torch, dev, gen):
             if bad:
                 print(f"{tag}: NOT bitwise: {bad} (elements, largest "
                       "difference)", flush=True)
-                check("codes" not in bad or bad["codes"][1] <= 1,
-                      f"{tag}: codes differ by more than one")
+                check(set(bad) == {"codes"} and bad["codes"][1] <= 1,
+                      f"{tag}: not bitwise {bad}: only codes may differ, "
+                      "by one, with everything else bitwise")
             else:
                 print(f"{tag}: parameter, codes, scales, v"
                       f"{', master' if master else ''} bitwise equal, ok",
@@ -1227,12 +1231,22 @@ def phase_train_parity(torch, dev, n_steps=3, lr=1e-4):
     and all but 1e-4 of them within 1e-5 + 1e-5·|p| (f32 moments).  With
     int8 moments the gradients' summation-order noise also flips a
     first-moment code where ``m'/s'`` sits at a rounding boundary, which
-    moves that element's next update by ``lr·s/sqrt(v)``: codes may
-    differ on at most 2e-3 of the elements (7.2e-5 measured on an H100), and
-    by more than one on at most 1e-6 (4e-8 measured: an earlier step's
-    flip, counted in a block whose scale has shrunk since), and
-    parameters beyond 1e-5 on at most 1e-3 (5.3e-6 measured; the tier-1
-    test against JAX measures 3e-4)."""
+    moves that element's next update by ``lr·s/sqrt(v)``.  A flip at
+    step t is one code of that step's scale s_t; the next step carries
+    0.9 of it, which is 0.9·s_t/s_t+1 codes of the next scale — more than
+    one where the block's scale shrank (its largest first moment turned
+    back).  So every code, at every step, must be within
+    ``floor(0.9·|m_card - m_cpu|/s + 0.5) + 1`` of the CPU's, where
+    ``m_card - m_cpu`` is the decoded first moments' difference from the
+    step before (0 at the first) and the 0.5 covers the gradients' noise
+    and the scales' card-vs-CPU difference (at most 3.5e-3 relative, 0.45
+    of a code at 127).  On an H100 the 9 codes off by 2-3 after 3 steps
+    (all in lm_head) sat in blocks whose scale shrank 1.6-3.5x since
+    their flip, and each offset is 0.9·s_t/s_t+1 to within 0.02 (this
+    phase prints them).  Beside that: codes differ on at most 2.5e-4 of
+    the elements (7.2e-5 measured on an H100), by more than one on at
+    most 2e-7 (4.1e-8), and parameters beyond 1e-5 on at most 2e-5
+    (5.3e-6 measured; the tier-1 test against JAX measures 3e-4)."""
     res = {}
     for md in (None, "int8"):
         res[md or "f32"] = train_parity_run(torch, dev, md, n_steps, lr)
@@ -1261,10 +1275,15 @@ def train_parity_run(torch, dev, moment_dtype, n_steps, lr):
             learning_rate=lr, parameters=model.parameters(),
             weight_decay=0.01, moment_dtype=moment_dtype))
         zero()
-        losses[tag] = [float(st(ids.to(d), labels.to(d)))
-                       for _ in range(n_steps)]
+        losses[tag], states[tag] = [], []
+        for _ in range(n_steps):
+            losses[tag].append(float(st(ids.to(d), labels.to(d))))
+            if moment_dtype == "int8":
+                # each step's first moments, codes and scales
+                states[tag].append({k: (c.cpu().clone(), st._states[
+                    "moment1@scale"][k].cpu().clone())
+                    for k, c in st._states["moment1"].items()})
         steps[tag] = read()
-        states[tag] = st._states
     print(f"parity train {tag_m} launches: {steps}", flush=True)
     check(steps["card"]["fwd"] > 0 and steps["card"]["plain_flash"] == 0,
           f"card run did not take the kernels: {steps['card']}")
@@ -1289,39 +1308,72 @@ def train_parity_run(torch, dev, moment_dtype, n_steps, lr):
     print(f"parity train {tag_m} params after {n_steps} steps: max abs "
           f"diff {worst:.3e}, {n_off}/{n_all} ({frac:.2e}) beyond 1e-5",
           flush=True)
-    frac_max = 1e-3 if moment_dtype == "int8" else 1e-4
+    frac_max = 2e-5 if moment_dtype == "int8" else 1e-4
     check(frac <= frac_max and worst <= 2.02 * lr * n_steps,
           f"parameters differ card vs cpu (max {worst:.3e}, {frac:.2e})")
     out = dict(losses=losses, max_rel_loss=rel, max_param_diff=worst,
                frac_param_off=frac)
     if moment_dtype == "int8":
-        # a code flips where the gradients' summation-order noise puts
-        # m'/s' across a rounding boundary; a flip at an earlier step is
-        # one code of THAT step's scale, so where a block's scale has
-        # shrunk since it is ~0.9 s_prev/s_now codes now — more than one
-        n = dict(off=0, all=0, big=0, max=0)
-        for k, want in states["cpu"]["moment1"].items():
-            got = states["card"]["moment1"][k].cpu()
-            check(got.dtype == torch.int8, f"{k}: moment1 is {got.dtype}")
-            d = (got.int() - want.int()).abs()
-            n["off"] += int((d > 0).sum())
-            n["all"] += d.numel()
-            n["big"] += int((d > 1).sum())
-            n["max"] = max(n["max"], int(d.max()))
-            if (d > 1).any():
-                print(f"parity train int8 {k}: {int((d > 1).sum())} codes "
-                      f"off by more than one (max {int(d.max())})",
-                      flush=True)
-        print(f"parity train int8 codes: {n['off']}/{n['all']} "
-              f"({n['off'] / n['all']:.2e}) differ, {n['big']} "
-              f"({n['big'] / n['all']:.2e}) by more than one (max "
-              f"{n['max']})", flush=True)
-        check(n["off"] <= 2e-3 * n["all"] and n["big"] <= 1e-6 * n["all"],
+        n = code_drift(torch, states["card"], states["cpu"])
+        print(f"parity train int8 codes after {n_steps} steps: "
+              f"{n['off']}/{n['all']} ({n['off'] / n['all']:.2e}) differ, "
+              f"{n['big']} ({n['big'] / n['all']:.2e}) by more than one "
+              f"(max {n['max']}); every step's codes within the carried "
+              f"bound: {n['beyond'] == 0} (largest offset less 0.9·|dm|/s: "
+              f"{n['excess']:.3f} codes)", flush=True)
+        check(n["beyond"] == 0, f"{n['beyond']} int8 codes differ card vs "
+              "cpu beyond what the step before carries")
+        check(n["off"] <= 2.5e-4 * n["all"] and n["big"] <= 2e-7 * n["all"],
               f"int8 codes differ card vs cpu beyond the stated bounds: {n}")
         out["codes_off"] = n["off"] / n["all"]
     del gpu, cpu
     torch.cuda.empty_cache()
     return out
+
+
+def code_drift(torch, card, cpu, show=20):
+    """Int8 first-moment codes card vs CPU over the steps of phase 7
+    (``card[t][name] = (codes, scales)`` after step t+1).  Counts the
+    last step's codes that differ and by more than one, and holds every
+    code at every step within ``floor(0.9·|dm|/s + 0.5) + 1`` of the
+    CPU's: ``dm`` the decoded first moments' difference the step before
+    carries, ``s`` this step's CPU scale (phase 7's docstring gives the
+    reason).  Prints each code off by more than one at the last step with
+    its block's scales at every step."""
+    from paddle_tpu_torch.ops.fused_adamw import Q8_BLOCK, q8_decode
+    n = dict(off=0, all=0, big=0, max=0, beyond=0, excess=0.0)
+    last = len(cpu) - 1
+    for t in range(len(cpu)):
+        for k, (pc, ps) in cpu[t].items():
+            cc = card[t][k][0]
+            check(cc.dtype == torch.int8, f"{k}: moment1 is {cc.dtype}")
+            dc = (cc.int() - pc.int()).abs().reshape(-1).float()
+            s = ps.clamp(min=1e-30).repeat_interleave(Q8_BLOCK)[:dc.numel()]
+            if t:
+                dm = (q8_decode(*card[t - 1][k])
+                      - q8_decode(*cpu[t - 1][k])).abs().reshape(-1)
+                carried = 0.9 * dm / s
+            else:
+                carried = torch.zeros_like(dc)
+            n["beyond"] += int((dc > torch.floor(carried + 0.5) + 1).sum())
+            if bool((dc > 0).any()):
+                n["excess"] = max(n["excess"], float((dc - carried).max()))
+            if t != last:
+                continue
+            n["off"] += int((dc > 0).sum())
+            n["all"] += dc.numel()
+            n["big"] += int((dc > 1).sum())
+            n["max"] = max(n["max"], int(dc.max()))
+            for i in torch.nonzero(dc > 1).reshape(-1).tolist()[:show]:
+                b = i // Q8_BLOCK
+                hist = " ".join(
+                    f"step {u + 1}: {int(card[u][k][0].reshape(-1)[i])}/"
+                    f"{int(cpu[u][k][0].reshape(-1)[i])} "
+                    f"s {float(cpu[u][k][1][b]):.4e}" for u in range(t + 1))
+                print(f"parity train int8 {k}[{i}] card/cpu code, cpu "
+                      f"scale: {hist}; carried {float(carried[i]):.3f} "
+                      "codes", flush=True)
+    return n
 
 
 def main():

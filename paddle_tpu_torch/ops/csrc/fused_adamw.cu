@@ -9,7 +9,7 @@
 // second moment is bf16, and an f32 master weight is optional.  Each warp
 // owns one 256-value block, 8 values a lane, and in one pass:
 //   1. reads p (the f32 master, or the parameter widened in registers),
-//      g (f32/bf16/f16, widened in registers: exact), the codes, the
+//      g (f32/bf16, widened in registers: exact), the codes, the
 //      block's scale and v;
 //   2. computes m = code * s, m' = b1 m + (1-b1) g, v' = b2 v + ((1-b2)
 //      g) g, upd = lr (m'/c1) / (sqrt(v'/c2) + eps), p' = p wd - upd;
@@ -24,7 +24,7 @@
 // Exactness: every operation is written with the _rn intrinsics in the
 // reference's order, so nvcc cannot contract a multiply and an add into
 // one FMA (the reference rounds twice); rounding is to nearest even
-// (rintf, __float2bfloat16_rn, __float2half_rn).  The plain version
+// (rintf, __float2bfloat16_rn).  The plain version
 // (ops/fused_adamw.py) gives the same bits.  The 9 scalars arrive by
 // value, computed once on the host, (1-b1) and (1-b2) included.
 //
@@ -40,7 +40,6 @@
 // bound.  The design reads and writes every operand once, with 16-byte
 // loads and stores where a block is whole and the operands are aligned.
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +57,6 @@ __device__ __forceinline__ float f32(float x) { return x; }
 __device__ __forceinline__ float f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ float f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float f32(int8_t x) {
   return static_cast<float>(x);
 }
@@ -72,10 +70,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
 }
 
 // 8 consecutive values of T at src + i0 into f32 registers: one or two
@@ -215,52 +209,18 @@ int launch(const void* p_in, const void* g, void* codes, void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TP, typename TG>
-int pick_out(int out_dtype, const void* p_in, const void* g, void* codes,
-             void* scales, void* v, void* master_out, void* p_out,
-             long long n, const Scalars& sc, cudaStream_t s) {
-  switch (out_dtype) {
-    case 0:
-      return launch<TP, TG, float>(p_in, g, codes, scales, v, master_out,
-                                   p_out, n, sc, s);
-    case 1:
-      return launch<TP, TG, __nv_bfloat16>(p_in, g, codes, scales, v,
-                                           master_out, p_out, n, sc, s);
-    case 2:
-      return launch<TP, TG, __half>(p_in, g, codes, scales, v, master_out,
-                                    p_out, n, sc, s);
-    default:
-      return -1;
-  }
-}
-
-template <typename TP>
-int pick_grad(int g_dtype, int out_dtype, const void* p_in, const void* g,
-              void* codes, void* scales, void* v, void* master_out,
-              void* p_out, long long n, const Scalars& sc, cudaStream_t s) {
-  switch (g_dtype) {
-    case 0:
-      return pick_out<TP, float>(out_dtype, p_in, g, codes, scales, v,
-                                 master_out, p_out, n, sc, s);
-    case 1:
-      return pick_out<TP, __nv_bfloat16>(out_dtype, p_in, g, codes, scales,
-                                         v, master_out, p_out, n, sc, s);
-    case 2:
-      return pick_out<TP, __half>(out_dtype, p_in, g, codes, scales, v,
-                                  master_out, p_out, n, sc, s);
-    default:
-      return -1;
-  }
-}
-
 }  // namespace ptt
 
-// Dtype codes: 0 float32, 1 bfloat16, 2 float16.  p_in (p_dtype) is the
-// f32 master when master_out is not null (then p_dtype must be 0 and
-// master_out == p_in), else the parameter itself (p_out == p_in).  g
-// (g_dtype); codes int8 [n]; scales f32 [ceil(n/256)]; v bf16 [n];
-// p_out (out_dtype) [n].  All updated in place.  Returns the launch's
-// cudaError_t (0 = launched), -1 for arguments it does not take.
+// Dtype codes: 0 float32, 1 bfloat16.  p_in (p_dtype) is the f32 master
+// when master_out is not null (then master_out == p_in and the parameter
+// p_out is bf16), else the parameter itself (p_out == p_in).  g (g_dtype)
+// is the parameter's dtype, or f32 where the optimizer widened it to add
+// an L2 term.  codes int8 [n]; scales f32 [ceil(n/256)]; v bf16 [n];
+// p_out (out_dtype) [n].  All updated in place.  Built for what the
+// optimizer passes and nothing else: a bf16 parameter (bf16 or f32
+// gradient), an f32 master of a bf16 parameter (bf16 or f32 gradient),
+// an f32 parameter (f32 gradient).  Returns the launch's cudaError_t (0
+// = launched), -1 for arguments it does not take.
 extern "C" int fused_adamw_q8(int p_dtype, int g_dtype, int out_dtype,
                               const void* p_in, const void* g, void* codes,
                               void* scales, void* v, void* master_out,
@@ -268,20 +228,27 @@ extern "C" int fused_adamw_q8(int p_dtype, int g_dtype, int out_dtype,
                               float eps, float lr, float c1, float c2,
                               float wd, float omb1, float omb2,
                               void* stream) {
-  if (master_out != nullptr && p_dtype != 0) return -1;
+  using bf16 = __nv_bfloat16;
+  if ((master_out != nullptr) != (p_dtype == 0 && out_dtype == 1))
+    return -1;
   const ptt::Scalars sc{b1, b2, eps, lr, c1, c2, wd, omb1, omb2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p_dtype) {
-    case 0:
-      return ptt::pick_grad<float>(g_dtype, out_dtype, p_in, g, codes,
-                                   scales, v, master_out, p_out, n, sc, s);
-    case 1:
-      return ptt::pick_grad<__nv_bfloat16>(g_dtype, out_dtype, p_in, g,
-                                           codes, scales, v, master_out,
-                                           p_out, n, sc, s);
-    case 2:
-      return ptt::pick_grad<__half>(g_dtype, out_dtype, p_in, g, codes,
-                                    scales, v, master_out, p_out, n, sc, s);
+  switch (p_dtype * 100 + g_dtype * 10 + out_dtype) {
+    case 111:  // bf16 parameter, bf16 gradient
+      return ptt::launch<bf16, bf16, bf16>(p_in, g, codes, scales, v,
+                                           master_out, p_out, n, sc, s);
+    case 101:  // bf16 parameter, f32 gradient
+      return ptt::launch<bf16, float, bf16>(p_in, g, codes, scales, v,
+                                            master_out, p_out, n, sc, s);
+    case 11:  // f32 master, bf16 gradient
+      return ptt::launch<float, bf16, bf16>(p_in, g, codes, scales, v,
+                                            master_out, p_out, n, sc, s);
+    case 1:  // f32 master, f32 gradient
+      return ptt::launch<float, float, bf16>(p_in, g, codes, scales, v,
+                                             master_out, p_out, n, sc, s);
+    case 0:  // f32 parameter, f32 gradient
+      return ptt::launch<float, float, float>(p_in, g, codes, scales, v,
+                                              master_out, p_out, n, sc, s);
     default:
       return -1;
   }

@@ -23,8 +23,9 @@ The plain version is the reference kernel's arithmetic step by step:
 ``p' = p wd - lr (m'/c1) / (sqrt(v'/c2) + eps)``; ``s' = max|m'| / 127``
 per block, computed as ``max|m'| * f32(1/127)`` because that is what XLA
 compiles the reference's division by the constant into (seen on its CPU
-backend: the jitted program multiplies by the reciprocal); ``codes = round_half_even(m' / max(s', 1e-30))`` (no clip);
-v' rounds to bf16 and p' to the parameter's dtype.  The scalars come
+backend: the jitted program multiplies by the reciprocal);
+``codes = round_half_even(m' / max(s', 1e-30))`` (no clip); v' rounds to
+bf16 and p' to the parameter's dtype.  The scalars come
 from the host (``adamw_scalars``), ``1-b1`` and ``1-b2`` included, as
 the reference computes them (its review r5: an in-kernel
 ``f32(1) - f32(b1)`` differs by ~2e-7 and can flip codes).
@@ -49,7 +50,13 @@ launches = 0
 #: runs of the plain version
 plain_runs = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_F32, _BF16 = torch.float32, torch.bfloat16
+#: (the value updated: master or parameter, gradient, parameter) dtypes
+#: the kernel is built for — what the optimizer passes
+_KERNEL_DTYPES = {(_BF16, _BF16, _BF16), (_BF16, _F32, _BF16),
+                  (_F32, _BF16, _BF16), (_F32, _F32, _BF16),
+                  (_F32, _F32, _F32)}
 _SCALARS = ("b1", "b2", "eps", "lr", "c1", "c2", "wd", "omb1", "omb2")
 
 
@@ -109,10 +116,11 @@ def _check(p, g, codes, scales, v, master):
         raise ValueError("fused_adamw_q8: the second moment must be "
                          "bfloat16 with the parameter's size")
     if g.numel() != n or g.dtype not in _DTYPE_CODE:
-        raise ValueError("fused_adamw_q8: the gradient must be a float "
-                         "tensor with the parameter's size")
+        raise ValueError("fused_adamw_q8: the gradient must be float32 or "
+                         "bfloat16 with the parameter's size")
     if p.dtype not in _DTYPE_CODE:
-        raise ValueError(f"fused_adamw_q8: parameter dtype {p.dtype}")
+        raise ValueError(f"fused_adamw_q8: parameter dtype {p.dtype}: "
+                         "float32 or bfloat16")
     if master is not None and (master.dtype != torch.float32
                                or master.numel() != n):
         raise ValueError("fused_adamw_q8: the master weight must be "
@@ -150,14 +158,15 @@ def fused_adamw_q8_reference(p, g, codes, scales, v, scalars, master=None):
 def fused_adamw_q8(p, g, codes, scales, v, scalars, master=None, impl=None):
     """One int8-moment AdamW step, IN PLACE.
 
-    ``p``: the parameter (f32/bf16/f16); ``master``: its f32 master
-    weight or ``None`` (the update then reads ``p`` widened to f32);
-    ``g``: the gradient (f32/bf16/f16, widened in registers); ``codes``
-    int8 and ``v`` bf16 of ``p``'s size, ``scales`` f32
-    ``[ceil(n / 256)]``; ``scalars``: ``adamw_scalars(...)``.  Updates
-    ``master`` (when given), ``p``, ``codes``, ``scales`` and ``v`` and
-    returns them.  ``impl``: ``None`` by device, ``"reference"`` the
-    plain version, ``"cuda"`` the kernel."""
+    ``p``: the parameter (f32/bf16); ``master``: its f32 master weight
+    (of a bf16 parameter) or ``None`` (the update then reads ``p``
+    widened to f32); ``g``: the gradient (f32/bf16, widened in
+    registers); ``codes`` int8 and ``v`` bf16 of ``p``'s size,
+    ``scales`` f32 ``[ceil(n / 256)]``; ``scalars``:
+    ``adamw_scalars(...)``.  Updates ``master`` (when given), ``p``,
+    ``codes``, ``scales`` and ``v`` and returns them.  ``impl``:
+    ``None`` by device, ``"reference"`` the plain version, ``"cuda"``
+    the kernel."""
     impl = resolve_impl(impl, p.device, "fused_adamw_q8")
     if impl == "reference":
         return fused_adamw_q8_reference(p, g, codes, scales, v, scalars,
@@ -178,6 +187,11 @@ def _launch(p, g, codes, scales, v, scalars, master):
             raise ValueError(f"fused_adamw_q8: {name} must be a contiguous "
                              f"tensor on {dev}")
     p_in = master if master is not None else p
+    if (p_in.dtype, g.dtype, p.dtype) not in _KERNEL_DTYPES:
+        raise ValueError(
+            f"fused_adamw_q8: the kernel is not built for a {p.dtype} "
+            f"parameter{' with a master' if master is not None else ''} "
+            f"and a {g.dtype} gradient")
     n = p.numel()
     lib = _build.load("fused_adamw")
     with torch.cuda.device(dev):

@@ -19,11 +19,11 @@ over flat ``{name: tensor}`` dicts — what the training step
 256 values of the flat tensor (``<name>@scale``, ``ceil(n / 256)``
 long) and second moments as bf16 (``_moment_storage``).  On the CPU the
 update decodes the codes, runs ``_update`` in f32 and re-encodes, as the
-reference does off the TPU; on the card an optimizer may take the fused
-kernel instead (``_try_fused_q8``: Adam and AdamW route every int8-moment
-parameter through K7, ``ops/fused_adamw.py``, which updates the
-parameter and its state in place).  Gradient clipping and learning-rate
-schedulers are not ported yet.
+reference does off the TPU; on the card an optimizer may update a
+parameter its own way instead (``_update_param``: Adam and AdamW route
+every int8-moment parameter through K7, ``ops/fused_adamw.py``, which
+updates the parameter and its state in place).  Gradient clipping and
+learning-rate schedulers are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +42,8 @@ _FIRST_MOMENTS = ("moment1", "moment", "velocity", "avg_grad")
 
 class Optimizer:
     _accum_names: tuple = ()
+    #: weight decay applied to the parameter, not added to the gradient
+    _decoupled = False
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -74,6 +76,14 @@ class Optimizer:
         named ``name``, its f32 gradient and f32 state.  Overridden per
         optimizer."""
         raise NotImplementedError
+
+    def _update_param(self, k, p, g, states, masters, lr):
+        """Update parameter ``k`` another way than decode / ``_update`` /
+        encode (a fused kernel): ``(new_param, {acc_name: new_state})``,
+        with a new master under ``"master_weight"``, or ``None`` for the
+        generic path.  ``g`` is the gradient as it arrived (plus the L2
+        term); the generic path widens it to f32 after this hook."""
+        return None
 
     def _moment_storage(self, name):
         """Storage dtype of accumulator ``name`` (``None``: f32 for low
@@ -128,7 +138,6 @@ class Optimizer:
         new_params = {}
         new_states = {n: {} for n in states}
         masters = states.get("master_weight", {})
-        fused = getattr(self, "_try_fused_q8", None)
         for k, p in params.items():
             g = grads.get(k)
             if g is None:
@@ -141,19 +150,15 @@ class Optimizer:
             # the reference widens a bf16 gradient to f32, then adds the
             # L2 term; the fused kernel widens in registers (exact), so
             # without an L2 term it reads the gradient as it is
-            if self._l2_coeff and not getattr(self, "_decoupled", False):
+            if self._l2_coeff and not self._decoupled:
                 g = g.float() if g.dtype == torch.bfloat16 else g
                 g = g + self._l2_coeff * base.to(g.dtype)
-            if fused is not None:
-                res = fused(k, p, g, states, masters, lr)
-                if res is not None:
-                    new_params[k] = res[0]
-                    if res[1] is not None:
-                        new_states["master_weight"][k] = res[1]
-                    for n, t in zip(("moment1", "moment1@scale", "moment2"),
-                                    res[2:]):
-                        new_states[n][k] = t
-                    continue
+            res = self._update_param(k, p, g, states, masters, lr)
+            if res is not None:
+                new_params[k] = res[0]
+                for n, t in res[1].items():
+                    new_states[n][k] = t
+                continue
             g = g.float() if g.dtype == torch.bfloat16 else g
             st = {n: self._decode_state(states, n, k)
                   for n in self._accum_names}

@@ -7,10 +7,10 @@ plain tensors.  AdamW decays decoupled from the gradient:
 corrections use the step counter the training step sets
 (``_global_step``).  No kernel computes the f32-moment update, in the
 reference either.  With ``moment_dtype="int8"`` on the card, every
-parameter goes through the fused kernel K7 (``_try_fused_q8``, the
-counterpart of the reference's :85-149) whatever its size: the kernel
-handles a ragged last block itself, where the reference sent sizes that
-are not multiples of 256 to its jnp path.
+parameter goes through the fused kernel K7 (``_update_param``, the
+counterpart of the reference's ``_try_fused_q8`` :85-149) whatever its
+size: the kernel handles a ragged last block itself, where the reference
+sent sizes that are not multiples of 256 to its jnp path.
 """
 from __future__ import annotations
 
@@ -62,13 +62,12 @@ class Adam(Optimizer):
     def _decay_of(self, name):
         return 0.0
 
-    def _try_fused_q8(self, k, p, g, states, masters, lr):
+    def _update_param(self, k, p, g, states, masters, lr):
         """Route an int8-moment parameter on the card through K7 (one
-        pass: decode, AdamW, re-encode), in place.  Returns ``(p,
-        master, codes, scales, v)``, or ``None`` where the kernel does
-        not apply: other moment storage, or CPU tensors, which take the
-        decode / ``_update`` / encode path as the reference does off the
-        TPU."""
+        pass: decode, AdamW, re-encode), in place.  ``None`` where the
+        kernel does not apply: other moment storage, or CPU tensors,
+        which take the decode / ``_update`` / encode path as the
+        reference does off the TPU."""
         m = states.get("moment1", {}).get(k)
         v = states.get("moment2", {}).get(k)
         sc = states.get("moment1@scale", {}).get(k)
@@ -79,8 +78,12 @@ class Adam(Optimizer):
             return None
         scal = adamw_scalars(self._beta1, self._beta2, self._eps, lr,
                              self._global_step, self._decay_of(k))
-        return fused_adamw_q8(p, g.contiguous(), m, sc, v, scal,
-                              master=masters.get(k))
+        p, master, m, sc, v = fused_adamw_q8(p, g.contiguous(), m, sc, v,
+                                             scal, master=masters.get(k))
+        new = {"moment1": m, "moment1@scale": sc, "moment2": v}
+        if master is not None:
+            new["master_weight"] = master
+        return p, new
 
 
 class AdamW(Adam):

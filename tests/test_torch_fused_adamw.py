@@ -46,7 +46,7 @@ B1, B2, EPS, LR, STEP, DECAY = 0.9, 0.999, 1e-8, 0.01, 3, 0.05
 
 
 def _jax_scalars(lr=LR, step=STEP, decay=DECAY):
-    """The 16 scalars exactly as ``Adam._try_fused_q8`` builds them."""
+    """The 16 scalars exactly as ``Adam._update_param`` builds them."""
     lrf = jnp.asarray(lr, jnp.float32)
     z = jnp.float32(0.0)
     return jnp.stack([
@@ -288,3 +288,19 @@ def test_wrapper_checks_its_operands():
     with pytest.raises(ValueError, match="bfloat16"):
         k7.fused_adamw_q8(p, ok["g"], ok["codes"], ok["scales"],
                           torch.zeros(300), sc)
+
+
+def test_wrapper_takes_only_the_dtypes_the_optimizer_passes():
+    """K7 is built for bf16 and f32 parameters and gradients only (no
+    path of the port trains in f16); the plain version refuses the same,
+    so the CPU and the card accept the same calls."""
+    ok = dict(codes=torch.zeros(300, dtype=torch.int8),
+              scales=torch.zeros(2), v=torch.zeros(300, dtype=torch.bfloat16))
+    sc = k7.adamw_scalars(B1, B2, EPS, LR, 1, 0.0)
+    with pytest.raises(ValueError, match="parameter dtype torch.float16"):
+        k7.fused_adamw_q8(torch.zeros(300, dtype=torch.float16),
+                          torch.zeros(300), *ok.values(), sc)
+    with pytest.raises(ValueError, match="gradient must be float32 or"):
+        k7.fused_adamw_q8(torch.zeros(300),
+                          torch.zeros(300, dtype=torch.float16),
+                          *ok.values(), sc)

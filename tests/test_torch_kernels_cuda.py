@@ -21,8 +21,9 @@ f32 result (the card's branch of ``ops/chunked_ce.py``) runs against the
 widened f32 branch.  The int8 kernels: K8's and K9's int8 branches
 against their plain versions (K9's appended codes and scales bitwise,
 and equal to ``_q8_quantize``), and K7, the fused int8 AdamW, bitwise
-against its plain version for bf16/f32/f16 parameters, with and without
-an f32 master, whole and ragged blocks, aligned and not.
+against its plain version for the dtypes the optimizer passes (bf16 and
+f32 parameters, bf16 and f32 gradients, with and without an f32
+master), whole and ragged blocks, aligned and not.
 """
 import pytest
 import torch
@@ -405,8 +406,9 @@ def _adam_case(dev, shape, p_dtype, g_dtype, master, seed):
     (torch.bfloat16, torch.bfloat16, False),
     (torch.bfloat16, torch.float32, True),
     (torch.float32, torch.float32, False),
-    (torch.float16, torch.float16, False)],
-    ids=["bf16", "bf16-master", "f32", "f16"])
+    (torch.bfloat16, torch.float32, False),
+    (torch.bfloat16, torch.bfloat16, True)],
+    ids=["bf16", "bf16-master", "f32", "bf16-f32grad", "bf16-master-bf16grad"])
 @pytest.mark.parametrize("shape", [(8, 2048), (12, 256), (100,), (3, 1000)],
                          ids=str)
 def test_fused_adamw_kernel_matches_plain_bitwise(shape, p_dtype, g_dtype,
@@ -428,6 +430,24 @@ def test_fused_adamw_kernel_matches_plain_bitwise(shape, p_dtype, g_dtype,
     for k in ("p", "codes", "scales", "v", "master"):
         if a[k] is not None:
             assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_adamw_kernel_refuses_dtypes_it_is_not_built_for():
+    """K7 is built for the dtypes the optimizer passes: an f16 parameter,
+    or a bf16 gradient on an f32 parameter without a master, raises
+    before any launch."""
+    dev = _card()
+    a = _adam_case(dev, (4, 256), torch.bfloat16, torch.bfloat16, False, 31)
+    sc = k7.adamw_scalars(0.9, 0.999, 1e-8, 1e-3, 1, 0.0)
+    before = k7.launches
+    with pytest.raises(ValueError, match="parameter dtype torch.float16"):
+        k7.fused_adamw_q8(a["p"].half(), a["g"], a["codes"], a["scales"],
+                          a["v"], sc, impl="cuda")
+    with pytest.raises(ValueError, match="not built"):
+        k7.fused_adamw_q8(a["p"].float(), a["g"], a["codes"], a["scales"],
+                          a["v"], sc, impl="cuda")
+    assert k7.launches == before
 
 
 @pytest.mark.cuda
