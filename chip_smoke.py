@@ -67,6 +67,29 @@ Phases (any failure exits non-zero before the result line):
    of the flash kernels; the bf16 tensor-core ones are held to their
    plain versions one kernel at a time (phase 5).
 
+5b. The segment-masked flash kernels (K1/K2, K4, K5 with segment ids;
+   K3 on their zeroed dout) against their plain versions, bf16, with
+   phase 5's tolerances, at bench_bert's attention shape (B 64, L 512,
+   H 12, D 64, key padding with lengths 128-512 from seed 0 and one
+   all-padding row, whose output must be the mean of V) and at the
+   varlen long-context shape (B 1, 16384 tokens in 16 sequences plus a
+   pad tail that must come out zero, H 16, Hkv 4, D 128, causal).  Times
+   at both, bounds per same-segment visible pair, and the library
+   yardstick (scaled_dot_product_attention with the boolean mask, and
+   its backward) at the BERT shape.  The masked-LM loss chunk's bf16
+   GEMM against the tied [V, H] embedding, as phase 5's.
+8. BERT training at full width: bench_bert's configuration (BERT-base,
+   bf16, batch 64, seq 512, AdamW lr 1e-4 / weight decay 0.01, 15% of
+   positions labelled) through ``build_train_step``, unmasked (the
+   unsegmented kernels) and with a padding mask of lengths 128-512 (the
+   segmented ones), 2 warm-up and 5 timed steps each: the loss falls,
+   every flash kernel launches 12 times a step and no plain version or
+   dense attention runs; samples/s, step ms, MFU, peak memory and a
+   profiled step.
+9. BERT parity: the same trainer at full width, 2 layers, f32, batch 2,
+   seq 512, padding mask, 3 steps on the card (kernels) and on the CPU
+   (plain versions): losses and the fraction of parameters off.
+
 The last lines are the ``kernels`` JSON, the card line and the result
 JSON ``{"ok": true, "device": {...}}``.
 """
@@ -611,7 +634,7 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
     if not total:
         print(f"profile {tag}: the profiler recorded no device time (not "
               "measured)", flush=True)
-        return None
+        return None, rows
     print(f"profile {tag} decode window: {n_steps} steps, wall "
           f"{wall_us / n_steps:.1f} us/step unprofiled, device "
           f"{total / n_steps:.1f} us/step, device busy "
@@ -771,21 +794,26 @@ def flash_case(torch, dev, gen, B, L, H, HKV, D, dtype=None):
             rnd(B, L, H * D))
 
 
-def check_chunked_ce(torch, dev, gen):
-    """One loss chunk of the training path (8192 tokens, hidden 2048,
-    vocab 32000): the card's bf16 branch (one tensor-core GEMM with an f32
-    result) against the same chunk widened to f32 first (the branch the
-    CPU takes).  Both form exact products of bf16 values and sum them in
-    f32, in another order: the loss within 1e-6 relative; dh and dw
-    (bf16) within one bf16 ulp (2^-7 of their magnitude; rounding alone
-    takes up to half) of the f32 branch's gradients, or near zero within
-    2^-16 of the tensor's largest magnitude."""
+def check_chunked_ce(torch, dev, gen, n=None, hid=None, vocab=None,
+                     vh=False, tag_=""):
+    """One loss chunk of the training path (Llama: 8192 tokens, hidden
+    2048, vocab 32000; BERT's masked-LM loss with ``vh``: 8192 tokens
+    against the tied [30522, 768] embedding): the card's bf16 branch (one
+    tensor-core GEMM with an f32 result) against the same chunk widened
+    to f32 first (the branch the CPU takes).  Both form exact products of
+    bf16 values and sum them in f32, in another order: the loss within
+    1e-6 relative; dh and dw (bf16) within one bf16 ulp (2^-7 of their
+    magnitude; rounding alone takes up to half) of the f32 branch's
+    gradients, or near zero within 2^-16 of the tensor's largest
+    magnitude."""
     from paddle_tpu_torch.ops.chunked_ce import chunked_token_ce
 
-    n, hid, vocab = (TRAIN_CFG[k] for k in ("loss_chunk_size",
-                                            "hidden_size", "vocab_size"))
+    if n is None:
+        n, hid, vocab = (TRAIN_CFG[k] for k in ("loss_chunk_size",
+                                                "hidden_size", "vocab_size"))
     h = torch.randn(1, n, hid, generator=gen, device=dev).to(torch.bfloat16)
-    w = (0.02 * torch.randn(hid, vocab, generator=gen, device=dev)) \
+    wshape = (vocab, hid) if vh else (hid, vocab)
+    w = (0.02 * torch.randn(*wshape, generator=gen, device=dev)) \
         .to(torch.bfloat16)
     labels = torch.randint(0, vocab, (1, n), generator=gen, device=dev)
     labels[0, -100:] = -1                      # ignored tokens, as padding
@@ -793,12 +821,12 @@ def check_chunked_ce(torch, dev, gen):
     for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         hx = h.to(dt).requires_grad_(True)
         wx = w.to(dt).requires_grad_(True)
-        loss = chunked_token_ce(hx, labels, wx, n)
+        loss = chunked_token_ce(hx, labels, wx, n, vh_weight=vh)
         res[tag] = (loss.detach(), *torch.autograd.grad(loss, (hx, wx)))
     torch.cuda.synchronize()
     (lb, dhb, dwb), (lf, dhf, dwf) = res["bf16"], res["f32"]
     rel = abs(float(lb) - float(lf)) / abs(float(lf))
-    print(f"chunked CE bf16 GEMM (f32 result) vs widened f32: loss "
+    print(f"chunked CE{tag_} bf16 GEMM (f32 result) vs widened f32: loss "
           f"{float(lb):.6f} vs {float(lf):.6f}, rel diff {rel:.3e} "
           f"{'ok' if rel <= 1e-6 else 'MISMATCH'}", flush=True)
     check(rel <= 1e-6, f"chunked CE loss differs between its branches "
@@ -808,8 +836,8 @@ def check_chunked_ce(torch, dev, gen):
         d = (got.float() - ref).abs()
         lim = 2.0 ** -7 * ref.abs() + grad_slack(ref)
         ok = bool((d <= lim).all())
-        print(f"chunked CE {name}: max_abs_err {float(d.max()):.3e}, worst "
-              f"share of the one-ulp bound {float((d / lim).max()):.3f} "
+        print(f"chunked CE{tag_} {name}: max_abs_err {float(d.max()):.3e}, "
+              f"worst share of the one-ulp bound {float((d / lim).max()):.3f} "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         check(ok, f"chunked CE {name} beyond one bf16 ulp of the f32 "
                   "branch's gradient")
@@ -961,6 +989,10 @@ def phase_train_kernels(torch, dev):
     lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
         o4, (qg, kg, vg), do4, retain_graph=True), it)
     del o4, qg, kg, vg
+    # K3's yardstick: one einsum computing the same row sums
+    do4d, out4d = do.view(B, L, H, D), out.view(B, L, H, D)
+    lib_delta = time_ms(torch, lambda i: torch.einsum(
+        "blhd,blhd->bhl", do4d, out4d), 50)
 
     pairs = B * H * causal_pairs(L, L)
     el = 2                                            # bf16 bytes
@@ -975,7 +1007,8 @@ def phase_train_kernels(torch, dev):
         dkv=bound(2 * qb + 2 * kb + 2 * stat + 2 * kb, 8 * D * pairs),
         dq=bound(2 * qb + 2 * kb + 2 * stat + qb, 6 * D * pairs),
         rope=bound(2 * (qb + kb) + 2 * L * D * el, 6 * B * L * (H + HKV) * D))
-    lib = dict(fwd=lib_fwd, delta=None, dkv=lib_bwd, dq=None, rope=None)
+    lib = dict(fwd=lib_fwd, delta=lib_delta, dkv=lib_bwd, dq=None,
+               rope=None)
     res = {}
     for name in ("fwd", "delta", "dkv", "dq", "rope"):
         b_ms, b_by = bounds[name]
@@ -1096,6 +1129,197 @@ def phase_adamw_kernel(torch, dev, gen):
                 step_ms=ms, step_plain_ms=plain, step_bound_ms=b_ms)
 
 
+# ---------------------------------------------------------------- phase 5b
+BERT_CFG = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072,
+                max_position_embeddings=512, hidden_dropout_prob=0.0,
+                dtype="bfloat16")                 # bench_bert: BERT-base
+BERT_BATCH, BERT_SEQ = 64, 512
+SEG_BERT = dict(B=BERT_BATCH, L=BERT_SEQ, H=12, HKV=12, D=64)
+SEG_VARLEN = dict(B=1, L=16384, H=16, HKV=4, D=128)   # K2's shape
+
+
+def bert_lengths(seed=0):
+    """Per-row live lengths of the padded BERT batch: 128-512 from seed."""
+    return np.random.default_rng(seed).integers(128, BERT_SEQ + 1,
+                                                BERT_BATCH)
+
+
+def seg_inputs(torch, dev, kind):
+    """Segment ids (int32, on the card) and the same-segment visible
+    (query, key) pairs per head: ``bert`` is key padding at bench_bert's
+    shape with lengths from ``bert_lengths`` and the last row all padding
+    (a dead row); ``varlen`` is 16 packed sequences cut at random from
+    seed 0 in all but the last 384 tokens, causal, and that pad tail
+    (q -1, k -2)."""
+    if kind == "bert":
+        lengths = bert_lengths(0)
+        lengths[-1] = 0
+        pos = np.arange(BERT_SEQ)
+        kseg = np.where(pos[None, :] < lengths[:, None], 0, -2)
+        qseg = np.zeros_like(kseg)
+        pairs = int(BERT_SEQ * lengths.sum())
+    else:
+        rng = np.random.default_rng(0)
+        total = SEG_VARLEN["L"] - 384
+        cu = np.concatenate([[0], np.sort(rng.choice(
+            np.arange(1, total), 15, replace=False)), [total]])
+        pos = np.arange(SEG_VARLEN["L"])
+        seg = np.searchsorted(cu[1:], pos, side="right")
+        qseg = np.where(pos < cu[-1], seg, -1)[None]
+        kseg = np.where(pos < cu[-1], seg, -2)[None]
+        n = np.diff(cu)
+        pairs = int((n * (n + 1) // 2).sum())
+    to = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)  # noqa
+    return to(qseg), to(kseg), pairs
+
+
+def phase_seg_kernels(torch, dev):
+    """The segment-masked K1/K2, K4 and K5 (and K3 on their zeroed dout)
+    against their plain versions at bench_bert's attention shape (B 64,
+    L 512, H 12, D 64, non-causal, key padding, one dead row) and at the
+    varlen long-context shape (B 1, 16384 tokens in 16 sequences plus a
+    pad tail, H 16, Hkv 4, D 128, causal), bf16, with phase 5's
+    tolerances; the dead row holds the mean of V and the pad tail zeros.
+    Times at both shapes (at the BERT shape also the unsegmented
+    instances' on the same inputs: what the switch costs); bounds count
+    4·D / 8·D / 6·D operations per same-segment visible pair; the library
+    yardstick (BERT shape only) is scaled_dot_product_attention with the
+    boolean [B, 1, 1, L] mask, and its backward."""
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    res = {}
+    for kind, cfg, causal in (("bert", SEG_BERT, False),
+                              ("varlen", SEG_VARLEN, True)):
+        B, L, H, HKV, D = (cfg[k] for k in ("B", "L", "H", "HKV", "D"))
+        qseg, kseg, pairs = seg_inputs(torch, dev, kind)
+        q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+        pad = (qseg < 0)[:, :, None]
+        do = do.masked_fill(pad, 0)           # as the autograd.Function
+        sc = D ** -0.5
+        tag = f"segmented {kind}"
+        err = {}
+        out, lse = kfa.flash_fwd(q, k, v, H, HKV, causal, sc, qseg, kseg)
+        ref, rlse = tfa.flash_fwd_reference(q, k, v, H, HKV, causal, sc,
+                                            qseg, kseg)
+        pv_abs = tfa.flash_fwd_reference(q, k, v.abs(), H, HKV, causal, sc,
+                                         qseg, kseg)[0].float()
+        torch.cuda.synchronize()
+        live = (qseg >= 0)[:, None, :]
+        err["fwd"] = max(
+            check_bf16(f"K1/K2 forward out {tag}", out, ref,
+                       atol=2.0 ** -8 * pv_abs + 1e-5),
+            check_f32(f"K1/K2 forward lse {tag}", lse * live, rlse * live,
+                      1e-5, 1e-5))
+        del ref, rlse, pv_abs
+        if kind == "bert":
+            # the dead row: every query row holds the mean of V
+            mean_v = v[-1].float().view(L, HKV, D).mean(0).reshape(-1)
+            d = float((out[-1].float() - mean_v).abs().max())
+            slack = 2.0 ** -7 * float(mean_v.abs().max()) + 1e-3
+            print(f"{tag}: dead row vs the mean of V: max_abs_err {d:.3e} "
+                  f"{'ok' if d <= slack else 'MISMATCH'}", flush=True)
+            check(d <= slack, "the dead row is not the mean of V")
+        else:
+            z = float(out.masked_select(pad).float().abs().max())
+            print(f"{tag}: pad-tail rows max |out| {z} "
+                  f"{'ok' if z == 0 else 'MISMATCH'}", flush=True)
+            check(z == 0, "pad-tail rows are not zero")
+        delta = kfa.flash_delta(do, out, H)
+        dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV, causal, sc,
+                              qseg, kseg)
+        dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV, causal,
+                                   sc, qseg, kseg)
+        rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, H,
+                                                HKV, causal, sc, qseg, kseg)
+        torch.cuda.synchronize()
+        err["dq"] = check_bf16(f"K5 dQ {tag}", dq, rdq,
+                               atol=grad_slack(rdq, 10))
+        err["dkv"] = max(
+            check_bf16(f"K4 dK {tag}", dk, rdk, atol=grad_slack(rdk, 10)),
+            check_bf16(f"K4 dV {tag}", dv, rdv, atol=grad_slack(rdv, 10)))
+        del rdq, rdk, rdv, dq, dk, dv
+
+        it = 10
+        ms = dict(
+            fwd=time_ms(torch, lambda i: kfa.flash_fwd(
+                q, k, v, H, HKV, causal, sc, qseg, kseg), it),
+            dkv=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
+                q, k, v, do, lse, delta, H, HKV, causal, sc, qseg, kseg),
+                it),
+            dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
+                q, k, v, do, lse, delta, H, HKV, causal, sc, qseg, kseg),
+                it))
+        plain_bwd = time_ms(torch, lambda i: tfa.flash_bwd_reference(
+            q, k, v, do, lse, delta, H, HKV, causal, sc, qseg, kseg), 1,
+            warm=1)
+        plain = dict(fwd=time_ms(torch, lambda i: tfa.flash_fwd_reference(
+            q, k, v, H, HKV, causal, sc, qseg, kseg), 1, warm=1),
+            dkv=plain_bwd, dq=plain_bwd)
+        lib = dict(fwd=None, dkv=None, dq=None)
+        unseg = dict(fwd=None, dkv=None, dq=None)
+        if kind == "bert":
+            # what the segment switch costs: the unsegmented instances on
+            # the same inputs (the bench's own, unmasked, run takes them)
+            o_u, lse_u = kfa.flash_fwd(q, k, v, H, HKV, causal, sc)
+            unseg = dict(
+                fwd=time_ms(torch, lambda i: kfa.flash_fwd(
+                    q, k, v, H, HKV, causal, sc), it),
+                dkv=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
+                    q, k, v, do, lse_u, delta, H, HKV, causal, sc), it),
+                dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
+                    q, k, v, do, lse_u, delta, H, HKV, causal, sc), it))
+            del o_u, lse_u
+            F = torch.nn.functional
+            q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2)
+                          for x in (q, k, v))
+            m4 = (kseg == 0)[:, None, None, :]
+            lib["fwd"] = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4), it)
+            qg, kg, vg = (x.detach().requires_grad_(True)
+                          for x in (q4, k4, v4))
+            o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4)
+            do4 = do.view(B, L, H, D).transpose(1, 2)
+            lib["dkv"] = time_ms(torch, lambda i: torch.autograd.grad(
+                o4, (qg, kg, vg), do4, retain_graph=True), it)
+            del o4, qg, kg, vg
+        el = 2
+        qb, kb = B * L * H * D * el, B * L * HKV * D * el
+        stat, segb = B * H * L * 4, 2 * B * L * 4
+        bounds = dict(
+            fwd=bound(qb + 2 * kb + qb + stat + segb, 4 * D * H * pairs),
+            dkv=bound(2 * qb + 2 * kb + 2 * stat + 2 * kb + segb,
+                      8 * D * H * pairs),
+            dq=bound(2 * qb + 2 * kb + 2 * stat + qb + segb,
+                     6 * D * H * pairs))
+        res[kind] = {}
+        for name in ("fwd", "dkv", "dq"):
+            b_ms, b_by = bounds[name]
+            res[kind][name] = dict(
+                max_abs_err=err[name], ms=ms[name], plain_ms=plain[name],
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib[name])
+            libs = "—" if lib[name] is None else f"{lib[name] * 1e3:.1f} us"
+            uns = ""
+            if unseg[name] is not None:
+                res[kind][name]["unsegmented_ms"] = unseg[name]
+                uns = f", unsegmented {unseg[name] * 1e3:.1f} us"
+            print(f"{name} {tag}: {ms[name] * 1e3:.1f} us/launch{uns}, "
+                  f"plain {plain[name] * 1e3:.1f} us, library {libs}, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}; {pairs} visible pairs a "
+                  "head)", flush=True)
+        if kind == "bert":
+            res[kind]["dkv"]["library_covers"] = \
+                "K3+K4+K5 (SDPA backward with the mask)"
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    check_chunked_ce(torch, dev, gen, 8192, BERT_CFG["hidden_size"],
+                     BERT_CFG["vocab_size"], vh=True, tag_=" (BERT, [V, H])")
+    return res
+
+
 # ----------------------------------------------------------------- phase 6
 TRAIN_CFG = dict(SERVE_CFG, recompute=True, recompute_layers=7,
                  loss_chunk_size=8192)
@@ -1113,6 +1337,9 @@ def kernel_counters():
     def read():
         return dict(fwd=kfa.launches["fwd"], delta=kfa.launches["delta"],
                     dkv=kfa.launches["dkv"], dq=kfa.launches["dq"],
+                    fwd_seg=kfa.launches["fwd_seg"],
+                    dkv_seg=kfa.launches["dkv_seg"],
+                    dq_seg=kfa.launches["dq_seg"],
                     rope=k6.launches, adamw=k7.launches,
                     plain_flash=sum(tfa.plain_runs.values()),
                     plain_rope=trope.plain_runs, plain_adamw=k7.plain_runs,
@@ -1130,9 +1357,6 @@ def kernel_counters():
 
 def phase_train(torch, dev, n_warm=2, n_steps=5):
     """The bench_llama training step (int8 moments, K7) at full width."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import build_train_step
@@ -1166,6 +1390,7 @@ def phase_train(torch, dev, n_warm=2, n_steps=5):
     L, n = cfg.num_hidden_layers, n_steps
     rl = cfg.recompute_layers
     want = dict(fwd=(L + rl) * n, delta=L * n, dkv=L * n, dq=L * n,
+                fwd_seg=0, dkv_seg=0, dq_seg=0,
                 rope=(L + rl + L) * n, adamw=n_tensors * n, plain_flash=0,
                 plain_rope=0, plain_adamw=0, dense_sdpa=0)
     print(f"train launches over {n} steps: {counts}", flush=True)
@@ -1187,31 +1412,16 @@ def phase_train(torch, dev, n_warm=2, n_steps=5):
 
     # one profiled step: device time by kernel, device-busy share of the
     # unprofiled step's wall
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(ids, labels)
-        torch.cuda.synchronize()
-    rows = sorted(((float(e.self_device_time_total), e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    total = sum(r[0] for r in rows)
-    if not total:
-        print("profile: the profiler recorded no device time (not "
-              "measured)", flush=True)
-    else:
-        print(f"profile train step: wall {dt * 1e3:.1f} ms unprofiled, "
-              f"device {total / 1e3:.1f} ms, device busy "
-              f"{total / 1e3 / (dt * 1e3):.3f}", flush=True)
-        for us, key, count in rows[:15]:
-            print(f"profile: {us / 1e3:9.2f} ms {count:6d} launches  "
-                  f"{key[:80]}", flush=True)
+    prof, rows = profile_step(torch, lambda: step(ids, labels), dt * 1e3,
+                              "train step")
+    if prof:
         opt_us = sum(us for us, key, _ in rows if "fused_adamw" in key)
-        print(f"profile: the optimizer (K7) {opt_us / 1e3:.2f} ms, "
-              f"{opt_us / total:.4f} of the step's device time", flush=True)
-        out["device_busy"] = total / 1e3 / (dt * 1e3)
+        print(f"profile train step: the optimizer (K7) {opt_us / 1e3:.2f} "
+              f"ms, {opt_us / 1e3 / prof['device_ms']:.4f} of the step's "
+              "device time", flush=True)
+        out["device_busy"] = prof["device_busy"]
         out["optimizer_ms"] = opt_us / 1e3
-        out["optimizer_share"] = opt_us / total
+        out["optimizer_share"] = opt_us / 1e3 / prof["device_ms"]
     del model, opt, step, timed
     torch.cuda.empty_cache()
     return out, counts
@@ -1376,6 +1586,213 @@ def code_drift(torch, card, cpu, show=20):
     return n
 
 
+# ----------------------------------------------------------------- phase 8
+def mlm_net(torch, model):
+    """bench_bert's ``_Net``: the model's own chunked masked-LM loss, with
+    the padding mask as an input."""
+    class Net(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, mask, labels):
+            return self.m(ids, attention_mask=mask, labels=labels,
+                          return_logits=False)[0]
+    return Net(model)
+
+
+def bert_batch(torch, vocab, b, l, lengths=None, seed=0):
+    """bench_bert's data: ids and labels from ``seed`` (15% of positions
+    labelled, -100 elsewhere); with ``lengths`` a 1/0 mask padding each
+    row past its length, and -100 on the padding."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, l))
+    labels = rng.integers(0, vocab, (b, l))
+    labels[rng.random((b, l)) > 0.15] = -100
+    mask = None
+    if lengths is not None:
+        live = np.arange(l)[None, :] < np.asarray(lengths)[:, None]
+        labels[~live] = -100
+        mask = torch.from_numpy(live.astype(np.int64))
+    return torch.from_numpy(ids), mask, torch.from_numpy(labels)
+
+
+def profile_step(torch, fn, wall_ms, tag, show=15):
+    """One profiled call of ``fn``: prints device time by kernel and the
+    device-busy share of the unprofiled wall; returns (a summary, or None
+    when the profiler records no device time, and the rows ``(device µs,
+    kernel, launches)``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((float(e.self_device_time_total), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    if not total:
+        print(f"profile {tag}: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return None, rows
+    print(f"profile {tag}: wall {wall_ms:.1f} ms unprofiled, device "
+          f"{total / 1e3:.1f} ms, device busy "
+          f"{total / 1e3 / wall_ms:.3f}", flush=True)
+    for us, key, count in rows[:show]:
+        print(f"profile {tag}: {us / 1e3:9.2f} ms {count:6d} launches  "
+              f"{key[:80]}", flush=True)
+    flash = sum(us for us, key, _ in rows if any(
+        f"{k}_kernel" in key for k in ("fwd", "delta", "dkv", "dq")))
+    print(f"profile {tag}: the flash kernels {flash / 1e3:.2f} ms, "
+          f"{flash / total:.4f} of the step's device time", flush=True)
+    return dict(device_ms=total / 1e3, device_busy=total / 1e3 / wall_ms,
+                flash_ms=flash / 1e3, flash_share=flash / total), rows
+
+
+def phase_bert(torch, dev, n_warm=2, n_steps=5):
+    """bench_bert's training step at full width (BERT-base, bf16, batch
+    64, seq 512, AdamW lr 1e-4 / weight decay 0.01, 15% of positions
+    labelled, random weights and data from seed 0) through
+    ``build_train_step``, twice: (a) with no mask, the bench's own run,
+    on the unsegmented flash kernels; (b) with a per-row padding mask of
+    lengths 128-512 from seed 0 (labels -100 on the padding), on the
+    segmented ones.  Each run: 2 warm-up and 5 timed steps; the loss is
+    finite and falls; counters set to 0 just before the timed steps show
+    every flash kernel launched 12 times a step (forward, delta, dK/dV,
+    dQ) and no plain version or dense attention.  Prints samples/s, step
+    ms, MFU (bench.py's FLOP count over the dense bf16 peak), peak memory
+    and one profiled step."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = BertConfig(**BERT_CFG)
+    read, zero = kernel_counters()
+    res = {}
+    for tag, lengths in (("unmasked", None), ("padded", bert_lengths(0))):
+        model = BertForMaskedLM(cfg, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = build_train_step(mlm_net(torch, model), None, opt)
+        ids, mask, labels = bert_batch(torch, cfg.vocab_size, BERT_BATCH,
+                                       BERT_SEQ, lengths)
+        args = [x.to(dev) if x is not None else None
+                for x in (ids, mask, labels)]
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(*args)) for _ in range(n_warm)]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [step(*args) for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_steps
+        counts = read()
+        losses += [float(x) for x in timed]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"bert {tag} losses " + " ".join(f"{x:.5f}" for x in losses),
+              flush=True)
+        check(all(np.isfinite(losses)), f"bert {tag}: non-finite loss")
+        check(losses[-1] < losses[0], f"bert {tag}: loss did not fall: "
+                                      f"{losses}")
+        L, n = cfg.num_hidden_layers, n_steps
+        seg = lengths is not None
+        want = dict(fwd=0 if seg else L * n, delta=L * n,
+                    dkv=0 if seg else L * n, dq=0 if seg else L * n,
+                    fwd_seg=L * n if seg else 0, dkv_seg=L * n if seg else 0,
+                    dq_seg=L * n if seg else 0, rope=0, adamw=0,
+                    plain_flash=0, plain_rope=0, plain_adamw=0,
+                    dense_sdpa=0)
+        print(f"bert {tag} launches over {n} steps: {counts}", flush=True)
+        check(counts == want, f"bert {tag} kernel launches {counts}, "
+                              f"expected {want}")
+        flops_tok = 6 * n_params + 12 * L * cfg.hidden_size * BERT_SEQ
+        mfu = flops_tok * BERT_BATCH * BERT_SEQ / dt / H100_BF16_FLOPS
+        out = dict(params=n_params, batch=BERT_BATCH, seq=BERT_SEQ,
+                   step_ms=dt * 1e3, samples_per_s=BERT_BATCH / dt, mfu=mfu,
+                   peak_mem_gb=peak_gb, losses=losses,
+                   launches_per_step={k: v / n for k, v in counts.items()})
+        if seg:
+            out["live_tokens"] = int(np.sum(lengths))
+        print(f"bert {tag} " + json.dumps(out), flush=True)
+        prof, _ = profile_step(torch, lambda: step(*args), dt * 1e3,
+                               f"bert {tag}")
+        if prof:
+            out.update(prof)
+        res[tag] = (out, counts)
+        del model, opt, step, timed, args
+        torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------- phase 9
+def phase_bert_parity(torch, dev, n_steps=3, lr=1e-4):
+    """bench_bert's trainer at full width, 2 layers, f32, batch 2, seq
+    512, with the padding mask (lengths from seed 3), 3 steps on the card
+    (the segmented kernels' f32 templates) and on the CPU (their plain
+    versions), from the same weights and data.  Losses within 1e-4
+    relative; every parameter within 2.02·lr·steps (phase 7's reason) and
+    all but 1e-4 of them within 1e-5 + 1e-5·|p|, not counting the key
+    projection's bias, whose exact gradient is zero (a query row's
+    softmax does not see q·b): Adam moves it by about lr·sign of
+    summation noise, which differs between the devices."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = BertConfig(**{**BERT_CFG, "num_hidden_layers": 2,
+                        "dtype": "float32"})
+    gpu = BertForMaskedLM(cfg, device=dev, seed=2)
+    cpu = BertForMaskedLM(cfg, device="cpu", seed=2)
+    cpu.load_numpy_state(gpu.numpy_state())
+    lengths = np.random.default_rng(3).integers(128, BERT_SEQ + 1, 2)
+    data = bert_batch(torch, cfg.vocab_size, 2, BERT_SEQ, lengths, seed=3)
+    read, zero = kernel_counters()
+    steps, losses = {}, {}
+    for tag, model in (("card", gpu), ("cpu", cpu)):
+        d = model.transform.weight.device
+        st = build_train_step(mlm_net(torch, model), None, AdamW(
+            learning_rate=lr, parameters=model.parameters(),
+            weight_decay=0.01))
+        zero()
+        losses[tag] = [float(st(*(x.to(d) for x in data)))
+                       for _ in range(n_steps)]
+        steps[tag] = read()
+    print(f"bert parity launches: {steps}", flush=True)
+    check(steps["card"]["fwd_seg"] > 0 and steps["card"]["plain_flash"] == 0,
+          f"card run did not take the segmented kernels: {steps['card']}")
+    check(steps["cpu"]["fwd_seg"] == 0 and steps["cpu"]["plain_flash"] > 0,
+          f"cpu run did not take the plain versions: {steps['cpu']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                    losses["cpu"]))
+    print(f"bert parity losses card {losses['card']} cpu {losses['cpu']} "
+          f"max rel diff {rel:.3e}", flush=True)
+    check(rel <= 1e-4, f"bert losses differ card vs cpu: {rel:.3e}")
+    pg, pc = gpu.numpy_state(), cpu.numpy_state()
+    worst, n_off, n_all = 0.0, 0, 0
+    for name in pc:
+        diff = np.abs(pg[name] - pc[name])
+        worst = max(worst, float(diff.max()))
+        if name.endswith("k_proj.bias"):
+            continue
+        n_off += int((diff > 1e-5 + 1e-5 * np.abs(pc[name])).sum())
+        n_all += diff.size
+    frac = n_off / n_all
+    print(f"bert parity params after {n_steps} steps: max abs diff "
+          f"{worst:.3e}, {n_off}/{n_all} ({frac:.2e}) beyond 1e-5",
+          flush=True)
+    check(frac <= 1e-4 and worst <= 2.02 * lr * n_steps,
+          f"bert parameters differ card vs cpu (max {worst:.3e}, "
+          f"{frac:.2e})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(losses=losses, max_rel_loss=rel, max_param_diff=worst,
+                frac_param_off=frac)
+
+
 def main():
     try:
         import torch
@@ -1419,11 +1836,21 @@ def main():
     tk = phase_train_kernels(torch, dev)
     print(f"phase train kernels: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
+    sk = phase_seg_kernels(torch, dev)
+    print(f"phase segmented kernels: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
     _, train_launches = phase_train(torch, dev)
     print(f"phase train: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     phase_train_parity(torch, dev)
     print(f"phase train parity: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    bert = phase_bert(torch, dev)
+    print(f"phase bert: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_bert_parity(torch, dev)
+    print(f"phase bert parity: {time.perf_counter() - t:.1f} s", flush=True)
 
     bf16, kv8 = serving["bf16"]["launches"], serving["kv8"]["launches"]
     csrc = "paddle_tpu_torch/ops/csrc"
@@ -1466,6 +1893,25 @@ def main():
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=train_launches[key],
                      **tk[key])
+        if also:
+            entry["also_replaces"] = also
+        kernels.append(entry)
+    padded = bert["padded"][1]
+    for kname, key, src, replaces, also in (
+            ("flash_attention_fwd_segmented", "fwd", "flash_attention_fwd.cu",
+             f"{fa}:653", f"{fa}:571"),
+            ("flash_attention_bwd_dkv_segmented", "dkv",
+             "flash_attention_bwd.cu", f"{fa}:1131", None),
+            ("flash_attention_bwd_dq_segmented", "dq",
+             "flash_attention_bwd.cu", f"{fa}:1242", f"{fa}:1175")):
+        entry = dict(name=kname, route="cuda",
+                     source=f"paddle_tpu_torch/ops/csrc/{src}",
+                     replaces=replaces, launches=padded[key + "_seg"],
+                     **sk["bert"][key])
+        entry["max_abs_err"] = max(sk["bert"][key]["max_abs_err"],
+                                   sk["varlen"][key]["max_abs_err"])
+        entry["varlen"] = {f: sk["varlen"][key][f]
+                           for f in ("ms", "plain_ms", "bound_ms")}
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)

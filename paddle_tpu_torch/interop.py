@@ -16,8 +16,8 @@ import torch
 
 from paddle_tpu_torch.core.device import resolve_device
 
-__all__ = ["decode_params_from_numpy", "optimizer_states_from_numpy",
-           "tensor_from_numpy"]
+__all__ = ["decode_params_from_numpy", "load_module_state",
+           "optimizer_states_from_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(array):
@@ -26,6 +26,33 @@ def tensor_from_numpy(array):
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
+
+
+@torch.no_grad()
+def load_module_state(module, state):
+    """Load the reference's ``Layer.functional_state()`` — its ``(params,
+    buffers)`` pair or the params dict alone, every leaf converted by
+    ``np.asarray`` — into any ported ``nn.Module`` whose parameter names
+    are the reference's.  Names must match one to one and shapes exactly
+    (a ``ValueError`` says which do not); values are copied in place,
+    bit for bit in the parameter's dtype (bfloat16 included), so views
+    of the parameters (the serving path's decode params) keep aliasing
+    them."""
+    if isinstance(state, tuple):
+        state = state[0]
+    own = dict(module.named_parameters())
+    missing = sorted(set(own) - set(state))
+    unexpected = sorted(set(state) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"load_module_state: missing {missing}, "
+                         f"unexpected {unexpected}")
+    for name, p in own.items():
+        src = tensor_from_numpy(np.asarray(state[name]))
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(
+                f"load_module_state: {name} has shape {tuple(src.shape)}, "
+                f"expected {tuple(p.shape)}")
+        p.copy_(src.to(p.dtype))
 
 
 def decode_params_from_numpy(tree, device=None):

@@ -1,1 +1,2 @@
-"""Llama weight tree and the step-wise decode functions."""
+"""Model families: the Llama weight tree and its step-wise decode
+functions, and the BERT/ERNIE encoder."""

@@ -271,27 +271,11 @@ class LlamaForCausalLM(nn.Module):
                 buf.uniform_(-a, a, generator=gen)
             p.copy_(buf)
 
-    @torch.no_grad()
     def load_numpy_state(self, state):
         """Load weights from the reference's ``Layer.functional_state()``
-        — its ``(params, buffers)`` pair or the params dict alone — with
-        every leaf converted by ``np.asarray``.  Names must match one to
-        one; values are copied in place (bit for bit, bfloat16
-        included), so cached decode params keep aliasing the model."""
-        from paddle_tpu_torch.interop import tensor_from_numpy
+        (see ``interop.load_module_state``): names one to one, values
+        copied in place bit for bit, so cached decode params keep
+        aliasing the model."""
+        from paddle_tpu_torch.interop import load_module_state
 
-        if isinstance(state, tuple):
-            state = state[0]
-        own = dict(self.named_parameters())
-        missing = sorted(set(own) - set(state))
-        unexpected = sorted(set(state) - set(own))
-        if missing or unexpected:
-            raise ValueError(f"load_numpy_state: missing {missing}, "
-                             f"unexpected {unexpected}")
-        for name, p in own.items():
-            src = tensor_from_numpy(np.asarray(state[name]))
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"load_numpy_state: {name} has shape "
-                    f"{tuple(src.shape)}, expected {tuple(p.shape)}")
-            p.copy_(src.to(p.dtype))
+        load_module_state(self, state)

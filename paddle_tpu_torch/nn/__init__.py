@@ -1,1 +1,2 @@
-"""Neural-network functionals of the port (``nn.functional``)."""
+"""Neural-network functionals (``nn.functional``) and the layers of the
+BERT encoder (``nn.layer``)."""

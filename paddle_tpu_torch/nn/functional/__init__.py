@@ -1,7 +1,11 @@
-"""RMSNorm with its custom backward and the attention routing."""
+"""Functionals of the port: norms with their custom backwards,
+activations, dropout and the attention routing."""
+from paddle_tpu_torch.nn.functional.activation import gelu, tanh
 from paddle_tpu_torch.nn.functional.attention import (
-    scaled_dot_product_attention,
+    flash_attention, flash_attn_unpadded, scaled_dot_product_attention,
 )
-from paddle_tpu_torch.nn.functional.norm import rms_norm
+from paddle_tpu_torch.nn.functional.common import dropout
+from paddle_tpu_torch.nn.functional.norm import layer_norm, rms_norm
 
-__all__ = ["rms_norm", "scaled_dot_product_attention"]
+__all__ = ["dropout", "flash_attention", "flash_attn_unpadded", "gelu",
+           "layer_norm", "rms_norm", "scaled_dot_product_attention", "tanh"]

@@ -48,14 +48,14 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                               _P]},
     "flash_attention_fwd": {
-        "flash_attention_fwd": [_I, _P, _P, _P, _P, _P,
+        "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "flash_attention_bwd": {
         "flash_attention_delta": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
         "flash_attention_bwd_dkv": _FLASH_BWD + [
-            _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         "flash_attention_bwd_dq": _FLASH_BWD + [
-            _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "fused_rope": {
         "fused_rope": [_I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P]},

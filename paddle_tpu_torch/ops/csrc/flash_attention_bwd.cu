@@ -34,6 +34,16 @@
 // product (dV = p^T·do, dK = ds^T·q, dQ = ds·k); ds is built from the
 // unrounded p.  Every sum runs in a fixed order: results are bitwise
 // reproducible.
+//
+// Segment masks (the reference's segmented=True branches of
+// _bwd_dkv_kernel :754-812, _bwd_dq_kernel :879-927 and
+// _bwd_dq_kernel_streamed :372-376) are the compile-time switch SEG of
+// K4's and K5's templates: the same int32 ids as the forward, a block's
+// key segments in shared memory or registers, its query rows' beside
+// their lse.  p = exp(s - lse) is rebuilt only for same-segment pairs;
+// across segments p is 0 on a live row and 1/n on a dead one (its lse is
+// the -1e30 sentinel), with no ds (flash_tile.cuh).  Padding rows arrive
+// with dout zeroed, so K3 needs no switch.
 #include "flash_tile.cuh"
 
 namespace ptf {
@@ -63,11 +73,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------- K4
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
+               const int* __restrict__ qseg, const int* __restrict__ kseg,
                T* __restrict__ dk, T* __restrict__ dv, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16, KI = BK / 16;
@@ -80,6 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   float* dSs = Ps + kRows * PS;   // [64][PS]
   float* lse_s = dSs + kRows * PS;
   float* dl_s = lse_s + kRows;
+  __shared__ int kseg_s[SEG ? BK : 1], qseg_s[SEG ? kRows : 1];
 
   const int key0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -88,6 +100,9 @@ __global__ void __launch_bounds__(kThreads)
                         static_cast<long long>(kvh) * D;
   load_keys_t<T, D, BK>(Kt, k, kv0, stride);
   load_keys_t<T, D, BK>(Vt, v, kv0, stride);
+  if (SEG && threadIdx.x < BK)
+    kseg_s[threadIdx.x] =
+        kseg[static_cast<long long>(b) * g.Lk + key0 + threadIdx.x];
 
   float dk_acc[KI][CD], dv_acc[KI][CD];
 #pragma unroll
@@ -109,6 +124,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long so = stat_off(g, b, kvh, r0 + threadIdx.x);
       lse_s[threadIdx.x] = lse[so];
       dl_s[threadIdx.x] = delta[so];
+      if (SEG) qseg_s[threadIdx.x] = row_seg(qseg, g, b, r0 + threadIdx.x);
     }
     __syncthreads();
     float s[4][CJ], dp[4][CJ];
@@ -122,11 +138,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int col = tx + 16 * j;
-        const float p =
-            key0 + col <= vis ? expf(s[i][j] * g.scale - lse_s[rr]) : 0.f;
+        float p, ds;
+        if constexpr (SEG) {
+          p = ds = 0.f;
+          if (key0 + col <= vis)
+            seg_p_ds(s[i][j] * g.scale, dp[i][j], lse_s[rr], dl_s[rr],
+                     g.scale, qseg_s[rr] == kseg_s[col], inv_keys(vis), p,
+                     ds);
+        } else {
+          p = key0 + col <= vis ? expf(s[i][j] * g.scale - lse_s[rr]) : 0.f;
+          ds = p * (dp[i][j] - dl_s[rr]) * g.scale;
+        }
         Ps[rr * PS + col] = to_f32(from_f32<T>(p));
-        dSs[rr * PS + col] =
-            to_f32(from_f32<T>(p * (dp[i][j] - dl_s[rr]) * g.scale));
+        dSs[rr * PS + col] = to_f32(from_f32<T>(ds));
       }
     }
     __syncthreads();
@@ -164,11 +188,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------- K5
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ qseg, const int* __restrict__ kseg,
               T* __restrict__ dq, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16;
@@ -179,6 +204,7 @@ __global__ void __launch_bounds__(kThreads)
   float* dSs = KV + D * KS;       // [64][PS]
   float* lse_s = dSs + kRows * PS;
   float* dl_s = lse_s + kRows;
+  __shared__ int kseg_s[SEG ? BK : 1];
 
   const int n_tiles = g.Lq * g.G / kRows;
   const int tile = g.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
@@ -192,11 +218,12 @@ __global__ void __launch_bounds__(kThreads)
     lse_s[threadIdx.x] = lse[so];
     dl_s[threadIdx.x] = delta[so];
   }
-  int vis[4];
+  int vis[4], qs[4];
   float acc[4][CD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     vis[i] = g.causal ? (r0 + 4 * ty + i) / g.G + g.q_offset : g.Lk - 1;
+    qs[i] = SEG ? row_seg(qseg, g, b, r0 + 4 * ty + i) : 0;
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   }
@@ -209,6 +236,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int key0 = 0; key0 < key_end; key0 += BK) {
     __syncthreads();   // the previous tile's K^T and dS reads are done
     load_keys_t<T, D, BK>(KV, v, kv0 + key0 * stride, stride);
+    if (SEG && threadIdx.x < BK)
+      kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
+                                 threadIdx.x];
     __syncthreads();
     float dp[4][CJ], s[4][CJ];
     tile_dot<D, CJ>(dp, dOs, QS, KV, KS, ty, tx);
@@ -222,10 +252,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int col = tx + 16 * j;
-        const float p =
-            key0 + col <= vis[i] ? expf(s[i][j] * g.scale - lse_s[rr]) : 0.f;
-        dSs[rr * PS + col] =
-            to_f32(from_f32<T>(p * (dp[i][j] - dl_s[rr]) * g.scale));
+        float ds;
+        if constexpr (SEG) {
+          float p;
+          ds = 0.f;
+          if (key0 + col <= vis[i])
+            seg_p_ds(s[i][j] * g.scale, dp[i][j], lse_s[rr], dl_s[rr],
+                     g.scale, qs[i] == kseg_s[col], inv_keys(vis[i]), p, ds);
+        } else {
+          const float p = key0 + col <= vis[i]
+                              ? expf(s[i][j] * g.scale - lse_s[rr])
+                              : 0.f;
+          ds = p * (dp[i][j] - dl_s[rr]) * g.scale;
+        }
+        dSs[rr * PS + col] = to_f32(from_f32<T>(ds));
       }
     }
     __syncthreads();
@@ -259,13 +299,14 @@ __global__ void __launch_bounds__(kThreads)
 // rounding point).
 namespace mma {
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ qseg, const int* __restrict__ kseg,
               __nv_bfloat16* __restrict__ dq, Geom g) {
   constexpr int QS = D + 8, VS = kKeys + 8;
   constexpr int KD = D / 16, NT = kKeys / 8, ND = D / 8;
@@ -275,6 +316,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* Ks = dOs + kRows * QS;   // [64 keys][QS]
   __nv_bfloat16* Vs = Ks + kKeys * QS;    // [64 keys][QS]
   __nv_bfloat16* Kt = Vs + kKeys * QS;    // [D][VS]
+  __shared__ int kseg_s[SEG ? kKeys : 1];
 
   const int n_tiles = g.Lq * g.G / kRows;
   const int tile = g.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
@@ -300,6 +342,8 @@ __global__ void __launch_bounds__(kThreads)
   const float dl_hi = delta[stat_off(g, b, kvh, r0 + hi)];
   const int vis_lo = g.causal ? (r0 + lo) / g.G + g.q_offset : g.Lk - 1;
   const int vis_hi = g.causal ? (r0 + hi) / g.G + g.q_offset : g.Lk - 1;
+  const int qs_lo = SEG ? row_seg(qseg, g, b, r0 + lo) : 0;
+  const int qs_hi = SEG ? row_seg(qseg, g, b, r0 + hi) : 0;
   float acc[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
@@ -314,6 +358,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int key0 = 0; key0 < key_end; key0 += kKeys) {
     __syncthreads();   // the previous tile's K and V reads are done
     load_kv<D>(Ks, Kt, Vs, nullptr, k, v, kv0 + key0 * stride, stride);
+    if (SEG && threadIdx.x < kKeys)
+      kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
+                                 threadIdx.x];
     __syncthreads();
     float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -340,10 +387,21 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < 4; ++c) {
         const int key = key0 + 8 * j + 2 * tq + (c & 1);
         const bool up = c >= 2;
-        const float p = key <= (up ? vis_hi : vis_lo)
-                            ? expf(s[j][c] * g.scale - (up ? lse_hi : lse_lo))
-                            : 0.f;
-        s[j][c] = p * (dp[j][c] - (up ? dl_hi : dl_lo)) * g.scale;
+        const int vis = up ? vis_hi : vis_lo;
+        if constexpr (SEG) {
+          float p, ds = 0.f;
+          if (key <= vis)
+            seg_p_ds(s[j][c] * g.scale, dp[j][c], up ? lse_hi : lse_lo,
+                     up ? dl_hi : dl_lo, g.scale,
+                     (up ? qs_hi : qs_lo) == kseg_s[8 * j + 2 * tq + (c & 1)],
+                     inv_keys(vis), p, ds);
+          s[j][c] = ds;
+        } else {
+          const float p =
+              key <= vis ? expf(s[j][c] * g.scale - (up ? lse_hi : lse_lo))
+                         : 0.f;
+          s[j][c] = p * (dp[j][c] - (up ? dl_hi : dl_lo)) * g.scale;
+        }
       }
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
@@ -367,23 +425,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, const Geom& g,
-              cudaStream_t stream) {
+              const void* lse, const void* delta, const int* qseg,
+              const int* kseg, void* dq, const Geom& g, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((2 * kRows + 2 * kKeys) * (D + 8) + D * (kKeys + 8));
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(dq_kernel<D>, smem);
+  cudaError_t err = set_smem(dq_kernel<D, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), g);
+      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
+      kseg, static_cast<__nv_bfloat16*>(dq), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,13 +454,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // dV += p^T·do and dK += ds^T·q with p and ds rounded to bf16 into the A
 // fragments (the reference's rounding points).  Causal blocks start at
 // the first row tile that sees their keys.
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const __nv_bfloat16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
+               const int* __restrict__ qseg, const int* __restrict__ kseg,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                Geom g) {
   constexpr int QS = D + 8, TS = kRows + 8;
@@ -416,11 +475,15 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* dOt = Qt + D * TS;       // [D][TS]
   float* lse_s = reinterpret_cast<float*>(dOt + D * TS);
   float* dl_s = lse_s + kRows;
+  __shared__ int qseg_s[SEG ? kRows : 1];
 
   const int key0 = blockIdx.x * kKeys, kvh = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int klo = 16 * warp + gq, khi = klo + 8;   // the lane's two keys
+  const long long kb0 = static_cast<long long>(b) * g.Lk + key0;
+  const int ks_lo = SEG ? kseg[kb0 + klo] : 0;
+  const int ks_hi = SEG ? kseg[kb0 + khi] : 0;
   const long long stride = static_cast<long long>(g.Hkv) * D;
   const long long kv0 = (static_cast<long long>(b) * g.Lk + key0) * stride +
                         static_cast<long long>(kvh) * D;
@@ -446,6 +509,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long so = stat_off(g, b, kvh, r0 + threadIdx.x);
       lse_s[threadIdx.x] = lse[so];
       dl_s[threadIdx.x] = delta[so];
+      if (SEG) qseg_s[threadIdx.x] = row_seg(qseg, g, b, r0 + threadIdx.x);
     }
     __syncthreads();
 #pragma unroll
@@ -482,10 +546,20 @@ __global__ void __launch_bounds__(kThreads)
           const int key = key0 + (c >= 2 ? khi : klo);
           const int vis =
               g.causal ? (r0 + rr) / g.G + g.q_offset : g.Lk - 1;
-          const float p =
-              key <= vis ? expf(s[j][c] * g.scale - lse_s[rr]) : 0.f;
-          s[j][c] = p;
-          dp[j][c] = p * (dp[j][c] - dl_s[rr]) * g.scale;
+          if constexpr (SEG) {
+            float p = 0.f, ds = 0.f;
+            if (key <= vis)
+              seg_p_ds(s[j][c] * g.scale, dp[j][c], lse_s[rr], dl_s[rr],
+                       g.scale, qseg_s[rr] == (c >= 2 ? ks_hi : ks_lo),
+                       inv_keys(vis), p, ds);
+            s[j][c] = p;
+            dp[j][c] = ds;
+          } else {
+            const float p =
+                key <= vis ? expf(s[j][c] * g.scale - lse_s[rr]) : 0.f;
+            s[j][c] = p;
+            dp[j][c] = p * (dp[j][c] - dl_s[rr]) * g.scale;
+          }
         }
 #pragma unroll
       for (int x = 0; x < NH / 2; ++x) {
@@ -513,24 +587,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               const Geom& g, cudaStream_t stream) {
+               const void* lse, const void* delta, const int* qseg,
+               const int* kseg, void* dk, void* dv, const Geom& g,
+               cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (4 * kRows * (D + 8) +
                                                2 * D * (kRows + 8)) +
                       sizeof(float) * 2 * kRows;
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(dkv_kernel<D>, smem);
+  cudaError_t err = set_smem(dkv_kernel<D, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lk / kKeys, g.Hkv, g.B);
-  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dkv_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), g);
+      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
+      kseg, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,75 +620,111 @@ struct DqTile {
   static constexpr int value = D >= 128 ? 32 : 64;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               const Geom& g, cudaStream_t stream) {
+               const void* lse, const void* delta, const int* qseg,
+               const int* kseg, void* dk, void* dv, const Geom& g,
+               cudaStream_t stream) {
   constexpr int BK = KeyTile<D>::value;
   const size_t smem = sizeof(float) * (2 * D * (BK + 1) + 2 * kRows * (D + 4) +
                                        2 * kRows * (BK + 4) + 2 * kRows);
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(dkv_kernel<T, D, BK>, smem);
+  cudaError_t err = set_smem(dkv_kernel<T, D, BK, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lk / BK, g.Hkv, g.B);
-  dkv_kernel<T, D, BK><<<grid, kThreads, smem, stream>>>(
+  dkv_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), g);
+      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
+      kseg, static_cast<T*>(dk), static_cast<T*>(dv), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, const Geom& g,
-              cudaStream_t stream) {
+              const void* lse, const void* delta, const int* qseg,
+              const int* kseg, void* dq, const Geom& g, cudaStream_t stream) {
   constexpr int BK = DqTile<D>::value;
   const size_t smem = sizeof(float) * (2 * kRows * (D + 4) + D * (BK + 1) +
                                        kRows * (BK + 4) + 2 * kRows);
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(dq_kernel<T, D, BK>, smem);
+  cudaError_t err = set_smem(dq_kernel<T, D, BK, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  dq_kernel<T, D, BK><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), g);
+      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
+      kseg, static_cast<T*>(dq), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dkv_d(int D, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta, void* dk,
-          void* dv, const Geom& g, cudaStream_t s) {
-  switch (D) {
-    case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, g, s);
-    case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, g, s);
-    case 256:
-      return launch_dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, g, s);
+// The operands of one backward launch, shared by K4 and K5.
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  const int *qseg, *kseg;
+  void *dk, *dv, *dq;
+};
+
+template <typename T, int D, bool SEG>
+int run_dkv(const BwdArgs& a, const Geom& g, cudaStream_t s) {
+  return launch_dkv<T, D, SEG>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
+                               a.qseg, a.kseg, a.dk, a.dv, g, s);
+}
+
+template <typename T, int D, bool SEG>
+int run_dq(const BwdArgs& a, const Geom& g, cudaStream_t s) {
+  return launch_dq<T, D, SEG>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.qseg,
+                              a.kseg, a.dq, g, s);
+}
+
+// K4 (dq == false) or K5 by dtype and head_dim: bf16 at head_dim 64/128
+// on the tensor cores, everything else on the CUDA cores
+template <bool SEG>
+int dispatch_bwd(bool dq, int dtype, int D, const BwdArgs& a, const Geom& g,
+                 cudaStream_t s) {
+  switch (dtype * 1000 + D) {
+    case 64: return dq ? run_dq<float, 64, SEG>(a, g, s)
+                       : run_dkv<float, 64, SEG>(a, g, s);
+    case 128: return dq ? run_dq<float, 128, SEG>(a, g, s)
+                        : run_dkv<float, 128, SEG>(a, g, s);
+    case 256: return dq ? run_dq<float, 256, SEG>(a, g, s)
+                        : run_dkv<float, 256, SEG>(a, g, s);
+    case 1064:
+      return dq ? mma::launch_dq<64, SEG>(a.q, a.k, a.v, a.dout, a.lse,
+                                          a.delta, a.qseg, a.kseg, a.dq, g, s)
+                : mma::launch_dkv<64, SEG>(a.q, a.k, a.v, a.dout, a.lse,
+                                           a.delta, a.qseg, a.kseg, a.dk,
+                                           a.dv, g, s);
+    case 1128:
+      return dq ? mma::launch_dq<128, SEG>(a.q, a.k, a.v, a.dout, a.lse,
+                                           a.delta, a.qseg, a.kseg, a.dq, g,
+                                           s)
+                : mma::launch_dkv<128, SEG>(a.q, a.k, a.v, a.dout, a.lse,
+                                            a.delta, a.qseg, a.kseg, a.dk,
+                                            a.dv, g, s);
+    case 1256: return dq ? run_dq<__nv_bfloat16, 256, SEG>(a, g, s)
+                         : run_dkv<__nv_bfloat16, 256, SEG>(a, g, s);
+    case 2064: return dq ? run_dq<__half, 64, SEG>(a, g, s)
+                         : run_dkv<__half, 64, SEG>(a, g, s);
+    case 2128: return dq ? run_dq<__half, 128, SEG>(a, g, s)
+                         : run_dkv<__half, 128, SEG>(a, g, s);
+    case 2256: return dq ? run_dq<__half, 256, SEG>(a, g, s)
+                         : run_dkv<__half, 256, SEG>(a, g, s);
     default: return -1;
   }
 }
 
-template <typename T>
-int dq_d(int D, const void* q, const void* k, const void* v, const void* dout,
-         const void* lse, const void* delta, void* dq, const Geom& g,
-         cudaStream_t s) {
-  switch (D) {
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, g, s);
-    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, g, s);
-    case 256: return launch_dq<T, 256>(q, k, v, dout, lse, delta, dq, g, s);
-    default: return -1;
-  }
-}
-
-inline bool make_geom(ptf::Geom* g, int B, int H, int Hkv, int Lq, int Lk,
-                      int causal, float scale) {
-  if (Hkv <= 0 || H % Hkv != 0) return false;
-  *g = ptf::Geom{B, H, Hkv, H / Hkv, Lq, Lk, Lk - Lq, causal, scale};
-  return (Lq * g->G) % kRows == 0 && !(causal && Lq > Lk);
+inline int run_bwd(bool dq, int dtype, int D, const BwdArgs& a, int B, int H,
+                   int Hkv, int Lq, int Lk, int causal, float scale,
+                   void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return -1;
+  if ((a.qseg == nullptr) != (a.kseg == nullptr)) return -1;
+  const Geom g{B, H, Hkv, H / Hkv, Lq, Lk, Lk - Lq, causal, scale};
+  if ((Lq * g.G) % kRows != 0 || (causal && Lq > Lk)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.qseg != nullptr) return dispatch_bwd<true>(dq, dtype, D, a, g, s);
+  return dispatch_bwd<false>(dq, dtype, D, a, g, s);
 }
 
 }  // namespace ptf
@@ -651,63 +763,34 @@ extern "C" int flash_attention_delta(int dtype, const void* dout,
 }
 
 // q/dout [B, Lq, H*D], k/v/dk/dv [B, Lk, Hkv*D] (all in `dtype`),
-// lse/delta f32 [B, H, Lq]; geometry as flash_attention_fwd.
+// lse/delta f32 [B, H, Lq], qseg/kseg int32 [B, Lq]/[B, Lk] or both null;
+// geometry as flash_attention_fwd.
 extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
-                                       const void* delta, void* dk, void* dv,
+                                       const void* delta, const void* qseg,
+                                       const void* kseg, void* dk, void* dv,
                                        int B, int H, int Hkv, int Lq, int Lk,
                                        int D, int causal, float scale,
                                        void* stream) {
-  ptf::Geom g;
-  if (!ptf::make_geom(&g, B, H, Hkv, Lq, Lk, causal, scale)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return ptf::dkv_d<float>(D, q, k, v, dout, lse, delta, dk, dv, g, s);
-    case 1:   // bf16: the tensor cores where the fragments fit registers
-      switch (D) {
-        case 64:
-          return ptf::mma::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
-                                          g, s);
-        case 128:
-          return ptf::mma::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv,
-                                           g, s);
-        case 256:
-          return ptf::launch_dkv<__nv_bfloat16, 256>(q, k, v, dout, lse,
-                                                     delta, dk, dv, g, s);
-        default: return -1;
-      }
-    case 2:
-      return ptf::dkv_d<__half>(D, q, k, v, dout, lse, delta, dk, dv, g, s);
-    default: return -1;
-  }
+  const ptf::BwdArgs a{q, k, v, dout, lse, delta,
+                       static_cast<const int*>(qseg),
+                       static_cast<const int*>(kseg), dk, dv, nullptr};
+  return ptf::run_bwd(false, dtype, D, a, B, H, Hkv, Lq, Lk, causal, scale,
+                      stream);
 }
 
 // dq [B, Lq, H*D] in `dtype`; the other operands as flash_attention_bwd_dkv.
 extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
+                                      const void* qseg, const void* kseg,
                                       void* dq, int B, int H, int Hkv, int Lq,
                                       int Lk, int D, int causal, float scale,
                                       void* stream) {
-  ptf::Geom g;
-  if (!ptf::make_geom(&g, B, H, Hkv, Lq, Lk, causal, scale)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return ptf::dq_d<float>(D, q, k, v, dout, lse, delta, dq, g, s);
-    case 1:   // bf16: the tensor cores where the fragments fit registers
-      switch (D) {
-        case 64:
-          return ptf::mma::launch_dq<64>(q, k, v, dout, lse, delta, dq, g, s);
-        case 128:
-          return ptf::mma::launch_dq<128>(q, k, v, dout, lse, delta, dq, g,
-                                          s);
-        case 256:
-          return ptf::launch_dq<__nv_bfloat16, 256>(q, k, v, dout, lse, delta,
-                                                    dq, g, s);
-        default: return -1;
-      }
-    case 2: return ptf::dq_d<__half>(D, q, k, v, dout, lse, delta, dq, g, s);
-    default: return -1;
-  }
+  const ptf::BwdArgs a{q, k, v, dout, lse, delta,
+                       static_cast<const int*>(qseg),
+                       static_cast<const int*>(kseg), nullptr, nullptr, dq};
+  return ptf::run_bwd(true, dtype, D, a, B, H, Hkv, Lq, Lk, causal, scale,
+                      stream);
 }

@@ -29,15 +29,26 @@
 // a pipelined K/V ring and warp specialisation are later work.  As in
 // the reference, p is rounded to the input dtype before p·V while l sums
 // it unrounded.
+//
+// Segment masks (the reference's segmented=True branches, :122-134 and
+// :170-173 of _fwd_kernel, :291-295 of _fwd_kernel_streamed; the
+// padding/varlen masks of BERT and flash_attn_unpadded) are a
+// compile-time switch SEG of every template: each key tile's int32
+// segment ids are loaded into shared memory beside K/V (one coalesced
+// 256-byte load), each thread keeps its rows' query ids in registers,
+// and a cross-segment score takes the finite sentinel -1e30
+// (flash_tile.cuh says why); rows with a negative query segment write
+// zeros.  No key tile is skipped by segment: a dead row needs every key.
 #include "flash_tile.cuh"
 
 namespace ptf {
 
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ out,
-               float* __restrict__ lse, Geom g) {
+               float* __restrict__ lse, const int* __restrict__ qseg,
+               const int* __restrict__ kseg, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16;
   constexpr int KVF = D * KS > BK * D ? D * KS : BK * D;
@@ -45,6 +56,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Qs = smem;              // [64][QS]
   float* KV = Qs + kRows * QS;   // K^T [D][KS], then V [BK][D]
   float* Ps = KV + KVF;          // [64][PS]
+  __shared__ int kseg_s[SEG ? BK : 1];
 
   const int n_tiles = g.Lq * g.G / kRows;
   const int tile = g.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
@@ -54,10 +66,12 @@ __global__ void __launch_bounds__(kThreads)
   load_rows<T, D>(Qs, QS, q, g, b, kvh, r0);
 
   int vis[4];   // last key each of the thread's rows may see
+  int qs[4];    // the rows' segments (SEG)
   float m[4], l[4], acc[4][CD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     vis[i] = g.causal ? (r0 + 4 * ty + i) / g.G + g.q_offset : g.Lk - 1;
+    qs[i] = SEG ? row_seg(qseg, g, b, r0 + 4 * ty + i) : 0;
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -72,6 +86,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int key0 = 0; key0 < key_end; key0 += BK) {
     __syncthreads();   // the previous tile's V and P reads are done
     load_keys_t<T, D, BK>(KV, k, kv0 + key0 * stride, stride);
+    if (SEG && threadIdx.x < BK)
+      kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
+                                 threadIdx.x];
     __syncthreads();
     float s[4][CJ];
     tile_dot<D, CJ>(s, Qs, QS, KV, KS, ty, tx);
@@ -81,7 +98,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int key = key0 + tx + 16 * j;
-        s[i][j] = key <= vis[i] ? s[i][j] * g.scale : neg_inf();
+        if constexpr (SEG)
+          s[i][j] = seg_score(s[i][j] * g.scale, key <= vis[i],
+                              qs[i] == kseg_s[tx + 16 * j]);
+        else
+          s[i][j] = key <= vis[i] ? s[i][j] * g.scale : neg_inf();
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], max16(mx));
@@ -123,28 +144,30 @@ __global__ void __launch_bounds__(kThreads)
     const int r = r0 + 4 * ty + i;
     const float ls = fmaxf(l[i], 1e-30f);
     const long long o = row_off<D>(g, b, kvh, r);
+    const bool pad = SEG && qs[i] < 0;    // a padding row writes zeros
 #pragma unroll
     for (int c = 0; c < CD; ++c)
-      out[o + tx + 16 * c] = from_f32<T>(acc[i][c] / ls);
+      out[o + tx + 16 * c] = from_f32<T>(pad ? 0.f : acc[i][c] / ls);
     if (tx == 0) lse[stat_off(g, b, kvh, r)] = m[i] + logf(ls);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const Geom& g, cudaStream_t stream) {
+           const int* qseg, const int* kseg, const Geom& g,
+           cudaStream_t stream) {
   constexpr int BK = KeyTile<D>::value;
   constexpr int KVF = D * (BK + 1) > BK * D ? D * (BK + 1) : BK * D;
   const size_t smem =
       sizeof(float) * (kRows * (D + 4) + KVF + kRows * (BK + 4));
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(fwd_kernel<T, D, BK>, smem);
+  cudaError_t err = set_smem(fwd_kernel<T, D, BK, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  fwd_kernel<T, D, BK><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), g);
+      static_cast<float*>(lse), qseg, kseg, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,12 +184,13 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // point; l sums the unrounded p).
 namespace mma {
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               const int* __restrict__ qseg, const int* __restrict__ kseg,
                Geom g) {
   constexpr int QS = D + 8, VS = kKeys + 8;
   constexpr int KD = D / 16, NT = kKeys / 8, ND = D / 8;
@@ -174,6 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kRows * QS;   // [64 keys][QS]
   __nv_bfloat16* Vt = Ks + kKeys * QS;   // [D][VS]
+  __shared__ int kseg_s[SEG ? kKeys : 1];
 
   const int n_tiles = g.Lq * g.G / kRows;
   const int tile = g.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
@@ -194,6 +219,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int vis_lo = g.causal ? (r0 + lo) / g.G + g.q_offset : g.Lk - 1;
   const int vis_hi = g.causal ? (r0 + hi) / g.G + g.q_offset : g.Lk - 1;
+  const int qs_lo = SEG ? row_seg(qseg, g, b, r0 + lo) : 0;
+  const int qs_hi = SEG ? row_seg(qseg, g, b, r0 + hi) : 0;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
   float o[ND][4];
 #pragma unroll
@@ -208,6 +235,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int key0 = 0; key0 < key_end; key0 += kKeys) {
     __syncthreads();   // the previous tile's K and V reads are done
     load_kv<D>(Ks, nullptr, nullptr, Vt, k, v, kv0 + key0 * stride, stride);
+    if (SEG && threadIdx.x < kKeys)
+      kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
+                                 threadIdx.x];
     __syncthreads();
     float s[NT][4];
 #pragma unroll
@@ -222,10 +252,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int key = key0 + 8 * j + 2 * tq;
-      s[j][0] = key <= vis_lo ? s[j][0] * g.scale : neg_inf();
-      s[j][1] = key + 1 <= vis_lo ? s[j][1] * g.scale : neg_inf();
-      s[j][2] = key <= vis_hi ? s[j][2] * g.scale : neg_inf();
-      s[j][3] = key + 1 <= vis_hi ? s[j][3] * g.scale : neg_inf();
+      if constexpr (SEG) {
+        const int k0 = kseg_s[8 * j + 2 * tq], k1 = kseg_s[8 * j + 2 * tq + 1];
+        s[j][0] = seg_score(s[j][0] * g.scale, key <= vis_lo, qs_lo == k0);
+        s[j][1] = seg_score(s[j][1] * g.scale, key + 1 <= vis_lo, qs_lo == k1);
+        s[j][2] = seg_score(s[j][2] * g.scale, key <= vis_hi, qs_hi == k0);
+        s[j][3] = seg_score(s[j][3] * g.scale, key + 1 <= vis_hi, qs_hi == k1);
+      } else {
+        s[j][0] = key <= vis_lo ? s[j][0] * g.scale : neg_inf();
+        s[j][1] = key + 1 <= vis_lo ? s[j][1] * g.scale : neg_inf();
+        s[j][2] = key <= vis_hi ? s[j][2] * g.scale : neg_inf();
+        s[j][3] = key + 1 <= vis_hi ? s[j][3] * g.scale : neg_inf();
+      }
       mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
     }
@@ -277,12 +315,14 @@ __global__ void __launch_bounds__(kThreads)
   const float ls_lo = fmaxf(l_lo, 1e-30f), ls_hi = fmaxf(l_hi, 1e-30f);
   const long long o_lo = row_off<D>(g, b, kvh, r0 + lo);
   const long long o_hi = row_off<D>(g, b, kvh, r0 + hi);
+  // a padding row (negative segment) writes zeros
+  const bool pad_lo = SEG && qs_lo < 0, pad_hi = SEG && qs_hi < 0;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     *reinterpret_cast<uint32_t*>(out + o_lo + 8 * n + 2 * tq) =
-        pack(o[n][0] / ls_lo, o[n][1] / ls_lo);
+        pad_lo ? 0u : pack(o[n][0] / ls_lo, o[n][1] / ls_lo);
     *reinterpret_cast<uint32_t*>(out + o_hi + 8 * n + 2 * tq) =
-        pack(o[n][2] / ls_hi, o[n][3] / ls_hi);
+        pad_hi ? 0u : pack(o[n][2] / ls_hi, o[n][3] / ls_hi);
   }
   if (tq == 0) {
     lse[stat_off(g, b, kvh, r0 + lo)] = m_lo + logf(ls_lo);
@@ -290,32 +330,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const Geom& g, cudaStream_t stream) {
+           const int* qseg, const int* kseg, const Geom& g,
+           cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((kRows + kKeys) * (D + 8) + D * (kKeys + 8));
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(fwd_kernel<D>, smem);
+  cudaError_t err = set_smem(fwd_kernel<D, SEG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), g);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), qseg,
+      kseg, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mma
 
-template <typename T>
+template <typename T, bool SEG>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-               void* lse, const Geom& g, cudaStream_t s) {
+               void* lse, const int* qs, const int* ks, const Geom& g,
+               cudaStream_t s) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, out, lse, g, s);
-    case 128: return launch<T, 128>(q, k, v, out, lse, g, s);
-    case 256: return launch<T, 256>(q, k, v, out, lse, g, s);
+    case 64: return launch<T, 64, SEG>(q, k, v, out, lse, qs, ks, g, s);
+    case 128: return launch<T, 128, SEG>(q, k, v, out, lse, qs, ks, g, s);
+    case 256: return launch<T, 256, SEG>(q, k, v, out, lse, qs, ks, g, s);
+    default: return -1;
+  }
+}
+
+template <bool SEG>
+int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
+             void* out, void* lse, const int* qs, const int* ks,
+             const Geom& g, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return dispatch_d<float, SEG>(D, q, k, v, out, lse, qs, ks, g, s);
+    case 1:   // bf16: the tensor cores where the fragments fit registers
+      switch (D) {
+        case 64: return mma::launch<64, SEG>(q, k, v, out, lse, qs, ks, g, s);
+        case 128:
+          return mma::launch<128, SEG>(q, k, v, out, lse, qs, ks, g, s);
+        case 256:
+          return launch<__nv_bfloat16, 256, SEG>(q, k, v, out, lse, qs, ks, g,
+                                                 s);
+        default: return -1;
+      }
+    case 2:
+      return dispatch_d<__half, SEG>(D, q, k, v, out, lse, qs, ks, g, s);
     default: return -1;
   }
 }
@@ -325,27 +391,22 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out).  q/out
 // [B, Lq, H*D], k/v [B, Lk, Hkv*D], lse f32 [B, H, Lq]; H % Hkv == 0,
 // D in {64, 128, 256}, Lq*G a multiple of 64, Lk a multiple of 64 (32 at
-// D 256), causal requires Lq <= Lk.  Returns the launch's cudaError_t
-// (0 = ok, -1 = a shape the kernel does not take).
+// D 256), causal requires Lq <= Lk.  qseg/kseg: int32 segment ids
+// [B, Lq]/[B, Lk], both null for unsegmented attention.  Returns the
+// launch's cudaError_t (0 = ok, -1 = a shape the kernel does not take).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* out, void* lse, int B,
+                                   const void* v, void* out, void* lse,
+                                   const void* qseg, const void* kseg, int B,
                                    int H, int Hkv, int Lq, int Lk, int D,
                                    int causal, float scale, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return -1;
+  if ((qseg == nullptr) != (kseg == nullptr)) return -1;
   const ptf::Geom g{B, H, Hkv, H / Hkv, Lq, Lk, Lk - Lq, causal, scale};
   if ((Lq * g.G) % ptf::kRows != 0 || (causal && Lq > Lk)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return ptf::dispatch_d<float>(D, q, k, v, out, lse, g, s);
-    case 1:   // bf16: the tensor cores where the fragments fit registers
-      switch (D) {
-        case 64: return ptf::mma::launch<64>(q, k, v, out, lse, g, s);
-        case 128: return ptf::mma::launch<128>(q, k, v, out, lse, g, s);
-        case 256:
-          return ptf::launch<__nv_bfloat16, 256>(q, k, v, out, lse, g, s);
-        default: return -1;
-      }
-    case 2: return ptf::dispatch_d<__half>(D, q, k, v, out, lse, g, s);
-    default: return -1;
-  }
+  const int* qs = static_cast<const int*>(qseg);
+  const int* ks = static_cast<const int*>(kseg);
+  if (qs != nullptr)
+    return ptf::dispatch<true>(dtype, D, q, k, v, out, lse, qs, ks, g, s);
+  return ptf::dispatch<false>(dtype, D, q, k, v, out, lse, qs, ks, g, s);
 }

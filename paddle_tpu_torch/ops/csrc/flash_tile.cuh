@@ -31,9 +31,49 @@ constexpr int kThreads = 256;
 constexpr int kRows = 64;            // flattened query rows per tile
 constexpr float kNegInf = -1e30f;    // running-max init (the reference's)
 
-// -inf: the score of a masked key, whose exp is exactly 0
+// -inf: the score of a causally masked key, whose exp is exactly 0
 __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
+}
+
+// Segment masks (the SEG instances of every flash kernel): int32 ids
+// qseg [B, Lq] and kseg [B, Lk]; a (query, key) pair attends only within
+// one segment.  A cross-segment score is the reference's FINITE sentinel
+// kNegInf, not -inf: the running max starts there, so a row whose leading
+// key tiles are all out of segment sums p = 1 over them until its first
+// same-segment key arrives and exp(kNegInf - m) = 0 wipes that sum, and a
+// dead row (no same-segment key at all) ends with the mean of V over the
+// keys it sees.  Its lse, m + log(l), rounds to kNegInf in f32, so the
+// backward recognises it (lse <= kDeadLse) and gives each of its n keys
+// p = 1/n and no ds — the gradient of that mean.  Rows with a negative q
+// segment write a zero output; their dout is zeroed by the caller.
+constexpr float kDeadLse = 0.5f * kNegInf;
+
+// the forward's score of one pair: -inf past the causal limit, kNegInf
+// across segments, else the scaled product
+__device__ __forceinline__ float seg_score(float s, bool visible,
+                                           bool same) {
+  return !visible ? neg_inf() : (same ? s : kNegInf);
+}
+
+// the backward's p and ds of one causally visible pair of a row with
+// statistics (lse, delta), dp = do . v: across segments p is 1/n on a dead
+// row and 0 on a live one, with no ds
+__device__ __forceinline__ void seg_p_ds(float s_scaled, float dp, float lse,
+                                         float delta, float scale, bool same,
+                                         float inv_n, float& p, float& ds) {
+  if (same) {
+    p = expf(s_scaled - lse);
+    ds = p * (dp - delta) * scale;
+  } else {
+    p = lse <= kDeadLse ? inv_n : 0.f;
+    ds = 0.f;
+  }
+}
+
+// the number of keys flattened row r sees (1/n is a dead row's p)
+__device__ __forceinline__ float inv_keys(int vis) {
+  return 1.f / static_cast<float>(vis + 1);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -70,6 +110,12 @@ __device__ __forceinline__ long long row_off(const Geom& g, int b, int kvh,
   const int pos = r / g.G, gi = r - pos * g.G;
   return ((static_cast<long long>(b) * g.Lq + pos) * g.H + kvh * g.G + gi) *
          D;
+}
+
+// the segment id of flattened row r (position r / G) in qseg [B, Lq]
+__device__ __forceinline__ int row_seg(const int* qseg, const Geom& g, int b,
+                                       int r) {
+  return qseg[static_cast<long long>(b) * g.Lq + r / g.G];
 }
 
 // offset of the same row in a [B, H, Lq] statistics tensor

@@ -19,9 +19,33 @@ does; the forward returns ``out`` in the input dtype and
 rows as ``[B, Hkv, 8, Lq*G]``, sublane-replicated for TPU tiling); the
 backward rebuilds ``p = exp(s - lse)`` exactly as the kernels do.  The
 causal mask is bottom-right aligned (``q_offset = Lk - Lq``); causal with
-``Lq > Lk`` is rejected, as in the reference.  Segment ids and in-kernel
-RoPE (the reference's ``flash_attention_packed_segmented`` and
-``flash_attention_packed_rope``) are not ported yet.
+``Lq > Lk`` is rejected, as in the reference.
+
+Segment ids (``flash_attention_packed_segmented``, the reference's :1286;
+int32 ``q_segments [B, Lq]``, ``k_segments [B, Lk]``) restrict attention
+to same-segment pairs — the padding and varlen masks:
+
+* a cross-segment score is the reference's finite sentinel -1e30
+  (``_NEG_INF``), a causally masked one stays ``-inf``; the running max
+  starts at -1e30, so a row whose leading key tiles are all out of
+  segment self-corrects when its first same-segment key arrives
+  (``exp(-1e30 - m) = 0`` wipes what it summed);
+* a row with a non-negative segment and no same-segment key (a dead row:
+  an all-padding ``attention_mask`` row) therefore averages V over every
+  key it can see, as the reference's kernel, ``_sdpa_ref`` and
+  ``blockwise_attention`` do.  Its ``lse`` is ``-1e30`` (``log(Lk)`` does
+  not survive in f32), so the backward cannot rebuild ``p = 1/Lk`` from
+  it: it takes ``p = 1/n`` (n the keys the row sees) for a row whose lse
+  is at the sentinel and gives no masked pair a ds — the gradient of that
+  mean, as the reference's dense and blockwise paths have it (the
+  reference's kernel rebuilds ``p = 1`` there);
+* rows with a negative q segment come out zero, and their ``dout`` is
+  zeroed before delta, dK/dV and dQ, so they add nothing to any gradient
+  (the reference's :595-598, :674-678, :996-1000);
+* causal composes by global position: per-sequence causality for packed
+  sequences.
+
+In-kernel RoPE (``flash_attention_packed_rope``, K10) is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,15 +53,19 @@ import torch
 
 from paddle_tpu_torch.core.device import resolve_impl
 
-__all__ = ["available", "flash_attention_blhd", "flash_attention_packed",
-           "flash_attention_packed_rope", "flash_attention_packed_segmented",
-           "flash_bwd_reference", "flash_delta_reference",
-           "flash_fwd_reference", "repeat_kv", "validate_gqa"]
+__all__ = ["available", "blockwise_attention", "flash_attention_blhd",
+           "flash_attention_packed", "flash_attention_packed_rope",
+           "flash_attention_packed_segmented", "flash_bwd_reference",
+           "flash_delta_reference", "flash_fwd_reference", "repeat_kv",
+           "validate_gqa"]
 
 #: runs of the plain versions, by step (plain integers)
 plain_runs = {"fwd": 0, "delta": 0, "bwd": 0}
 
 _QBLOCK = 1024      # query positions per block of the plain versions
+_NEG_INF = -1e30    # the reference's finite mask sentinel and max init
+#: an lse at or below this is a dead row's (its max stayed at _NEG_INF)
+DEAD_LSE = 0.5 * _NEG_INF
 
 
 def validate_gqa(h, hkv, name="attention"):
@@ -110,22 +138,32 @@ def _scale(scale, d):
     return float(scale if scale is not None else 1.0 / (d ** 0.5))
 
 
-def _scores(qb, kf, scale, causal, q0, q_offset):
+def _scores(qb, kf, scale, causal, q0, q_offset, qseg=None, kseg=None):
     """f32 scores ``[B, Hkv, G, rows, Lk]`` of query positions
-    ``q0..q0+rows`` with the causal mask applied as ``-inf``."""
+    ``q0..q0+rows``: cross-segment pairs at -1e30, the causal mask as
+    ``-inf``.  Also returns the causally visible cross-segment pairs
+    (``[B, 1, 1, rows, Lk]`` bool, or None)."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kf) * scale
+    rows, lk = s.shape[-2], s.shape[-1]
+    cross = None
+    if qseg is not None:
+        cross = (qseg[:, q0:q0 + rows, None] != kseg[:, None, :])[:, None,
+                                                                  None]
+        s = s.masked_fill(cross, _NEG_INF)
     if causal:
-        rows, lk = s.shape[-2], s.shape[-1]
         pos = q_offset + q0 + torch.arange(rows, device=s.device)
         dead = torch.arange(lk, device=s.device)[None, :] > pos[:, None]
         s = s.masked_fill(dead, float("-inf"))
-    return s
+        if cross is not None:
+            cross = cross & ~dead
+    return s, cross
 
 
 def flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal=False,
-                        scale=None):
+                        scale=None, q_segments=None, k_segments=None):
     """Plain forward: ``(out [B, Lq, H*D] in q's dtype, lse [B, H, Lq]
-    f32)``, softmax in f32."""
+    f32)``, softmax in f32; optional int32 segment ids ``[B, Lq]`` /
+    ``[B, Lk]`` (rows with a negative q segment come out zero)."""
     plain_runs["fwd"] += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -137,8 +175,10 @@ def flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal=False,
     lse = torch.empty(qf.shape[:-1], dtype=torch.float32, device=q.device)
     for q0 in range(0, lq, _QBLOCK):
         q1 = min(lq, q0 + _QBLOCK)
-        s = _scores(qf[:, :, :, q0:q1], kf, scale, causal, q0, lk - lq)
-        m = s.amax(dim=-1, keepdim=True)
+        s, _ = _scores(qf[:, :, :, q0:q1], kf, scale, causal, q0, lk - lq,
+                       q_segments, k_segments)
+        # the kernels' running max starts at the -1e30 sentinel
+        m = s.amax(dim=-1, keepdim=True).clamp(min=_NEG_INF)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
         # p·V takes p rounded to the input dtype (the reference's rounding
@@ -146,7 +186,10 @@ def flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal=False,
         pv = p.to(q.dtype).float()
         out[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", pv, vf) / l
         lse[:, :, :, q0:q1] = (m + torch.log(l))[..., 0]
-    return _packed(out, q.dtype), lse.reshape(b, num_heads, lq)
+    out = _packed(out, q.dtype)
+    if q_segments is not None:
+        out = out.masked_fill((q_segments < 0)[:, :, None], 0)
+    return out, lse.reshape(b, num_heads, lq)
 
 
 def flash_delta_reference(dout, out, num_heads):
@@ -159,9 +202,12 @@ def flash_delta_reference(dout, out, num_heads):
 
 
 def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
-                        causal=False, scale=None):
+                        causal=False, scale=None, q_segments=None,
+                        k_segments=None):
     """Plain backward from the forward's ``lse`` and ``delta``:
-    ``(dq, dk, dv)`` in the inputs' dtypes, accumulated in f32."""
+    ``(dq, dk, dv)`` in the inputs' dtypes, accumulated in f32.  With
+    segment ids, ``dout`` of rows with a negative q segment must already
+    be zero (``flash_attention_packed_segmented`` zeroes it)."""
     plain_runs["bwd"] += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -178,12 +224,25 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
     for q0 in range(0, lq, _QBLOCK):
         q1 = min(lq, q0 + _QBLOCK)
         qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
-        s = _scores(qb, kf, scale, causal, q0, lk - lq)
-        p = torch.exp(s - lse5[..., q0:q1, None])     # masked: exp(-inf)
+        s, cross = _scores(qb, kf, scale, causal, q0, lk - lq, q_segments,
+                           k_segments)
+        lse_b = lse5[..., q0:q1, None]
+        p = torch.exp(s - lse_b)                      # masked: exp(-inf)
+        if cross is not None:
+            # a dead row spreads 1/n over the n keys it sees (its lse is
+            # the sentinel); cross-segment pairs get no ds
+            n = (lk if not causal else
+                 (lk - lq + torch.arange(q0, q1, device=q.device) + 1)
+                 .clamp(max=lk).float()[:, None])
+            p = torch.where(cross, torch.where(lse_b <= DEAD_LSE, 1.0 / n,
+                                               0.0), p)
         dv += torch.einsum("bhgqk,bhgqd->bhkd", p.to(q.dtype).float(), dob)
         dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vf)
         # ds from the unrounded p, rounded once for both of its products
-        ds = (p * (dp - dl5[..., q0:q1, None]) * scale).to(q.dtype).float()
+        ds = p * (dp - dl5[..., q0:q1, None]) * scale
+        if cross is not None:
+            ds = ds.masked_fill(cross, 0.0)
+        ds = ds.to(q.dtype).float()
         dq[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
         dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb)
 
@@ -195,45 +254,52 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
 
 
 # ------------------------------------------------------------------ routing
-def _forward(q, k, v, num_heads, num_kv_heads, causal, scale):
+def _forward(q, k, v, num_heads, num_kv_heads, causal, scale, qseg, kseg):
     if resolve_impl(None, q.device, "flash_attention") == "reference":
         return flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal,
-                                   scale)
+                                   scale, qseg, kseg)
     from paddle_tpu_torch.ops import flash_attention_cuda as fc
 
-    return fc.flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale)
+    return fc.flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale,
+                        qseg, kseg)
 
 
 def _backward(q, k, v, out, lse, dout, num_heads, num_kv_heads, causal,
-              scale):
+              scale, qseg, kseg):
     if resolve_impl(None, q.device, "flash_attention") == "reference":
         delta = flash_delta_reference(dout, out, num_heads)
         return flash_bwd_reference(q, k, v, dout, lse, delta, num_heads,
-                                   num_kv_heads, causal, scale)
+                                   num_kv_heads, causal, scale, qseg, kseg)
     from paddle_tpu_torch.ops import flash_attention_cuda as fc
 
     delta = fc.flash_delta(dout, out, num_heads)
     dk, dv = fc.flash_bwd_dkv(q, k, v, dout, lse, delta, num_heads,
-                              num_kv_heads, causal, scale)
+                              num_kv_heads, causal, scale, qseg, kseg)
     dq = fc.flash_bwd_dq(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
-                         causal, scale)
+                         causal, scale, qseg, kseg)
     return dq, dk, dv
 
 
 class _FlashAttentionPacked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, num_kv_heads, causal, scale):
-        out, lse = _forward(q, k, v, num_heads, num_kv_heads, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, qseg, kseg, num_heads, num_kv_heads, causal,
+                scale):
+        out, lse = _forward(q, k, v, num_heads, num_kv_heads, causal, scale,
+                            qseg, kseg)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
         ctx.cfg = (num_heads, num_kv_heads, causal, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, out, lse, dout.contiguous(),
-                               *ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        dout = dout.contiguous()
+        if qseg is not None:
+            # padding rows: their lse is garbage, a zero dout kills every
+            # contribution they would make (the reference's :996-1000)
+            dout = dout.masked_fill((qseg < 0)[:, :, None], 0)
+        dq, dk, dv = _backward(q, k, v, out, lse, dout, *ctx.cfg, qseg, kseg)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_packed(q, k, v, num_heads, num_kv_heads, causal=False,
@@ -245,14 +311,34 @@ def flash_attention_packed(q, k, v, num_heads, num_kv_heads, causal=False,
     validate_gqa(num_heads, num_kv_heads, "flash_attention")
     d = q.shape[2] // num_heads
     return _FlashAttentionPacked.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), int(num_heads),
-        int(num_kv_heads), bool(causal), _scale(scale, d))
+        q.contiguous(), k.contiguous(), v.contiguous(), None, None,
+        int(num_heads), int(num_kv_heads), bool(causal), _scale(scale, d))
 
 
-def flash_attention_packed_segmented(*args, **kwargs):
-    raise NotImplementedError(
-        "flash attention with segment ids (padding/varlen masks) is not "
-        "ported yet: the BERT/varlen slice brings it")
+def _segments(seg, b, l, device, name):
+    seg = torch.as_tensor(seg, device=device)
+    if seg.is_floating_point() or tuple(seg.shape) != (b, l):
+        raise ValueError(f"flash_attention: {name} must be integer [{b}, "
+                         f"{l}], got {seg.dtype} {tuple(seg.shape)}")
+    return seg.to(torch.int32).contiguous()
+
+
+def flash_attention_packed_segmented(q, k, v, q_segments, k_segments,
+                                     num_heads, num_kv_heads, causal=False,
+                                     scale=None):
+    """Segment-masked GQA flash attention in the projection layout:
+    ``q_segments [B, Lq]`` / ``k_segments [B, Lk]`` integer ids restrict
+    attention to equal-segment pairs; a negative q segment is a padding
+    row (zero output, zero gradients).  Differentiable in q, k, v."""
+    b, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    _reject_causal_lq_gt_lk(lq, lk, causal, "flash_attention")
+    validate_gqa(num_heads, num_kv_heads, "flash_attention")
+    d = q.shape[2] // num_heads
+    qseg = _segments(q_segments, b, lq, q.device, "q_segments")
+    kseg = _segments(k_segments, b, lk, q.device, "k_segments")
+    return _FlashAttentionPacked.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), qseg, kseg,
+        int(num_heads), int(num_kv_heads), bool(causal), _scale(scale, d))
 
 
 def flash_attention_packed_rope(*args, **kwargs):
@@ -264,14 +350,68 @@ def flash_attention_packed_rope(*args, **kwargs):
 def flash_attention_blhd(q, k, v, causal=False, scale=None, q_segments=None,
                          k_segments=None):
     """Flash attention on ``[B, L, H, D]`` (k/v may carry fewer kv heads):
-    a packing wrapper over ``flash_attention_packed``."""
-    if q_segments is not None or k_segments is not None:
-        return flash_attention_packed_segmented()
+    a packing wrapper over ``flash_attention_packed``, or over
+    ``flash_attention_packed_segmented`` when segment ids are given."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     validate_gqa(h, hkv, "flash_attention_blhd")
-    out = flash_attention_packed(q.reshape(b, lq, h * d),
-                                 k.reshape(b, lk, hkv * d),
-                                 v.reshape(b, lk, hkv * d), h, hkv, causal,
-                                 scale)
+    qp, kp, vp = (q.reshape(b, lq, h * d), k.reshape(b, lk, hkv * d),
+                  v.reshape(b, lk, hkv * d))
+    if (q_segments is None) != (k_segments is None):
+        raise ValueError("flash_attention_blhd: give both q_segments and "
+                         "k_segments, or neither")
+    if q_segments is None:
+        out = flash_attention_packed(qp, kp, vp, h, hkv, causal, scale)
+    else:
+        out = flash_attention_packed_segmented(qp, kp, vp, q_segments,
+                                               k_segments, h, hkv, causal,
+                                               scale)
     return out.view(b, lq, h, d)
+
+
+def blockwise_attention(q, k, v, causal=False, scale=None, block_k=512,
+                        q_segments=None, k_segments=None):
+    """Memory-bounded attention on ``[B, L, H, D]`` as an online softmax
+    over key blocks, in f32 (the reference's :1418-1503, without the
+    ring attention's offsets and carry): the plain path for shapes
+    outside the flash gate.  The causal mask is top-left aligned (query
+    i sees keys <= i, self-attention lengths); segment ids restrict
+    attention to same-segment pairs, and rows with a negative q segment
+    come out zero.  Both masks use the finite -1e30 sentinel, so a row
+    with no live key averages V.  Differentiable by autograd."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = validate_gqa(h, hkv, "blockwise_attention")
+    scale = _scale(scale, d)
+    block_k = min(int(block_k), lk)
+    while lk % block_k:
+        block_k //= 2
+    qt = q.transpose(1, 2).float().mul(scale).reshape(b, hkv, g, lq, d)
+    kt, vt = k.transpose(1, 2).float(), v.transpose(1, 2).float()
+    q_idx = torch.arange(lq, device=q.device)
+    acc = torch.zeros((b, h, lq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, lq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, lq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, lk, block_k):
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qt, kt[:, :, k0:k0 + block_k]) \
+            .reshape(b, h, lq, block_k)
+        if causal:
+            k_idx = k0 + torch.arange(block_k, device=q.device)
+            s = s.masked_fill(q_idx[:, None] < k_idx[None, :], _NEG_INF)
+        if k_segments is not None:
+            cross = q_segments[:, :, None] != \
+                k_segments[:, None, k0:k0 + block_k]
+            s = s.masked_fill(cross[:, None], _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p.reshape(b, hkv, g, lq, block_k),
+            vt[:, :, k0:k0 + block_k]).reshape(b, h, lq, d)
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    if q_segments is not None:
+        out = out.masked_fill((q_segments < 0)[:, None, :, None], 0.0)
+    return out.transpose(1, 2).to(q.dtype)

@@ -4,8 +4,11 @@ Replaces the TPU kernels of ``paddle_tpu/ops/flash_attention.py``: the
 forward (K1 resident ``pallas_call`` :653, K2 streamed :571; one kernel
 here, ``csrc/flash_attention_fwd.cu``) and the backward's delta (K3
 :714), dK/dV (K4 :1131) and dQ (K5 :1242, streamed :1175) passes
-(``csrc/flash_attention_bwd.cu``).  Each source's note says what bounds
-its kernels on the card and how the design answers that.
+(``csrc/flash_attention_bwd.cu``), each with and without the reference's
+segment masks (``segmented=True``: int32 ``q_segments [B, Lq]`` and
+``k_segments [B, Lk]``, a compile-time switch of the same templates).
+Each source's note says what bounds its kernels on the card and how the
+design answers that.
 
 Every wrapper takes CUDA tensors in the packed projection layout
 (q/out ``[B, Lq, H*D]``, k/v ``[B, Lk, Hkv*D]``, contiguous, one dtype of
@@ -13,7 +16,7 @@ float32/bfloat16/float16) and row statistics ``[B, H, Lq]`` f32,
 launches its kernel on the current stream, and raises on anything the
 kernel does not take.  The plain PyTorch versions and the routing live in
 ``ops/flash_attention.py``; ``launches`` counts the launches of each
-kernel.
+kernel, the segmented instances under ``*_seg``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ __all__ = ["flash_fwd", "flash_delta", "flash_bwd_dkv", "flash_bwd_dq",
            "HEAD_DIMS"]
 
 #: kernel launches by kernel (plain integers; callers may reset them to 0)
-launches = {"fwd": 0, "delta": 0, "dkv": 0, "dq": 0}
+launches = {"fwd": 0, "delta": 0, "dkv": 0, "dq": 0, "fwd_seg": 0,
+            "dkv_seg": 0, "dq_seg": 0}
 
 HEAD_DIMS = (64, 128, 256)
 _ROWS = 64          # flattened (position, group head) rows per kernel tile
@@ -82,6 +86,19 @@ def _check_stats(where, dev, b, h, lq, **stats):
                              f"[{b}, {h}, {lq}] tensor on {dev}")
 
 
+def _check_segments(where, dev, b, lq, lk, qseg, kseg):
+    """Validate optional segment ids; return their two pointers (None for
+    unsegmented attention) and the counter's suffix."""
+    if qseg is None and kseg is None:
+        return None, None, ""
+    for name, x, l in (("q_segments", qseg, lq), ("k_segments", kseg, lk)):
+        if x is None or x.dtype != torch.int32 or tuple(x.shape) != (b, l) \
+                or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{where}: {name} must be a contiguous int32 "
+                             f"[{b}, {l}] tensor on {dev}")
+    return qseg.data_ptr(), kseg.data_ptr(), "_seg"
+
+
 def _ok(where, rc, kernel):
     if rc != 0:
         raise RuntimeError(f"{where}: kernel launch failed with CUDA error "
@@ -89,12 +106,16 @@ def _ok(where, rc, kernel):
     launches[kernel] += 1
 
 
-def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale):
-    """K1/K2: ``(out [B, Lq, H*D] in q's dtype, lse [B, H, Lq] f32)``."""
+def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale, qseg=None,
+              kseg=None):
+    """K1/K2: ``(out [B, Lq, H*D] in q's dtype, lse [B, H, Lq] f32)``;
+    with segment ids, rows with a negative q segment come out zero."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _geometry("flash_fwd", q, k, v, num_heads, num_kv_heads,
                              causal)
+    qs, ks, tag = _check_segments("flash_fwd", q.device, b, lq, lk, qseg,
+                                  kseg)
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, lq), dtype=torch.float32,
                       device=q.device)
@@ -102,9 +123,10 @@ def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale):
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, num_heads, num_kv_heads, lq,
-            lk, d, int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_fwd", rc, "fwd")
+            out.data_ptr(), lse.data_ptr(), qs, ks, b, num_heads,
+            num_kv_heads, lq, lk, d, int(bool(causal)), float(scale),
+            _stream(q.device))
+    _ok("flash_fwd", rc, "fwd" + tag)
     return out, lse
 
 
@@ -151,40 +173,45 @@ def _bwd_operands(where, q, k, v, dout, lse, delta, num_heads, num_kv_heads,
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
-                  causal, scale):
+                  causal, scale, qseg=None, kseg=None):
     """K4: ``(dk, dv)`` in k's dtype, each kv head summed over its G query
-    heads in-kernel."""
+    heads in-kernel; with segment ids, ``dout`` of padding rows must be
+    zero."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _bwd_operands("flash_bwd_dkv", q, k, v, dout, lse, delta,
                                  num_heads, num_kv_heads, causal)
+    qs, ks, tag = _check_segments("flash_bwd_dkv", q.device, b, lq, lk,
+                                  qseg, kseg)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_dkv(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, num_heads, num_kv_heads, lq, lk, d,
-            int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_bwd_dkv", rc, "dkv")
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks,
+            dk.data_ptr(), dv.data_ptr(), b, num_heads, num_kv_heads, lq, lk,
+            d, int(bool(causal)), float(scale), _stream(q.device))
+    _ok("flash_bwd_dkv", rc, "dkv" + tag)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, num_heads, num_kv_heads, causal,
-                 scale):
-    """K5: ``dq`` in q's dtype."""
+                 scale, qseg=None, kseg=None):
+    """K5: ``dq`` in q's dtype (segment ids as ``flash_bwd_dkv``)."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _bwd_operands("flash_bwd_dq", q, k, v, dout, lse, delta,
                                  num_heads, num_kv_heads, causal)
+    qs, ks, tag = _check_segments("flash_bwd_dq", q.device, b, lq, lk, qseg,
+                                  kseg)
     dq = torch.empty_like(q)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_dq(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, num_heads, num_kv_heads, lq, lk, d, int(bool(causal)),
-            float(scale), _stream(q.device))
-    _ok("flash_bwd_dq", rc, "dq")
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks,
+            dq.data_ptr(), b, num_heads, num_kv_heads, lq, lk, d,
+            int(bool(causal)), float(scale), _stream(q.device))
+    _ok("flash_bwd_dq", rc, "dq" + tag)
     return dq

@@ -5,7 +5,10 @@ Counterpart of ``paddle_tpu/static/functionalize.py:73-284``
 Layer into one jitted program over its functional state, the port runs
 eagerly: the forward under autograd, ``torch.autograd.grad`` for the
 trainable parameters' gradients (``requires_grad``; frozen parameters
-get no update), then the optimizer's ``functional_update`` over flat
+get no update; a trainable parameter the loss does not reach, such as
+BERT's pooler under the masked-LM loss, gets a zero gradient, as
+``jax.value_and_grad`` gives it, so weight decay still applies), then
+the optimizer's ``functional_update`` over flat
 ``{name: tensor}`` dicts with the step counter as the bias-correction
 step.  After each step the module's parameters hold the new values: they
 are copied in place, so every view of a parameter (the serving path's
@@ -68,7 +71,8 @@ class TrainStep:
             else:
                 loss = self._loss(*datas)
             grads = torch.autograd.grad(loss, list(train.values()),
-                                        allow_unused=True)
+                                        allow_unused=True,
+                                        materialize_grads=True)
         grads = dict(zip(train, grads))
         opt = self._optimizer
         prev = opt._global_step

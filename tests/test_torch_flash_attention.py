@@ -221,13 +221,31 @@ def test_sdpa_dense_path_takes_a_general_mask(kind):
 
 
 def test_sdpa_refuses_what_is_not_ported():
-    q = torch.zeros((1, 128, 4, 64))
+    """In-kernel RoPE (K10) is refused, as are float segment ids and a
+    lone ``q_segments``.  Key-padding masks, attention dropout and
+    segment ids run: a key-padding mask on the segmented flash path (no
+    dense run), dropout on the dense path, segment ids through
+    ``flash_attention_blhd`` (the full behaviour is held to the
+    reference in ``test_torch_flash_segmented.py`` and
+    ``test_torch_bert.py``)."""
+    q = torch.randn((1, 128, 4, 64), generator=torch.Generator()
+                    .manual_seed(0))
     mask = torch.ones((1, 128), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="key-padding"):
-        tattn.scaled_dot_product_attention(q, q, q, attn_mask=mask)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tattn.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="segment"):
-        tfa.flash_attention_blhd(q, q, q, q_segments=torch.zeros((1, 128)))
+    dense, runs = tattn.dense_runs, tfa.plain_runs["fwd"]
+    out = tattn.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+    assert tattn.dense_runs == dense and tfa.plain_runs["fwd"] == runs + 1
+    torch.testing.assert_close(out, tattn.scaled_dot_product_attention(
+        q, q, q), atol=0, rtol=0)
+    dropped = tattn.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    assert tattn.dense_runs == dense + 1 and dropped.shape == q.shape
+    seg = torch.zeros((1, 128), dtype=torch.int32)
+    torch.testing.assert_close(
+        tfa.flash_attention_blhd(q, q, q, q_segments=seg, k_segments=seg),
+        out, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="integer"):
+        tfa.flash_attention_blhd(q, q, q, q_segments=seg.float(),
+                                 k_segments=seg.float())
+    with pytest.raises(ValueError, match="both"):
+        tfa.flash_attention_blhd(q, q, q, q_segments=seg)
     with pytest.raises(NotImplementedError, match="K10"):
         tfa.flash_attention_packed_rope(q, q, q)

@@ -16,7 +16,9 @@ ulps); caches after a K9 append BITWISE equal to the plain append.  The
 training kernels (K1-K5 flash attention, K6 RoPE) run at every dtype,
 head_dim 64/128/256, G 1/2/3/4/8, Lq < Lk and non-causal, against their
 plain versions (tolerances at ``FLASH_TOL``; RoPE bitwise) and against
-themselves (bitwise, run to run).  The loss chunk's bf16 GEMM with an
+themselves (bitwise, run to run); the segmented flash kernels likewise,
+with key padding (a dead row among them) and causal varlen.  The loss
+chunk's bf16 GEMM with an
 f32 result (the card's branch of ``ops/chunked_ce.py``) runs against the
 widened f32 branch.  The int8 kernels: K8's and K9's int8 branches
 against their plain versions (K9's appended codes and scales bitwise,
@@ -215,6 +217,98 @@ def test_flash_autograd_on_the_card_matches_cpu(dtype):
         torch.testing.assert_close(a.float(), c.float(), **FLASH_TOL[dtype])
 
 
+def _segments(dev, kind, b, l):
+    """(q_segments, k_segments) int32: key padding (one row left-padded,
+    one all padding: a dead row) or three packed sequences with a pad
+    tail (q -1, k -2)."""
+    if kind == "padding":
+        kseg = torch.full((b, l), -2, dtype=torch.int32)
+        for i, (n, left) in enumerate([(l, False), (l - 58, True),
+                                       (70, False), (0, False)][:b]):
+            if left:
+                kseg[i, l - n:] = 0
+            else:
+                kseg[i, :n] = 0
+        return torch.zeros((b, l), dtype=torch.int32).to(dev), kseg.to(dev)
+    pos = torch.arange(l)
+    cu = torch.tensor([l // 5, l // 2, l - 40])
+    seg = torch.searchsorted(cu, pos, right=True).int()
+    qseg = torch.where(pos < cu[-1], seg, -1).int().repeat(b, 1)
+    kseg = torch.where(pos < cu[-1], seg, -2).int().repeat(b, 1)
+    return qseg.to(dev), kseg.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("geom", [
+    (4, 128, 4, 4, 64, False, "padding"), (2, 256, 4, 2, 128, True, "varlen"),
+    (1, 192, 6, 2, 64, True, "varlen"), (2, 128, 2, 1, 256, False, "padding")],
+    ids=["mha-d64-padding", "gqa-varlen", "g3-varlen", "d256-padding"])
+def test_segmented_flash_kernels_match_plain(dtype, geom):
+    """The segmented K1/K2, K4 and K5 (and K3 on the zeroed dout) against
+    the plain versions with the same segment ids: key padding with a
+    left-padded and a dead row (the mean of V, dO/Lk to dV), causal varlen
+    with a pad tail (zero rows); bitwise repeatable."""
+    dev = _card()
+    b, l, h, hkv, d, causal, kind = geom
+    q, k, v, do = _flash_inputs(dev, dtype, b, l, l, h, hkv, d, 17)
+    qseg, kseg = _segments(dev, kind, b, l)
+    do = do.masked_fill((qseg < 0)[:, :, None], 0)
+    scale = d ** -0.5
+    before = dict(kfa.launches)
+    out, lse = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, qseg, kseg)
+    ref, rlse = tfa.flash_fwd_reference(q, k, v, h, hkv, causal, scale,
+                                        qseg, kseg)
+    delta = kfa.flash_delta(do, out, h)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                               scale, qseg, kseg)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                          qseg, kseg)
+    rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, h,
+                                            hkv, causal, scale, qseg, kseg)
+    torch.cuda.synchronize()
+    for key in ("fwd_seg", "dkv_seg", "dq_seg"):
+        assert kfa.launches[key] == before[key] + 1
+    for key in ("fwd", "dkv", "dq"):
+        assert kfa.launches[key] == before[key]
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    live = (qseg >= 0)[:, None, :]
+    torch.testing.assert_close(lse * live, rlse * live, atol=1e-5,
+                               rtol=1e-5)
+    assert float(out.float().masked_fill((qseg >= 0)[:, :, None], 0)
+                 .abs().max()) == 0.0
+    for a, r in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    dk2, dv2 = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                                 scale, qseg, kseg)
+    dq2 = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                           qseg, kseg)
+    out2, lse2 = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, qseg, kseg)
+    for a, a2 in ((dq, dq2), (dk, dk2), (dv, dv2), (out, out2),
+                  (lse, lse2)):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_segmented_autograd_on_the_card_matches_cpu(dtype):
+    """``flash_attention_packed_segmented`` end to end (the padding rows'
+    dout zeroed before K3-K5) on the card and on the CPU."""
+    dev = _card()
+    q, k, v, do = _flash_inputs("cpu", dtype, 2, 256, 256, 4, 2, 128, 19)
+    qseg, kseg = _segments("cpu", "varlen", 2, 256)
+    grads = []
+    for device in ("cpu", dev):
+        xs = [x.detach().to(device).requires_grad_(True) for x in (q, k, v)]
+        out = tfa.flash_attention_packed_segmented(
+            *xs, qseg.to(device), kseg.to(device), 4, 2, causal=True)
+        out.backward(do.to(device))
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for a, c in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.float(), c.float(), **FLASH_TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("neg", [False, True], ids=["fwd", "inverse"])
@@ -251,6 +345,11 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
         kfa.flash_fwd(q, k.half(), k, 4, 2, False, 1.0)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         k6.rope(q.cpu(), k.cpu(), q.cpu(), q.cpu(), 4, 2)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        kfa.flash_fwd(k1, k1, k1, 4, 4, False, 1.0, seg.long(), seg)
+    with pytest.raises(ValueError, match="k_segments"):
+        kfa.flash_fwd(k1, k1, k1, 4, 4, False, 1.0, seg, None)
 
 
 @pytest.mark.cuda
