@@ -76,8 +76,7 @@ Phases (any failure exits non-zero before the result line):
    pad tail that must come out zero, H 16, Hkv 4, D 128, causal).  Times
    at both, bounds per same-segment visible pair, and the library
    yardstick (scaled_dot_product_attention with the boolean mask, and
-   its backward) at the BERT shape.  The masked-LM loss chunk's bf16
-   GEMM against the tied [V, H] embedding, as phase 5's.
+   its backward) at the BERT shape.
 8. BERT training at full width: bench_bert's configuration (BERT-base,
    bf16, batch 64, seq 512, AdamW lr 1e-4 / weight decay 0.01, 15% of
    positions labelled) through ``build_train_step``, unmasked (the
@@ -634,7 +633,7 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
     if not total:
         print(f"profile {tag}: the profiler recorded no device time (not "
               "measured)", flush=True)
-        return None, rows
+        return None
     print(f"profile {tag} decode window: {n_steps} steps, wall "
           f"{wall_us / n_steps:.1f} us/step unprofiled, device "
           f"{total / n_steps:.1f} us/step, device busy "
@@ -794,26 +793,21 @@ def flash_case(torch, dev, gen, B, L, H, HKV, D, dtype=None):
             rnd(B, L, H * D))
 
 
-def check_chunked_ce(torch, dev, gen, n=None, hid=None, vocab=None,
-                     vh=False, tag_=""):
-    """One loss chunk of the training path (Llama: 8192 tokens, hidden
-    2048, vocab 32000; BERT's masked-LM loss with ``vh``: 8192 tokens
-    against the tied [30522, 768] embedding): the card's bf16 branch (one
-    tensor-core GEMM with an f32 result) against the same chunk widened
-    to f32 first (the branch the CPU takes).  Both form exact products of
-    bf16 values and sum them in f32, in another order: the loss within
-    1e-6 relative; dh and dw (bf16) within one bf16 ulp (2^-7 of their
-    magnitude; rounding alone takes up to half) of the f32 branch's
-    gradients, or near zero within 2^-16 of the tensor's largest
-    magnitude."""
+def check_chunked_ce(torch, dev, gen):
+    """One loss chunk of the training path (8192 tokens, hidden 2048,
+    vocab 32000): the card's bf16 branch (one tensor-core GEMM with an f32
+    result) against the same chunk widened to f32 first (the branch the
+    CPU takes).  Both form exact products of bf16 values and sum them in
+    f32, in another order: the loss within 1e-6 relative; dh and dw
+    (bf16) within one bf16 ulp (2^-7 of their magnitude; rounding alone
+    takes up to half) of the f32 branch's gradients, or near zero within
+    2^-16 of the tensor's largest magnitude."""
     from paddle_tpu_torch.ops.chunked_ce import chunked_token_ce
 
-    if n is None:
-        n, hid, vocab = (TRAIN_CFG[k] for k in ("loss_chunk_size",
-                                                "hidden_size", "vocab_size"))
+    n, hid, vocab = (TRAIN_CFG[k] for k in ("loss_chunk_size",
+                                            "hidden_size", "vocab_size"))
     h = torch.randn(1, n, hid, generator=gen, device=dev).to(torch.bfloat16)
-    wshape = (vocab, hid) if vh else (hid, vocab)
-    w = (0.02 * torch.randn(*wshape, generator=gen, device=dev)) \
+    w = (0.02 * torch.randn(hid, vocab, generator=gen, device=dev)) \
         .to(torch.bfloat16)
     labels = torch.randint(0, vocab, (1, n), generator=gen, device=dev)
     labels[0, -100:] = -1                      # ignored tokens, as padding
@@ -821,12 +815,12 @@ def check_chunked_ce(torch, dev, gen, n=None, hid=None, vocab=None,
     for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         hx = h.to(dt).requires_grad_(True)
         wx = w.to(dt).requires_grad_(True)
-        loss = chunked_token_ce(hx, labels, wx, n, vh_weight=vh)
+        loss = chunked_token_ce(hx, labels, wx, n)
         res[tag] = (loss.detach(), *torch.autograd.grad(loss, (hx, wx)))
     torch.cuda.synchronize()
     (lb, dhb, dwb), (lf, dhf, dwf) = res["bf16"], res["f32"]
     rel = abs(float(lb) - float(lf)) / abs(float(lf))
-    print(f"chunked CE{tag_} bf16 GEMM (f32 result) vs widened f32: loss "
+    print(f"chunked CE bf16 GEMM (f32 result) vs widened f32: loss "
           f"{float(lb):.6f} vs {float(lf):.6f}, rel diff {rel:.3e} "
           f"{'ok' if rel <= 1e-6 else 'MISMATCH'}", flush=True)
     check(rel <= 1e-6, f"chunked CE loss differs between its branches "
@@ -836,8 +830,8 @@ def check_chunked_ce(torch, dev, gen, n=None, hid=None, vocab=None,
         d = (got.float() - ref).abs()
         lim = 2.0 ** -7 * ref.abs() + grad_slack(ref)
         ok = bool((d <= lim).all())
-        print(f"chunked CE{tag_} {name}: max_abs_err {float(d.max()):.3e}, "
-              f"worst share of the one-ulp bound {float((d / lim).max()):.3f} "
+        print(f"chunked CE {name}: max_abs_err {float(d.max()):.3e}, worst "
+              f"share of the one-ulp bound {float((d / lim).max()):.3f} "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         check(ok, f"chunked CE {name} beyond one bf16 ulp of the f32 "
                   "branch's gradient")
@@ -1175,60 +1169,46 @@ def seg_inputs(torch, dev, kind):
 
 
 def phase_seg_kernels(torch, dev):
-    """The segment-masked K1/K2, K4 and K5 (and K3 on their zeroed dout)
+    """The segment-masked K1/K2, K4 and K5, and K3 on their zeroed dout,
     against their plain versions at bench_bert's attention shape (B 64,
     L 512, H 12, D 64, non-causal, key padding, one dead row) and at the
     varlen long-context shape (B 1, 16384 tokens in 16 sequences plus a
     pad tail, H 16, Hkv 4, D 128, causal), bf16, with phase 5's
     tolerances; the dead row holds the mean of V and the pad tail zeros.
-    Times at both shapes (at the BERT shape also the unsegmented
-    instances' on the same inputs: what the switch costs); bounds count
-    4·D / 8·D / 6·D operations per same-segment visible pair; the library
-    yardstick (BERT shape only) is scaled_dot_product_attention with the
-    boolean [B, 1, 1, L] mask, and its backward."""
+    At the BERT shape the unsegmented K1, K3, K4 and K5 (what the
+    unmasked run takes) are held the same way on the same inputs.  Times
+    at both shapes (at the BERT shape also the unsegmented instances':
+    what the switch costs); bounds count 4·D / 8·D / 6·D operations per
+    same-segment visible pair; the library yardstick (BERT shape only)
+    is scaled_dot_product_attention with the boolean [B, 1, 1, L] mask,
+    and its backward."""
     from paddle_tpu_torch.ops import flash_attention as tfa
     from paddle_tpu_torch.ops import flash_attention_cuda as kfa
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2468)
-    res = {}
-    for kind, cfg, causal in (("bert", SEG_BERT, False),
-                              ("varlen", SEG_VARLEN, True)):
-        B, L, H, HKV, D = (cfg[k] for k in ("B", "L", "H", "HKV", "D"))
-        qseg, kseg, pairs = seg_inputs(torch, dev, kind)
-        q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
-        pad = (qseg < 0)[:, :, None]
-        do = do.masked_fill(pad, 0)           # as the autograd.Function
-        sc = D ** -0.5
-        tag = f"segmented {kind}"
-        err = {}
+    def hold(tag, q, k, v, do, H, HKV, causal, sc, qseg=None, kseg=None):
+        """Forward (out, lse), K3 delta, dQ and dK/dV against their plain
+        versions with phase 5's tolerances (lse on live query rows only:
+        a padding row's is never read); returns the largest errors, out,
+        lse and delta."""
         out, lse = kfa.flash_fwd(q, k, v, H, HKV, causal, sc, qseg, kseg)
         ref, rlse = tfa.flash_fwd_reference(q, k, v, H, HKV, causal, sc,
                                             qseg, kseg)
+        # p rounds to bf16 before p.V against different maxima: the
+        # outputs may differ by 2^-8 * sum(p |v|) / l (phase 5)
         pv_abs = tfa.flash_fwd_reference(q, k, v.abs(), H, HKV, causal, sc,
                                          qseg, kseg)[0].float()
         torch.cuda.synchronize()
-        live = (qseg >= 0)[:, None, :]
-        err["fwd"] = max(
+        live = 1 if qseg is None else (qseg >= 0)[:, None, :]
+        err = dict(fwd=max(
             check_bf16(f"K1/K2 forward out {tag}", out, ref,
                        atol=2.0 ** -8 * pv_abs + 1e-5),
             check_f32(f"K1/K2 forward lse {tag}", lse * live, rlse * live,
-                      1e-5, 1e-5))
+                      1e-5, 1e-5)))
         del ref, rlse, pv_abs
-        if kind == "bert":
-            # the dead row: every query row holds the mean of V
-            mean_v = v[-1].float().view(L, HKV, D).mean(0).reshape(-1)
-            d = float((out[-1].float() - mean_v).abs().max())
-            slack = 2.0 ** -7 * float(mean_v.abs().max()) + 1e-3
-            print(f"{tag}: dead row vs the mean of V: max_abs_err {d:.3e} "
-                  f"{'ok' if d <= slack else 'MISMATCH'}", flush=True)
-            check(d <= slack, "the dead row is not the mean of V")
-        else:
-            z = float(out.masked_select(pad).float().abs().max())
-            print(f"{tag}: pad-tail rows max |out| {z} "
-                  f"{'ok' if z == 0 else 'MISMATCH'}", flush=True)
-            check(z == 0, "pad-tail rows are not zero")
         delta = kfa.flash_delta(do, out, H)
+        err["delta"] = check_f32(f"K3 delta {tag}", delta,
+                                 tfa.flash_delta_reference(do, out, H),
+                                 1e-5, 1e-5)
         dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV, causal, sc,
                               qseg, kseg)
         dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV, causal,
@@ -1242,6 +1222,36 @@ def phase_seg_kernels(torch, dev):
             check_bf16(f"K4 dK {tag}", dk, rdk, atol=grad_slack(rdk, 10)),
             check_bf16(f"K4 dV {tag}", dv, rdv, atol=grad_slack(rdv, 10)))
         del rdq, rdk, rdv, dq, dk, dv
+        return err, out, lse, delta
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    res = {}
+    for kind, cfg, causal in (("bert", SEG_BERT, False),
+                              ("varlen", SEG_VARLEN, True)):
+        B, L, H, HKV, D = (cfg[k] for k in ("B", "L", "H", "HKV", "D"))
+        qseg, kseg, pairs = seg_inputs(torch, dev, kind)
+        q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+        pad = (qseg < 0)[:, :, None]
+        do = do.masked_fill(pad, 0)           # as the autograd.Function
+        sc = D ** -0.5
+        tag = f"segmented {kind}"
+        err, out, lse, delta = hold(tag, q, k, v, do, H, HKV, causal, sc,
+                                    qseg, kseg)
+        res["delta_err"] = max(res.get("delta_err", 0.0), err["delta"])
+        if kind == "bert":
+            # the dead row: every query row holds the mean of V
+            mean_v = v[-1].float().view(L, HKV, D).mean(0).reshape(-1)
+            d = float((out[-1].float() - mean_v).abs().max())
+            slack = 2.0 ** -7 * float(mean_v.abs().max()) + 1e-3
+            print(f"{tag}: dead row vs the mean of V: max_abs_err {d:.3e} "
+                  f"{'ok' if d <= slack else 'MISMATCH'}", flush=True)
+            check(d <= slack, "the dead row is not the mean of V")
+        else:
+            z = float(out.masked_select(pad).float().abs().max())
+            print(f"{tag}: pad-tail rows max |out| {z} "
+                  f"{'ok' if z == 0 else 'MISMATCH'}", flush=True)
+            check(z == 0, "pad-tail rows are not zero")
 
         it = 10
         ms = dict(
@@ -1262,17 +1272,19 @@ def phase_seg_kernels(torch, dev):
         lib = dict(fwd=None, dkv=None, dq=None)
         unseg = dict(fwd=None, dkv=None, dq=None)
         if kind == "bert":
-            # what the segment switch costs: the unsegmented instances on
-            # the same inputs (the bench's own, unmasked, run takes them)
-            o_u, lse_u = kfa.flash_fwd(q, k, v, H, HKV, causal, sc)
+            # the unsegmented instances on the same inputs (the bench's
+            # own, unmasked, run takes them): right at this shape, and
+            # what the segment switch costs
+            res["unsegmented"], o_u, lse_u, delta_u = hold(
+                "unsegmented bert", q, k, v, do, H, HKV, causal, sc)
             unseg = dict(
                 fwd=time_ms(torch, lambda i: kfa.flash_fwd(
                     q, k, v, H, HKV, causal, sc), it),
                 dkv=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
-                    q, k, v, do, lse_u, delta, H, HKV, causal, sc), it),
+                    q, k, v, do, lse_u, delta_u, H, HKV, causal, sc), it),
                 dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
-                    q, k, v, do, lse_u, delta, H, HKV, causal, sc), it))
-            del o_u, lse_u
+                    q, k, v, do, lse_u, delta_u, H, HKV, causal, sc), it))
+            del o_u, lse_u, delta_u
             F = torch.nn.functional
             q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2)
                           for x in (q, k, v))
@@ -1315,8 +1327,6 @@ def phase_seg_kernels(torch, dev):
                 "K3+K4+K5 (SDPA backward with the mask)"
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
-    check_chunked_ce(torch, dev, gen, 8192, BERT_CFG["hidden_size"],
-                     BERT_CFG["vocab_size"], vh=True, tag_=" (BERT, [V, H])")
     return res
 
 
@@ -1733,9 +1743,10 @@ def phase_bert_parity(torch, dev, n_steps=3, lr=1e-4):
     """bench_bert's trainer at full width, 2 layers, f32, batch 2, seq
     512, with the padding mask (lengths from seed 3), 3 steps on the card
     (the segmented kernels' f32 templates) and on the CPU (their plain
-    versions), from the same weights and data.  Losses within 1e-4
+    versions), from the same weights and data.  Losses within 1e-5
     relative; every parameter within 2.02·lr·steps (phase 7's reason) and
-    all but 1e-4 of them within 1e-5 + 1e-5·|p|, not counting the key
+    all but 1e-5 of them within 1e-5 + 1e-5·|p| (limits a few times the
+    readings, 1.5e-6 and 2.1e-6, as phase 7's are), not counting the key
     projection's bias, whose exact gradient is zero (a query row's
     softmax does not see q·b): Adam moves it by about lr·sign of
     summation noise, which differs between the devices."""
@@ -1770,7 +1781,7 @@ def phase_bert_parity(torch, dev, n_steps=3, lr=1e-4):
                                                     losses["cpu"]))
     print(f"bert parity losses card {losses['card']} cpu {losses['cpu']} "
           f"max rel diff {rel:.3e}", flush=True)
-    check(rel <= 1e-4, f"bert losses differ card vs cpu: {rel:.3e}")
+    check(rel <= 1e-5, f"bert losses differ card vs cpu: {rel:.3e}")
     pg, pc = gpu.numpy_state(), cpu.numpy_state()
     worst, n_off, n_all = 0.0, 0, 0
     for name in pc:
@@ -1784,7 +1795,7 @@ def phase_bert_parity(torch, dev, n_steps=3, lr=1e-4):
     print(f"bert parity params after {n_steps} steps: max abs diff "
           f"{worst:.3e}, {n_off}/{n_all} ({frac:.2e}) beyond 1e-5",
           flush=True)
-    check(frac <= 1e-4 and worst <= 2.02 * lr * n_steps,
+    check(frac <= 1e-5 and worst <= 2.02 * lr * n_steps,
           f"bert parameters differ card vs cpu (max {worst:.3e}, "
           f"{frac:.2e})")
     del gpu, cpu
@@ -1878,6 +1889,7 @@ def main():
              launches=train_launches["adamw"], **tk["adamw"]),
     ]
     fa = "paddle_tpu/ops/flash_attention.py"
+    unmasked = bert["unmasked"][1]
     for kname, key, src, replaces, also in (
             ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu",
              f"{fa}:653", f"{fa}:571"),
@@ -1893,6 +1905,13 @@ def main():
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=train_launches[key],
                      **tk[key])
+        if key in sk["unsegmented"]:
+            # also held at the BERT shape (and K3 on the segmented runs'
+            # outputs); the unmasked BERT run launches them too
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], sk["unsegmented"][key],
+                sk["delta_err"] if key == "delta" else 0.0)
+            entry["bert_unmasked_launches"] = unmasked[key]
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)
