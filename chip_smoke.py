@@ -77,6 +77,16 @@ Phases (any failure exits non-zero before the result line):
    at both, bounds per same-segment visible pair, and the library
    yardstick (scaled_dot_product_attention with the boolean mask, and
    its backward) at the BERT shape.
+5c. K10, flash attention with RoPE inside the kernels
+   (``flash_attention_packed_rope``, the reference's :1370), on its own
+   entry point: forward and backward once at the Llama attention shape
+   (B 16, L 2048, H 16/4, D 128, causal, bf16) with the launch counters
+   set to 0 just before and read just after (K10-fwd, K3, K10-dkv,
+   K10-dq once each); output and gradients against the composition the
+   model runs (K6 then K1; K3/K4/K5 then K6 inverse); the three kernels
+   against their plain versions there, at a cached prefill (Lq 512 <
+   Lk 2048), at head_dim 256 and in f32; their times, the composition's,
+   the plain versions', SDPA's on K6-rotated q and k, and the bounds.
 8. BERT training at full width: bench_bert's configuration (BERT-base,
    bf16, batch 64, seq 512, AdamW lr 1e-4 / weight decay 0.01, 15% of
    positions labelled) through ``build_train_step``, unmasked (the
@@ -1330,6 +1340,238 @@ def phase_seg_kernels(torch, dev):
     return res
 
 
+# ---------------------------------------------------------------- phase 5c
+# K10's shapes: (i) the flagship Llama attention (bench_llama), (ii) a
+# cached prefill (the q tables bottom-right), (iii) head_dim 256 (the
+# CUDA-core bf16 instances), (iv) f32 (the f32 instances)
+ROPE_CASES = (
+    ("Llama training shape", dict(B=16, LQ=2048, LK=2048, H=16, HKV=4,
+                                  D=128), "bfloat16"),
+    ("cached prefill Lq 512 < Lk 2048", dict(B=2, LQ=512, LK=2048, H=16,
+                                             HKV=4, D=128), "bfloat16"),
+    ("head_dim 256", dict(B=2, LQ=512, LK=512, H=8, HKV=2, D=256),
+     "bfloat16"),
+    ("f32", dict(B=2, LQ=256, LK=256, H=4, HKV=2, D=128), "float32"))
+
+
+def phase_rope_kernels(torch, dev):
+    """K10: ``flash_attention_packed_rope`` (the reference's :1370, the
+    ``rope=True`` branches of the forward, dK/dV and dQ kernels), its own
+    entry point.  First its main path: forward and backward once through
+    ``autograd`` at the Llama shape (B 16, L 2048, H 16/4, D 128, causal,
+    bf16, the model's RoPE tables), counters set to 0 just before and
+    read just after: K10-fwd, K3, K10-dkv and K10-dq once each, nothing
+    else.  Its output and gradients against the composition the model
+    runs on the same inputs (K6, then K1; backward K3/K4/K5, then K6 with
+    sin negated): the two round the rotation differently (K6 once, K10
+    each product and the sum, as the reference's ``_rot_tile``), and dq,
+    dk twice against once: every element within 4 ulps or within 2^-6
+    of the tensor's largest magnitude (the plain versions on the CPU at
+    B 1, L 2048: at most 2 ulps beyond 2^-7, none beyond 2^-6).  Then the
+    kernels against their plain versions at the four ``ROPE_CASES``
+    (phase 5's tolerances at bf16: out within 2 ulps or 2^-8 (P|V|), lse
+    and K3's delta ``atol=rtol=1e-5``, gradients within 2 ulps or 2^-10 of
+    the largest magnitude; f32: out 2e-5, gradients 2e-4, as the JAX
+    package's kernel tests).  Times at the Llama shape: the three K10
+    kernels, the composition's kernels (K6 + K1; K3 + K4 + K5 + K6
+    inverse), the plain versions, and the library (SDPA on K6-rotated q
+    and k, and its backward); bounds 4·D / 8·D / 6·D operations per
+    visible causal pair or the bytes of q, k, v, the four tables and the
+    outputs."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, _rope_cos_sin
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+    from paddle_tpu_torch.ops import fused_rope as trope
+    from paddle_tpu_torch.ops import fused_rope_cuda as k6
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    _, cfg, _ = ROPE_CASES[0]
+    B, L, H, HKV, D = (cfg[k] for k in ("B", "LQ", "H", "HKV", "D"))
+    q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+    cos, sin = _rope_cos_sin(L, D, LlamaConfig(**TRAIN_CFG).rope_theta,
+                             torch.bfloat16, dev)
+
+    # ---- the main path, counted
+    for key in kfa.launches:
+        kfa.launches[key] = 0
+    for key in tfa.plain_runs:
+        tfa.plain_runs[key] = 0
+    k6.launches = trope.plain_runs = 0
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention_packed_rope(*xs, cos, sin, H, HKV, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = dict(kfa.launches, rope=k6.launches,
+                  plain=sum(tfa.plain_runs.values()) + trope.plain_runs)
+    want = {key: 0 for key in counts}
+    want.update(fwd_rope=1, delta=1, dkv_rope=1, dq_rope=1)
+    print(f"K10 main path (flash_attention_packed_rope forward + backward, "
+          f"Llama shape) launches: {counts}", flush=True)
+    check(counts == want, f"K10 path launches {counts}, expected {want}")
+    launches = dict(fwd=counts["fwd_rope"], dkv=counts["dkv_rope"],
+                    dq=counts["dq_rope"], delta=counts["delta"])
+    k10 = [out.detach()] + [x.grad for x in xs]
+
+    # ---- against the composition the model runs (K6, then K1-K5)
+    ys = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    rq, rk = trope.fused_rope(ys[0], ys[1], cos, sin, H, HKV)
+    out2 = tfa.flash_attention_packed(rq, rk, ys[2], H, HKV, causal=True)
+    out2.backward(do)
+    torch.cuda.synchronize()
+    comp = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), k10,
+                          [out2.detach()] + [y.grad for y in ys]):
+        diff = (a.float() - b.float()).abs()
+        d, top = float(diff.max()), float(b.float().abs().max())
+        u = int((bf16_ulps(a, b) * (diff > 2.0 ** -6 * top)).max())
+        comp[name] = d
+        print(f"K10 vs K6 + K1-K5 {name}: max_abs_err {d:.3e} "
+              f"({d / top:.3e} of the largest magnitude {top:.4g}); "
+              f"{u} ulps beyond 2^-6 of it {'ok' if u <= 4 else 'MISMATCH'}",
+              flush=True)
+        check(u <= 4, f"K10 {name} beyond 4 bf16 ulps and 2^-6 of the "
+                      "composition's largest magnitude")
+    del k10, xs, ys, out, out2, rq, rk
+
+    # ---- the kernels against their plain versions
+    err = dict(fwd=0.0, delta=0.0, dkv=0.0, dq=0.0)
+    for tag, c, dt in ROPE_CASES:
+        dtype = getattr(torch, dt)
+        B, LQ, LK, H, HKV, D = (c[k] for k in ("B", "LQ", "LK", "H", "HKV",
+                                                "D"))
+        if tag.startswith("Llama"):
+            qq, kk, vv, dd = q, k, v, do
+        else:
+            qq, kk, vv, dd = flash_case(torch, dev, gen, B, LK, H, HKV, D,
+                                        dtype)
+            qq, dd = qq[:, LK - LQ:].contiguous(), dd[:, LK - LQ:].contiguous()
+        ang = torch.rand(LK, D, generator=gen, device=dev) * 6.0
+        rope = tfa.rope_kernel_tables(ang.cos(), ang.sin(), LQ, LK, dtype)
+        sc = D ** -0.5
+        o, lse = kfa.flash_fwd(qq, kk, vv, H, HKV, True, sc, rope=rope)
+        ro, rlse = tfa.flash_fwd_reference(qq, kk, vv, H, HKV, True, sc,
+                                           rope=rope)
+        delta = kfa.flash_delta(dd, o, H)
+        rdelta = tfa.flash_delta_reference(dd, o, H)
+        dk, dv = kfa.flash_bwd_dkv(qq, kk, vv, dd, lse, delta, H, HKV, True,
+                                   sc, rope=rope)
+        dq = kfa.flash_bwd_dq(qq, kk, vv, dd, lse, delta, H, HKV, True, sc,
+                              rope=rope)
+        rdq, rdk, rdv = tfa.flash_bwd_reference(qq, kk, vv, dd, lse, delta, H,
+                                                HKV, True, sc, rope=rope)
+        torch.cuda.synchronize()
+        tag = f"K10 {tag}"
+        if dtype == torch.bfloat16:
+            pv_abs = tfa.flash_fwd_reference(qq, kk, vv.abs(), H, HKV, True,
+                                             sc, rope=rope)[0].float()
+            e_out = check_bf16(f"{tag} forward out", o, ro,
+                               atol=2.0 ** -8 * pv_abs + 1e-5)
+            del pv_abs
+            e_dq = check_bf16(f"{tag} dQ", dq, rdq, atol=grad_slack(rdq, 10))
+            e_dkv = max(check_bf16(f"{tag} dK", dk, rdk,
+                                   atol=grad_slack(rdk, 10)),
+                        check_bf16(f"{tag} dV", dv, rdv,
+                                   atol=grad_slack(rdv, 10)))
+        else:
+            e_out = check_f32(f"{tag} forward out", o, ro, 2e-5, 2e-5)
+            e_dq = check_f32(f"{tag} dQ", dq, rdq, 2e-4, 2e-4)
+            e_dkv = max(check_f32(f"{tag} dK", dk, rdk, 2e-4, 2e-4),
+                        check_f32(f"{tag} dV", dv, rdv, 2e-4, 2e-4))
+        e_lse = check_f32(f"{tag} forward lse", lse, rlse, 1e-5, 1e-5)
+        e_delta = check_f32(f"{tag} K3 delta", delta, rdelta, 1e-5, 1e-5)
+        for key, e in (("fwd", max(e_out, e_lse)), ("delta", e_delta),
+                       ("dkv", e_dkv), ("dq", e_dq)):
+            err[key] = max(err[key], e)
+        del o, lse, ro, rlse, delta, rdelta, dk, dv, dq, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+
+    # ---- times at the Llama shape (CUDA events, after warm-up)
+    _, cfg, _ = ROPE_CASES[0]
+    B, L, H, HKV, D = (cfg[k] for k in ("B", "LQ", "H", "HKV", "D"))
+    sc = D ** -0.5
+    rope = tfa.rope_kernel_tables(cos, sin, L, L, torch.bfloat16)
+    out, lse = kfa.flash_fwd(q, k, v, H, HKV, True, sc, rope=rope)
+    delta = kfa.flash_delta(do, out, H)
+    rq, rk = k6.rope(q, k, cos, sin, H, HKV)
+    out1, lse1 = kfa.flash_fwd(rq, rk, v, H, HKV, True, sc)
+    delta1 = kfa.flash_delta(do, out1, H)
+    it = 10
+    ms = dict(
+        fwd=time_ms(torch, lambda i: kfa.flash_fwd(
+            q, k, v, H, HKV, True, sc, rope=rope), it),
+        dkv=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
+            q, k, v, do, lse, delta, H, HKV, True, sc, rope=rope), it),
+        dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
+            q, k, v, do, lse, delta, H, HKV, True, sc, rope=rope), it),
+        delta=time_ms(torch, lambda i: kfa.flash_delta(do, out, H), 50))
+    cms = dict(
+        k6=time_ms(torch, lambda i: k6.rope(q, k, cos, sin, H, HKV), 50),
+        k1=time_ms(torch, lambda i: kfa.flash_fwd(rq, rk, v, H, HKV, True,
+                                                  sc), it),
+        k4=time_ms(torch, lambda i: kfa.flash_bwd_dkv(
+            rq, rk, v, do, lse1, delta1, H, HKV, True, sc), it),
+        k5=time_ms(torch, lambda i: kfa.flash_bwd_dq(
+            rq, rk, v, do, lse1, delta1, H, HKV, True, sc), it),
+        k6_inv=time_ms(torch, lambda i: k6.rope(rq, rk, cos, sin, H, HKV,
+                                                True), 50))
+    plain_bwd = time_ms(torch, lambda i: tfa.flash_bwd_reference(
+        q, k, v, do, lse, delta, H, HKV, True, sc, rope=rope), 2, warm=1)
+    plain = dict(fwd=time_ms(torch, lambda i: tfa.flash_fwd_reference(
+        q, k, v, H, HKV, True, sc, rope=rope), 2, warm=1),
+        dkv=plain_bwd, dq=plain_bwd)
+    F = torch.nn.functional
+    q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2) for x in (rq, rk, v))
+    lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), it)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        enable_gqa=True)
+    do4 = do.view(B, L, H, D).transpose(1, 2)
+    lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
+        o4, (qg, kg, vg), do4, retain_graph=True), it)
+    del o4, qg, kg, vg
+
+    pairs = B * H * causal_pairs(L, L)
+    el = 2
+    qb, kb = B * L * H * D * el, B * L * HKV * D * el
+    stat, tab = B * H * L * 4, 4 * L * D * el
+    bounds = dict(
+        fwd=bound(qb + 2 * kb + tab + qb + stat, 4 * D * pairs),
+        dkv=bound(2 * qb + 2 * kb + 2 * stat + tab + 2 * kb, 8 * D * pairs),
+        dq=bound(2 * qb + 2 * kb + 2 * stat + tab + qb, 6 * D * pairs))
+    lib = dict(fwd=lib_fwd, dkv=lib_bwd, dq=None)
+    res = {}
+    for name in ("fwd", "dkv", "dq"):
+        b_ms, b_by = bounds[name]
+        res[name] = dict(max_abs_err=err[name], ms=ms[name],
+                         plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib[name], launches=launches[name])
+        libs = "—" if lib[name] is None else f"{lib[name] * 1e3:.1f} us"
+        print(f"K10 {name}: {ms[name] * 1e3:.1f} us/launch, plain "
+              f"{plain[name] * 1e3:.1f} us, library {libs}, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    res["dkv"]["library_covers"] = "K3+K10-dkv+K10-dq (SDPA backward on " \
+        "K6-rotated q, k)"
+    fwd_k10, fwd_comp = ms["fwd"], cms["k6"] + cms["k1"]
+    bwd_k10 = ms["delta"] + ms["dkv"] + ms["dq"]
+    bwd_comp = ms["delta"] + cms["k4"] + cms["k5"] + cms["k6_inv"]
+    print(f"K10 forward {fwd_k10 * 1e3:.1f} us vs K6 + K1 "
+          f"{cms['k6'] * 1e3:.1f} + {cms['k1'] * 1e3:.1f} = "
+          f"{fwd_comp * 1e3:.1f} us; backward K3 + K10-dkv + K10-dq "
+          f"{bwd_k10 * 1e3:.1f} us vs K3 + K4 + K5 + K6 inverse "
+          f"{ms['delta'] * 1e3:.1f} + {cms['k4'] * 1e3:.1f} + "
+          f"{cms['k5'] * 1e3:.1f} + {cms['k6_inv'] * 1e3:.1f} = "
+          f"{bwd_comp * 1e3:.1f} us; step total {(fwd_k10 + bwd_k10) * 1e3:.1f}"
+          f" vs {(fwd_comp + bwd_comp) * 1e3:.1f} us", flush=True)
+    res["composition_ms"] = dict(cms, k3=ms["delta"])
+    res["vs_composition_max_abs_err"] = comp
+    res["delta_err"] = err["delta"]
+    del q, k, v, do, out, lse, delta, rq, rk, out1, lse1, delta1
+    torch.cuda.empty_cache()
+    return res
+
+
 # ----------------------------------------------------------------- phase 6
 TRAIN_CFG = dict(SERVE_CFG, recompute=True, recompute_layers=7,
                  loss_chunk_size=8192)
@@ -1851,6 +2093,9 @@ def main():
     print(f"phase segmented kernels: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
+    rk10 = phase_rope_kernels(torch, dev)
+    print(f"phase rope kernels: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
     _, train_launches = phase_train(torch, dev)
     print(f"phase train: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
@@ -1934,6 +2179,17 @@ def main():
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)
+    for kname, key, src, line in (
+            ("flash_attention_fwd_rope", "fwd", "flash_attention_fwd.cu",
+             653),
+            ("flash_attention_bwd_dkv_rope", "dkv", "flash_attention_bwd.cu",
+             1131),
+            ("flash_attention_bwd_dq_rope", "dq", "flash_attention_bwd.cu",
+             1242)):
+        kernels.append(dict(name=kname, route="cuda",
+                            source=f"paddle_tpu_torch/ops/csrc/{src}",
+                            replaces=f"{fa}:{line}", branch="rope=True",
+                            via=f"{fa}:1370", **rk10[key]))
     for k in kernels:
         k.pop("max_ulps", None)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,9 @@ TARGET = "sm_90a"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points of each source and their signatures (every pointer and
-# the stream as void*, ints as int)
+# the stream as void*, ints as int); the flash entry points take q, k, v
+# (and dout, lse, delta), the segment ids, the four rope tables, then
+# their outputs
 _FLASH_BWD = [_I, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     "paged_decode_attention": {
@@ -48,14 +50,14 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                               _P]},
     "flash_attention_fwd": {
-        "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+        "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "flash_attention_bwd": {
         "flash_attention_delta": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
         "flash_attention_bwd_dkv": _FLASH_BWD + [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+            _P] * 8 + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
         "flash_attention_bwd_dq": _FLASH_BWD + [
-            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+            _P] * 7 + [_I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "fused_rope": {
         "fused_rope": [_I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P]},

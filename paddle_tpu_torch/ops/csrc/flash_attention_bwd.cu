@@ -44,9 +44,31 @@
 // across segments p is 0 on a live row and 1/n on a dead one (its lse is
 // the -1e30 sentinel), with no ds (flash_tile.cuh).  Padding rows arrive
 // with dout zeroed, so K3 needs no switch.
+//
+// In-kernel RoPE (K10: the rope=True branches of _bwd_dkv_kernel :751-753,
+// :796-801, :853-862 and _bwd_dq_kernel :876-878, :901-903, :916-919,
+// :965-971, reached through flash_attention_packed_rope :1370) is the
+// compile-time switch ROPE of K4's and K5's templates, without segments,
+// at head_dim 128 (bf16 on the tensor cores) and 256.  q and k arrive raw
+// and are re-rotated in shared memory from the residuals: K4 rotates its
+// K tile once and each q tile of its sweep, K5 its q tile once and each K
+// tile of its sweep (flash_tile.cuh); where a tensor-core kernel also
+// needs a tile transposed, the rotated tile is transposed in shared
+// memory.  dK and dQ accumulate in rotated space in f32 and are rotated
+// back with -sin on the accumulator (the tables widened to f32) before
+// their one cast; dV is not rotated.  K3 needs no switch (out and dout
+// are not rotated).
 #include "flash_tile.cuh"
 
 namespace ptf {
+
+// The operands of one backward launch, shared by K4 and K5.
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  const int *qseg, *kseg;
+  RopePtrs rope;
+  void *dk, *dv, *dq;
+};
 
 // ------------------------------------------------------------------- K3
 template <typename T>
@@ -73,13 +95,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------- K4
-template <typename T, int D, int BK, bool SEG>
+template <typename T, int D, int BK, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ qseg, const int* __restrict__ kseg,
-               T* __restrict__ dk, T* __restrict__ dv, Geom g) {
+               Rope<T> rp, T* __restrict__ dk, T* __restrict__ dv, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16, KI = BK / 16;
   extern __shared__ float smem[];
@@ -103,6 +125,10 @@ __global__ void __launch_bounds__(kThreads)
   if (SEG && threadIdx.x < BK)
     kseg_s[threadIdx.x] =
         kseg[static_cast<long long>(b) * g.Lk + key0 + threadIdx.x];
+  if constexpr (ROPE) {   // this block's K^T tile, rotated once
+    __syncthreads();
+    rope_tile<T, D, kThreads>(Kt, 1, KS, BK, rp.kcos, rp.ksin, key0, 1);
+  }
 
   float dk_acc[KI][CD], dv_acc[KI][CD];
 #pragma unroll
@@ -127,6 +153,10 @@ __global__ void __launch_bounds__(kThreads)
       if (SEG) qseg_s[threadIdx.x] = row_seg(qseg, g, b, r0 + threadIdx.x);
     }
     __syncthreads();
+    if constexpr (ROPE) {   // each q tile of the sweep
+      rope_tile<T, D, kThreads>(Qs, QS, 1, kRows, rp.qcos, rp.qsin, r0, g.G);
+      __syncthreads();
+    }
     float s[4][CJ], dp[4][CJ];
     tile_dot<D, CJ>(s, Qs, QS, Kt, KS, ty, tx);
     tile_dot<D, CJ>(dp, dOs, QS, Vt, KS, ty, tx);
@@ -176,6 +206,16 @@ __global__ void __launch_bounds__(kThreads)
         }
     }
   }
+  if constexpr (ROPE) {   // dK back from rotated space: columns c, c + CD/2
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const long long t = static_cast<long long>(key0 + ty * KI + i) * D + tx;
+#pragma unroll
+      for (int c = 0; c < CD / 2; ++c)
+        unrope_pair(dk_acc[i][c], dk_acc[i][c + CD / 2], rp.kcos, rp.ksin,
+                    t + 16 * c, D / 2);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     const long long o = kv0 + (ty * KI + i) * stride;
@@ -188,13 +228,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------- K5
-template <typename T, int D, int BK, bool SEG>
+template <typename T, int D, int BK, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ qseg, const int* __restrict__ kseg,
-              T* __restrict__ dq, Geom g) {
+              Rope<T> rp, T* __restrict__ dq, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16;
   extern __shared__ float smem[];
@@ -217,6 +257,10 @@ __global__ void __launch_bounds__(kThreads)
     const long long so = stat_off(g, b, kvh, r0 + threadIdx.x);
     lse_s[threadIdx.x] = lse[so];
     dl_s[threadIdx.x] = delta[so];
+  }
+  if constexpr (ROPE) {   // the q tile, rotated once
+    __syncthreads();
+    rope_tile<T, D, kThreads>(Qs, QS, 1, kRows, rp.qcos, rp.qsin, r0, g.G);
   }
   int vis[4], qs[4];
   float acc[4][CD];
@@ -245,6 +289,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     load_keys_t<T, D, BK>(KV, k, kv0 + key0 * stride, stride);
     __syncthreads();
+    if constexpr (ROPE) {   // each K^T tile of the sweep
+      rope_tile<T, D, kThreads>(KV, 1, KS, BK, rp.kcos, rp.ksin, key0, 1);
+      __syncthreads();
+    }
     tile_dot<D, CJ>(s, Qs, QS, KV, KS, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -282,6 +330,17 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds[i], kk[c], acc[i][c]);
     }
   }
+  if constexpr (ROPE) {   // dQ back from rotated space: columns c, c + CD/2
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long t =
+          static_cast<long long>((r0 + 4 * ty + i) / g.G) * D + tx;
+#pragma unroll
+      for (int c = 0; c < CD / 2; ++c)
+        unrope_pair(acc[i][c], acc[i][c + CD / 2], rp.qcos, rp.qsin,
+                    t + 16 * c, D / 2);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long o = row_off<D>(g, b, kvh, r0 + 4 * ty + i);
@@ -299,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
 // rounding point).
 namespace mma {
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
@@ -307,7 +366,8 @@ __global__ void __launch_bounds__(kThreads)
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const int* __restrict__ qseg, const int* __restrict__ kseg,
-              __nv_bfloat16* __restrict__ dq, Geom g) {
+              Rope<__nv_bfloat16> rp, __nv_bfloat16* __restrict__ dq,
+              Geom g) {
   constexpr int QS = D + 8, VS = kKeys + 8;
   constexpr int KD = D / 16, NT = kKeys / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -328,6 +388,10 @@ __global__ void __launch_bounds__(kThreads)
   load_rows<D>(Qs, q, g, b, kvh, r0);
   load_rows<D>(dOs, dout, g, b, kvh, r0);
   __syncthreads();
+  if constexpr (ROPE) {   // rotate the q tile before its fragments load
+    rope_rows<D>(Qs, kRows, rp.qcos, rp.qsin, r0, g.G);
+    __syncthreads();
+  }
   uint32_t qa[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk) {
@@ -357,11 +421,19 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int key0 = 0; key0 < key_end; key0 += kKeys) {
     __syncthreads();   // the previous tile's K and V reads are done
-    load_kv<D>(Ks, Kt, Vs, nullptr, k, v, kv0 + key0 * stride, stride);
+    // with ROPE, K^T is made from the rotated K tile below
+    load_kv<D>(Ks, ROPE ? nullptr : Kt, Vs, nullptr, k, v,
+               kv0 + key0 * stride, stride);
     if (SEG && threadIdx.x < kKeys)
       kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
                                  threadIdx.x];
     __syncthreads();
+    if constexpr (ROPE) {
+      rope_rows<D>(Ks, kKeys, rp.kcos, rp.ksin, key0, 1);
+      __syncthreads();
+      transpose_tile<D>(Kt, Ks);
+      __syncthreads();
+    }
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -414,6 +486,16 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if constexpr (ROPE) {   // dQ back from rotated space: fragments n, n + ND/2
+    const long long t_lo = static_cast<long long>((r0 + lo) / g.G) * D;
+    const long long t_hi = static_cast<long long>((r0 + hi) / g.G) * D;
+#pragma unroll
+    for (int n = 0; n < ND / 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        unrope_pair(acc[n][c], acc[n + ND / 2][c], rp.qcos, rp.qsin,
+                    (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1), D / 2);
+  }
   const long long o_lo = row_off<D>(g, b, kvh, r0 + lo);
   const long long o_hi = row_off<D>(g, b, kvh, r0 + hi);
 #pragma unroll
@@ -425,23 +507,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool SEG>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const int* qseg,
-              const int* kseg, void* dq, const Geom& g, cudaStream_t stream) {
+template <int D, bool SEG, bool ROPE = false>
+int launch_dq(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((2 * kRows + 2 * kKeys) * (D + 8) + D * (kKeys + 8));
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(dq_kernel<D, SEG>, smem);
+  cudaError_t err = set_smem(dq_kernel<D, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  dq_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
-      kseg, static_cast<__nv_bfloat16*>(dq), g);
+  dq_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      a.qseg, a.kseg, a.rope.as<__nv_bfloat16>(),
+      static_cast<__nv_bfloat16*>(a.dq), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,7 +535,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // dV += p^T·do and dK += ds^T·q with p and ds rounded to bf16 into the A
 // fragments (the reference's rounding points).  Causal blocks start at
 // the first row tile that sees their keys.
-template <int D, bool SEG>
+template <int D, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
@@ -462,8 +543,8 @@ __global__ void __launch_bounds__(kThreads)
                const __nv_bfloat16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ qseg, const int* __restrict__ kseg,
-               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               Geom g) {
+               Rope<__nv_bfloat16> rp, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, Geom g) {
   constexpr int QS = D + 8, TS = kRows + 8;
   constexpr int KD = D / 16, ND = D / 8, NH = 4;   // NH n-tiles per half
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -488,6 +569,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long kv0 = (static_cast<long long>(b) * g.Lk + key0) * stride +
                         static_cast<long long>(kvh) * D;
   load_kv<D>(Ks, nullptr, Vs, nullptr, k, v, kv0, stride);
+  if constexpr (ROPE) {   // this block's K tile, rotated once
+    __syncthreads();
+    rope_rows<D>(Ks, kKeys, rp.kcos, rp.ksin, key0, 1);
+  }
 
   float dka[ND][4], dva[ND][4];
 #pragma unroll
@@ -503,7 +588,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int r0 = r_start; r0 < n_rows; r0 += kRows) {
     __syncthreads();   // the previous tile's reads are done
-    load_rows_t<D>(Qs, Qt, q, g, b, kvh, r0);
+    // with ROPE, q^T is made from the rotated q tile below
+    load_rows_t<D>(Qs, ROPE ? nullptr : Qt, q, g, b, kvh, r0);
     load_rows_t<D>(dOs, dOt, dout, g, b, kvh, r0);
     if (threadIdx.x < kRows) {
       const long long so = stat_off(g, b, kvh, r0 + threadIdx.x);
@@ -512,6 +598,12 @@ __global__ void __launch_bounds__(kThreads)
       if (SEG) qseg_s[threadIdx.x] = row_seg(qseg, g, b, r0 + threadIdx.x);
     }
     __syncthreads();
+    if constexpr (ROPE) {   // each q tile of the sweep
+      rope_rows<D>(Qs, kRows, rp.qcos, rp.qsin, r0, g.G);
+      __syncthreads();
+      transpose_tile<D>(Qt, Qs);
+      __syncthreads();
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float s[NH][4], dp[NH][4];
@@ -576,6 +668,16 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if constexpr (ROPE) {   // dK back from rotated space: fragments n, n + ND/2
+    const long long t_lo = static_cast<long long>(key0 + klo) * D;
+    const long long t_hi = static_cast<long long>(key0 + khi) * D;
+#pragma unroll
+    for (int n = 0; n < ND / 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        unrope_pair(dka[n][c], dka[n + ND / 2][c], rp.kcos, rp.ksin,
+                    (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1), D / 2);
+  }
   const long long o_lo = kv0 + klo * stride, o_hi = kv0 + khi * stride;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -587,25 +689,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool SEG>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const int* qseg,
-               const int* kseg, void* dk, void* dv, const Geom& g,
-               cudaStream_t stream) {
+template <int D, bool SEG, bool ROPE = false>
+int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (4 * kRows * (D + 8) +
                                                2 * D * (kRows + 8)) +
                       sizeof(float) * 2 * kRows;
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(dkv_kernel<D, SEG>, smem);
+  cudaError_t err = set_smem(dkv_kernel<D, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lk / kKeys, g.Hkv, g.B);
-  dkv_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
-      kseg, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+  dkv_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      a.qseg, a.kseg, a.rope.as<__nv_bfloat16>(),
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
       g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -620,97 +720,85 @@ struct DqTile {
   static constexpr int value = D >= 128 ? 32 : 64;
 };
 
-template <typename T, int D, bool SEG>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const int* qseg,
-               const int* kseg, void* dk, void* dv, const Geom& g,
-               cudaStream_t stream) {
+template <typename T, int D, bool SEG, bool ROPE = false>
+int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   constexpr int BK = KeyTile<D>::value;
   const size_t smem = sizeof(float) * (2 * D * (BK + 1) + 2 * kRows * (D + 4) +
                                        2 * kRows * (BK + 4) + 2 * kRows);
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(dkv_kernel<T, D, BK, SEG>, smem);
+  cudaError_t err = set_smem(dkv_kernel<T, D, BK, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lk / BK, g.Hkv, g.B);
-  dkv_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
-      kseg, static_cast<T*>(dk), static_cast<T*>(dv), g);
+  dkv_kernel<T, D, BK, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      a.qseg, a.kseg, a.rope.as<T>(), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool SEG>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const int* qseg,
-              const int* kseg, void* dq, const Geom& g, cudaStream_t stream) {
+template <typename T, int D, bool SEG, bool ROPE = false>
+int launch_dq(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   constexpr int BK = DqTile<D>::value;
   const size_t smem = sizeof(float) * (2 * kRows * (D + 4) + D * (BK + 1) +
                                        kRows * (BK + 4) + 2 * kRows);
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(dq_kernel<T, D, BK, SEG>, smem);
+  cudaError_t err = set_smem(dq_kernel<T, D, BK, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  dq_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), qseg,
-      kseg, static_cast<T*>(dq), g);
+  dq_kernel<T, D, BK, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      a.qseg, a.kseg, a.rope.as<T>(), static_cast<T*>(a.dq), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The operands of one backward launch, shared by K4 and K5.
-struct BwdArgs {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  const int *qseg, *kseg;
-  void *dk, *dv, *dq;
-};
-
-template <typename T, int D, bool SEG>
-int run_dkv(const BwdArgs& a, const Geom& g, cudaStream_t s) {
-  return launch_dkv<T, D, SEG>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
-                               a.qseg, a.kseg, a.dk, a.dv, g, s);
+// K4 (dq == false) or K5 of one dtype and head_dim on the CUDA cores
+template <typename T, int D, bool SEG, bool ROPE = false>
+int run(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
+  return dq ? launch_dq<T, D, SEG, ROPE>(a, g, s)
+            : launch_dkv<T, D, SEG, ROPE>(a, g, s);
 }
 
-template <typename T, int D, bool SEG>
-int run_dq(const BwdArgs& a, const Geom& g, cudaStream_t s) {
-  return launch_dq<T, D, SEG>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.qseg,
-                              a.kseg, a.dq, g, s);
+// the same on the tensor cores (bf16)
+template <int D, bool SEG, bool ROPE = false>
+int run_mma(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
+  return dq ? mma::launch_dq<D, SEG, ROPE>(a, g, s)
+            : mma::launch_dkv<D, SEG, ROPE>(a, g, s);
 }
 
-// K4 (dq == false) or K5 by dtype and head_dim: bf16 at head_dim 64/128
-// on the tensor cores, everything else on the CUDA cores
+// K4 or K5 by dtype and head_dim: bf16 at head_dim 64/128 on the tensor
+// cores, everything else on the CUDA cores
 template <bool SEG>
 int dispatch_bwd(bool dq, int dtype, int D, const BwdArgs& a, const Geom& g,
                  cudaStream_t s) {
   switch (dtype * 1000 + D) {
-    case 64: return dq ? run_dq<float, 64, SEG>(a, g, s)
-                       : run_dkv<float, 64, SEG>(a, g, s);
-    case 128: return dq ? run_dq<float, 128, SEG>(a, g, s)
-                        : run_dkv<float, 128, SEG>(a, g, s);
-    case 256: return dq ? run_dq<float, 256, SEG>(a, g, s)
-                        : run_dkv<float, 256, SEG>(a, g, s);
-    case 1064:
-      return dq ? mma::launch_dq<64, SEG>(a.q, a.k, a.v, a.dout, a.lse,
-                                          a.delta, a.qseg, a.kseg, a.dq, g, s)
-                : mma::launch_dkv<64, SEG>(a.q, a.k, a.v, a.dout, a.lse,
-                                           a.delta, a.qseg, a.kseg, a.dk,
-                                           a.dv, g, s);
-    case 1128:
-      return dq ? mma::launch_dq<128, SEG>(a.q, a.k, a.v, a.dout, a.lse,
-                                           a.delta, a.qseg, a.kseg, a.dq, g,
-                                           s)
-                : mma::launch_dkv<128, SEG>(a.q, a.k, a.v, a.dout, a.lse,
-                                            a.delta, a.qseg, a.kseg, a.dk,
-                                            a.dv, g, s);
-    case 1256: return dq ? run_dq<__nv_bfloat16, 256, SEG>(a, g, s)
-                         : run_dkv<__nv_bfloat16, 256, SEG>(a, g, s);
-    case 2064: return dq ? run_dq<__half, 64, SEG>(a, g, s)
-                         : run_dkv<__half, 64, SEG>(a, g, s);
-    case 2128: return dq ? run_dq<__half, 128, SEG>(a, g, s)
-                         : run_dkv<__half, 128, SEG>(a, g, s);
-    case 2256: return dq ? run_dq<__half, 256, SEG>(a, g, s)
-                         : run_dkv<__half, 256, SEG>(a, g, s);
+    case 64: return run<float, 64, SEG>(dq, a, g, s);
+    case 128: return run<float, 128, SEG>(dq, a, g, s);
+    case 256: return run<float, 256, SEG>(dq, a, g, s);
+    case 1064: return run_mma<64, SEG>(dq, a, g, s);
+    case 1128: return run_mma<128, SEG>(dq, a, g, s);
+    case 1256: return run<__nv_bfloat16, 256, SEG>(dq, a, g, s);
+    case 2064: return run<__half, 64, SEG>(dq, a, g, s);
+    case 2128: return run<__half, 128, SEG>(dq, a, g, s);
+    case 2256: return run<__half, 256, SEG>(dq, a, g, s);
+    default: return -1;
+  }
+}
+
+// The ROPE instances (K10): no segments, head_dim 128 and 256 — the
+// shapes the gate admits; bf16 at 128 on the tensor cores
+int dispatch_bwd_rope(bool dq, int dtype, int D, const BwdArgs& a,
+                      const Geom& g, cudaStream_t s) {
+  switch (dtype * 1000 + D) {
+    case 128: return run<float, 128, false, true>(dq, a, g, s);
+    case 256: return run<float, 256, false, true>(dq, a, g, s);
+    case 1128: return run_mma<128, false, true>(dq, a, g, s);
+    case 1256: return run<__nv_bfloat16, 256, false, true>(dq, a, g, s);
+    case 2128: return run<__half, 128, false, true>(dq, a, g, s);
+    case 2256: return run<__half, 256, false, true>(dq, a, g, s);
     default: return -1;
   }
 }
@@ -720,9 +808,11 @@ inline int run_bwd(bool dq, int dtype, int D, const BwdArgs& a, int B, int H,
                    void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return -1;
   if ((a.qseg == nullptr) != (a.kseg == nullptr)) return -1;
+  if (a.rope.on() && (!a.rope.complete() || a.qseg != nullptr)) return -1;
   const Geom g{B, H, Hkv, H / Hkv, Lq, Lk, Lk - Lq, causal, scale};
   if ((Lq * g.G) % kRows != 0 || (causal && Lq > Lk)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.rope.on()) return dispatch_bwd_rope(dq, dtype, D, a, g, s);
   if (a.qseg != nullptr) return dispatch_bwd<true>(dq, dtype, D, a, g, s);
   return dispatch_bwd<false>(dq, dtype, D, a, g, s);
 }
@@ -763,34 +853,35 @@ extern "C" int flash_attention_delta(int dtype, const void* dout,
 }
 
 // q/dout [B, Lq, H*D], k/v/dk/dv [B, Lk, Hkv*D] (all in `dtype`),
-// lse/delta f32 [B, H, Lq], qseg/kseg int32 [B, Lq]/[B, Lk] or both null;
-// geometry as flash_attention_fwd.
-extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
-                                       const void* k, const void* v,
-                                       const void* dout, const void* lse,
-                                       const void* delta, const void* qseg,
-                                       const void* kseg, void* dk, void* dv,
-                                       int B, int H, int Hkv, int Lq, int Lk,
-                                       int D, int causal, float scale,
-                                       void* stream) {
+// lse/delta f32 [B, H, Lq], qseg/kseg int32 [B, Lq]/[B, Lk] or both null,
+// the rope tables as flash_attention_fwd (q and k raw; dq and dk come out
+// as raw-space gradients) or all four null; geometry as
+// flash_attention_fwd.
+extern "C" int flash_attention_bwd_dkv(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* qseg, const void* kseg,
+    const void* qcos, const void* qsin, const void* kcos, const void* ksin,
+    void* dk, void* dv, int B, int H, int Hkv, int Lq, int Lk, int D,
+    int causal, float scale, void* stream) {
   const ptf::BwdArgs a{q, k, v, dout, lse, delta,
                        static_cast<const int*>(qseg),
-                       static_cast<const int*>(kseg), dk, dv, nullptr};
+                       static_cast<const int*>(kseg),
+                       {qcos, qsin, kcos, ksin}, dk, dv, nullptr};
   return ptf::run_bwd(false, dtype, D, a, B, H, Hkv, Lq, Lk, causal, scale,
                       stream);
 }
 
 // dq [B, Lq, H*D] in `dtype`; the other operands as flash_attention_bwd_dkv.
-extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* delta,
-                                      const void* qseg, const void* kseg,
-                                      void* dq, int B, int H, int Hkv, int Lq,
-                                      int Lk, int D, int causal, float scale,
-                                      void* stream) {
+extern "C" int flash_attention_bwd_dq(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* qseg, const void* kseg,
+    const void* qcos, const void* qsin, const void* kcos, const void* ksin,
+    void* dq, int B, int H, int Hkv, int Lq, int Lk, int D, int causal,
+    float scale, void* stream) {
   const ptf::BwdArgs a{q, k, v, dout, lse, delta,
                        static_cast<const int*>(qseg),
-                       static_cast<const int*>(kseg), nullptr, nullptr, dq};
+                       static_cast<const int*>(kseg),
+                       {qcos, qsin, kcos, ksin}, nullptr, nullptr, dq};
   return ptf::run_bwd(true, dtype, D, a, B, H, Hkv, Lq, Lk, causal, scale,
                       stream);
 }

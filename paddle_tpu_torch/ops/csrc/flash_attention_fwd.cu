@@ -39,16 +39,26 @@
 // and a cross-segment score takes the finite sentinel -1e30
 // (flash_tile.cuh says why); rows with a negative query segment write
 // zeros.  No key tile is skipped by segment: a dead row needs every key.
+//
+// In-kernel RoPE (K10: the rope=True branch of _fwd_kernel, :116-121,
+// :147-149, :162-165, reached through flash_attention_packed_rope :1370)
+// is the compile-time switch ROPE of the same templates, instantiated
+// without segments at head_dim 128 (bf16 on the tensor cores) and 256:
+// the q tile is rotated once in shared memory after it lands, each K tile
+// as it lands, each row by its position's table row (flash_tile.cuh), so
+// the products read the same rounded tiles as K6 followed by K1 would.
+// The rotation costs 3 operations per element of q and of each K tile, on
+// the CUDA cores: ~1% of the kernel's operations at the Llama shape.
 #include "flash_tile.cuh"
 
 namespace ptf {
 
-template <typename T, int D, int BK, bool SEG>
+template <typename T, int D, int BK, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ qseg,
-               const int* __restrict__ kseg, Geom g) {
+               const int* __restrict__ kseg, Rope<T> rp, Geom g) {
   constexpr int QS = D + 4, KS = BK + 1, PS = BK + 4;
   constexpr int CJ = BK / 16, CD = D / 16;
   constexpr int KVF = D * KS > BK * D ? D * KS : BK * D;
@@ -64,6 +74,10 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   load_rows<T, D>(Qs, QS, q, g, b, kvh, r0);
+  if constexpr (ROPE) {
+    __syncthreads();   // the q tile has landed; the sweep's barrier follows
+    rope_tile<T, D, kThreads>(Qs, QS, 1, kRows, rp.qcos, rp.qsin, r0, g.G);
+  }
 
   int vis[4];   // last key each of the thread's rows may see
   int qs[4];    // the rows' segments (SEG)
@@ -90,6 +104,10 @@ __global__ void __launch_bounds__(kThreads)
       kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
                                  threadIdx.x];
     __syncthreads();
+    if constexpr (ROPE) {   // the K^T tile [D][KS], rotated where it landed
+      rope_tile<T, D, kThreads>(KV, 1, KS, BK, rp.kcos, rp.ksin, key0, 1);
+      __syncthreads();
+    }
     float s[4][CJ];
     tile_dot<D, CJ>(s, Qs, QS, KV, KS, ty, tx);
 #pragma unroll
@@ -152,22 +170,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool ROPE = false>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const int* qseg, const int* kseg, const Geom& g,
-           cudaStream_t stream) {
+           const int* qseg, const int* kseg, const RopePtrs& rp,
+           const Geom& g, cudaStream_t stream) {
   constexpr int BK = KeyTile<D>::value;
   constexpr int KVF = D * (BK + 1) > BK * D ? D * (BK + 1) : BK * D;
   const size_t smem =
       sizeof(float) * (kRows * (D + 4) + KVF + kRows * (BK + 4));
   if (g.Lk % BK != 0) return -1;
-  cudaError_t err = set_smem(fwd_kernel<T, D, BK, SEG>, smem);
+  cudaError_t err = set_smem(fwd_kernel<T, D, BK, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  fwd_kernel<T, D, BK, SEG><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, D, BK, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), qseg, kseg, g);
+      static_cast<float*>(lse), qseg, kseg, rp.as<T>(), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -184,14 +202,14 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // point; l sums the unrounded p).
 namespace mma {
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                const int* __restrict__ qseg, const int* __restrict__ kseg,
-               Geom g) {
+               Rope<__nv_bfloat16> rp, Geom g) {
   constexpr int QS = D + 8, VS = kKeys + 8;
   constexpr int KD = D / 16, NT = kKeys / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -208,6 +226,10 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows<D>(Qs, q, g, b, kvh, r0);
   __syncthreads();
+  if constexpr (ROPE) {   // rotate the q tile before its fragments load
+    rope_rows<D>(Qs, kRows, rp.qcos, rp.qsin, r0, g.G);
+    __syncthreads();
+  }
   const int lo = 16 * warp + gq, hi = lo + 8;     // the lane's two rows
   uint32_t qa[KD][4];
 #pragma unroll
@@ -239,6 +261,10 @@ __global__ void __launch_bounds__(kThreads)
       kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
                                  threadIdx.x];
     __syncthreads();
+    if constexpr (ROPE) {   // the K tile, rotated before its fragments load
+      rope_rows<D>(Ks, kKeys, rp.kcos, rp.ksin, key0, 1);
+      __syncthreads();
+    }
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -330,22 +356,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool ROPE = false>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const int* qseg, const int* kseg, const Geom& g,
-           cudaStream_t stream) {
+           const int* qseg, const int* kseg, const RopePtrs& rp,
+           const Geom& g, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((kRows + kKeys) * (D + 8) + D * (kKeys + 8));
   if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(fwd_kernel<D, SEG>, smem);
+  cudaError_t err = set_smem(fwd_kernel<D, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  fwd_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), qseg,
-      kseg, g);
+      kseg, rp.as<__nv_bfloat16>(), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -353,12 +379,12 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 template <typename T, bool SEG>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-               void* lse, const int* qs, const int* ks, const Geom& g,
-               cudaStream_t s) {
+               void* lse, const int* qs, const int* ks, const RopePtrs& rp,
+               const Geom& g, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<T, 64, SEG>(q, k, v, out, lse, qs, ks, g, s);
-    case 128: return launch<T, 128, SEG>(q, k, v, out, lse, qs, ks, g, s);
-    case 256: return launch<T, 256, SEG>(q, k, v, out, lse, qs, ks, g, s);
+    case 64: return launch<T, 64, SEG>(q, k, v, out, lse, qs, ks, rp, g, s);
+    case 128: return launch<T, 128, SEG>(q, k, v, out, lse, qs, ks, rp, g, s);
+    case 256: return launch<T, 256, SEG>(q, k, v, out, lse, qs, ks, rp, g, s);
     default: return -1;
   }
 }
@@ -366,47 +392,86 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
 template <bool SEG>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              void* out, void* lse, const int* qs, const int* ks,
-             const Geom& g, cudaStream_t s) {
+             const RopePtrs& rp, const Geom& g, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return dispatch_d<float, SEG>(D, q, k, v, out, lse, qs, ks, g, s);
+      return dispatch_d<float, SEG>(D, q, k, v, out, lse, qs, ks, rp, g, s);
     case 1:   // bf16: the tensor cores where the fragments fit registers
       switch (D) {
-        case 64: return mma::launch<64, SEG>(q, k, v, out, lse, qs, ks, g, s);
+        case 64:
+          return mma::launch<64, SEG>(q, k, v, out, lse, qs, ks, rp, g, s);
         case 128:
-          return mma::launch<128, SEG>(q, k, v, out, lse, qs, ks, g, s);
+          return mma::launch<128, SEG>(q, k, v, out, lse, qs, ks, rp, g, s);
         case 256:
-          return launch<__nv_bfloat16, 256, SEG>(q, k, v, out, lse, qs, ks, g,
-                                                 s);
+          return launch<__nv_bfloat16, 256, SEG>(q, k, v, out, lse, qs, ks,
+                                                 rp, g, s);
         default: return -1;
       }
     case 2:
-      return dispatch_d<__half, SEG>(D, q, k, v, out, lse, qs, ks, g, s);
+      return dispatch_d<__half, SEG>(D, q, k, v, out, lse, qs, ks, rp, g, s);
+    default: return -1;
+  }
+}
+
+// The ROPE instances (K10): no segments, head_dim 128 and 256 — the
+// shapes the gate admits; bf16 at 128 on the tensor cores
+int dispatch_rope(int dtype, int D, const void* q, const void* k,
+                  const void* v, void* out, void* lse, const RopePtrs& rp,
+                  const Geom& g, cudaStream_t s) {
+  switch (dtype * 1000 + D) {
+    case 128:
+      return launch<float, 128, false, true>(q, k, v, out, lse, nullptr,
+                                             nullptr, rp, g, s);
+    case 256:
+      return launch<float, 256, false, true>(q, k, v, out, lse, nullptr,
+                                             nullptr, rp, g, s);
+    case 1128:
+      return mma::launch<128, false, true>(q, k, v, out, lse, nullptr,
+                                           nullptr, rp, g, s);
+    case 1256:
+      return launch<__nv_bfloat16, 256, false, true>(q, k, v, out, lse,
+                                                     nullptr, nullptr, rp, g,
+                                                     s);
+    case 2128:
+      return launch<__half, 128, false, true>(q, k, v, out, lse, nullptr,
+                                              nullptr, rp, g, s);
+    case 2256:
+      return launch<__half, 256, false, true>(q, k, v, out, lse, nullptr,
+                                              nullptr, rp, g, s);
     default: return -1;
   }
 }
 
 }  // namespace ptf
 
-// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out).  q/out
-// [B, Lq, H*D], k/v [B, Lk, Hkv*D], lse f32 [B, H, Lq]; H % Hkv == 0,
-// D in {64, 128, 256}, Lq*G a multiple of 64, Lk a multiple of 64 (32 at
-// D 256), causal requires Lq <= Lk.  qseg/kseg: int32 segment ids
-// [B, Lq]/[B, Lk], both null for unsegmented attention.  Returns the
-// launch's cudaError_t (0 = ok, -1 = a shape the kernel does not take).
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v, out and the rope
+// tables).  q/out [B, Lq, H*D], k/v [B, Lk, Hkv*D], lse f32 [B, H, Lq];
+// H % Hkv == 0, D in {64, 128, 256}, Lq*G a multiple of 64, Lk a multiple
+// of 64 (32 at D 256), causal requires Lq <= Lk.  qseg/kseg: int32 segment
+// ids [B, Lq]/[B, Lk], both null for unsegmented attention.  qcos/qsin
+// [Lq, D] and kcos/ksin [Lk, D] (sin pre-signed): rotate q and k in the
+// kernel (RoPE, K10; D 128/256, no segments), all four null for none.
+// Returns the launch's cudaError_t (0 = ok, -1 = a shape the kernel does
+// not take).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, void* lse,
-                                   const void* qseg, const void* kseg, int B,
+                                   const void* qseg, const void* kseg,
+                                   const void* qcos, const void* qsin,
+                                   const void* kcos, const void* ksin, int B,
                                    int H, int Hkv, int Lq, int Lk, int D,
                                    int causal, float scale, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return -1;
   if ((qseg == nullptr) != (kseg == nullptr)) return -1;
+  const ptf::RopePtrs rp{qcos, qsin, kcos, ksin};
+  if (rp.on() && (!rp.complete() || qseg != nullptr)) return -1;
   const ptf::Geom g{B, H, Hkv, H / Hkv, Lq, Lk, Lk - Lq, causal, scale};
   if ((Lq * g.G) % ptf::kRows != 0 || (causal && Lq > Lk)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rp.on())
+    return ptf::dispatch_rope(dtype, D, q, k, v, out, lse, rp, g, s);
   const int* qs = static_cast<const int*>(qseg);
   const int* ks = static_cast<const int*>(kseg);
   if (qs != nullptr)
-    return ptf::dispatch<true>(dtype, D, q, k, v, out, lse, qs, ks, g, s);
-  return ptf::dispatch<false>(dtype, D, q, k, v, out, lse, qs, ks, g, s);
+    return ptf::dispatch<true>(dtype, D, q, k, v, out, lse, qs, ks, rp, g, s);
+  return ptf::dispatch<false>(dtype, D, q, k, v, out, lse, qs, ks, rp, g, s);
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the port's flash-attention kernels (K1/K2 forward,
-// K3 delta, K4 dK/dV, K5 dQ): the packed-layout geometry, f32 tiles in
-// shared memory with a register-tiled product on the CUDA cores, and the
-// bf16 tiles and mma.sync fragments of the tensor-core paths.
+// K3 delta, K4 dK/dV, K5 dQ, and their ROPE instances, K10): the
+// packed-layout geometry, f32 tiles in shared memory with a
+// register-tiled product on the CUDA cores, the bf16 tiles and mma.sync
+// fragments of the tensor-core paths, and the in-tile rotation.
 //
 // Layout (the JAX package's projection layout, consumed without a
 // transpose): q/out/dq [B, Lq, H*D], k/v/dk/dv [B, Lk, Hkv*D], row
@@ -196,6 +197,117 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
+// RoPE inside the flash kernels (the ROPE instances, K10: the reference's
+// rope=True branches).  q and k arrive raw in the projection layout with
+// four tables in the input dtype, sin pre-signed (concat(-sin_lo, sin_hi),
+// the reference's signed_sin): qcos/qsin [Lq, D] for the query positions
+// (the last Lq of the Lk positions: bottom-right, as the causal mask) and
+// kcos/ksin [Lk, D].  A q or K tile is rotated in shared memory after it
+// lands and before any product or fragment load reads it,
+// x*c + swap(x)*s with swap(x) = concat(x[D/2:], x[:D/2]).  The column
+// pair (i, i + D/2) of a row belongs to one thread, which reads both and
+// writes both, so the rotation needs no barrier of its own beyond the two
+// around it.  The reference rotates in the input dtype (_rot_tile on bf16
+// tiles): each product and the sum is rounded to it — three roundings,
+// which its jitted and eager runs both show; one rounding (K6's) differs
+// from it in a third of the elements at bf16.  So each product and the
+// sum is formed in f32 (exact for two bf16 or f16 factors) and rounded to
+// the input dtype, no FMA contraction, as the plain version does
+// (rope_tile); the tensor-core tiles use bf16x2 instructions with the
+// same roundings, 16 bytes a thread (rope_rows).  dq and dk accumulate in rotated space and are rotated back with
+// -sin on the f32 accumulator (f32 arithmetic, the tables widened) before
+// their one cast.  Both accumulator layouts keep columns d and
+// d + D/2 of a row in the same thread (CUDA cores: c and c + CD/2; mma C
+// fragments: n and n + ND/2), so that rotation runs in registers.
+template <typename T>
+struct Rope {
+  const T* qcos;
+  const T* qsin;
+  const T* kcos;
+  const T* ksin;
+};
+
+// the tables as the C interface passes them (all null: no rotation)
+struct RopePtrs {
+  const void* qcos;
+  const void* qsin;
+  const void* kcos;
+  const void* ksin;
+  bool on() const { return qcos != nullptr; }
+  bool complete() const {
+    return qcos != nullptr && qsin != nullptr && kcos != nullptr &&
+           ksin != nullptr;
+  }
+  template <typename T>
+  Rope<T> as() const {
+    return Rope<T>{static_cast<const T*>(qcos), static_cast<const T*>(qsin),
+                   static_cast<const T*>(kcos), static_cast<const T*>(ksin)};
+  }
+};
+
+// x rounded to T, as f32
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// one rotated pair in the arithmetic of dtype T:
+// (x1, x2) = (x1 c1 + x2 s1, x2 c2 + x1 s2), each product and each sum
+// rounded to T (T = float: plain f32 operations)
+template <typename T>
+__device__ __forceinline__ void rope_pair(float& x1, float& x2, float c1,
+                                          float s1, float c2, float s2) {
+  const float a = round_as<T>(__fadd_rn(round_as<T>(__fmul_rn(x1, c1)),
+                                        round_as<T>(__fmul_rn(x2, s1))));
+  const float b = round_as<T>(__fadd_rn(round_as<T>(__fmul_rn(x2, c2)),
+                                        round_as<T>(__fmul_rn(x1, s2))));
+  x1 = a;
+  x2 = b;
+}
+
+// a rotated value (already a value of the input dtype) into an f32 tile
+// (the CUDA-core kernels) or a bf16 one (the tensor-core kernels)
+__device__ __forceinline__ void store_tile(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_tile(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Rotate `rows` rows of a shared tile in place: element (r, d) at
+// tile[r * rs + d * cs] (row-major: rs = ld, cs = 1; transposed: rs = 1,
+// cs = ld, an odd ld in f32 keeps it conflict-free); row r takes table
+// row (first + r) / div — a key tile's keys (div 1) or a q tile's
+// flattened rows, position-major (div G: each row its position's table
+// row, the reference's _rope_q_tile).  Neighbouring threads take
+// neighbouring columns: the table reads coalesce.
+template <typename T, int D, int NT, typename S>
+__device__ __forceinline__ void rope_tile(S* tile, int rs, int cs, int rows,
+                                          const T* cos_t, const T* sin_t,
+                                          int first, int div) {
+  constexpr int H2 = D / 2;
+  for (int e = threadIdx.x; e < rows * H2; e += NT) {
+    const int r = e / H2, i = e - r * H2;
+    const long long t = static_cast<long long>((first + r) / div) * D + i;
+    S* p1 = tile + r * rs + i * cs;
+    S* p2 = p1 + H2 * cs;
+    float x1 = to_f32(*p1), x2 = to_f32(*p2);
+    rope_pair<T>(x1, x2, to_f32(cos_t[t]), to_f32(sin_t[t]),
+                 to_f32(cos_t[t + H2]), to_f32(sin_t[t + H2]));
+    store_tile(p1, x1);
+    store_tile(p2, x2);
+  }
+}
+
+// the inverse rotation (sin negated) of an f32 accumulator pair, columns
+// d and d + D/2 of table row t / D (t = row * D + d), the tables widened
+// from the input dtype to f32 — the reference's rotate-back of dq and dk
+template <typename T>
+__device__ __forceinline__ void unrope_pair(float& x1, float& x2,
+                                            const T* cos_t, const T* sin_t,
+                                            long long t, int half) {
+  rope_pair<float>(x1, x2, to_f32(cos_t[t]), -to_f32(sin_t[t]),
+                   to_f32(cos_t[t + half]), -to_f32(sin_t[t + half]));
+}
+
 template <typename Kernel>
 inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -320,6 +432,77 @@ __device__ __forceinline__ void load_rows_t(__nv_bfloat16* rows,
     const uint4 x = *reinterpret_cast<const uint4*>(
         src + row_off<D>(g, b, kvh, r0 + rr) + 8 * c);
     put_row<D>(rows, cols, x, rr, c);
+  }
+}
+
+// a (rotated) row-major [64][D + 8] tile -> its transposed copy
+// [D][64 + 8]; neighbouring threads take neighbouring rows, as load_kv
+template <int D>
+__device__ __forceinline__ void transpose_tile(__nv_bfloat16* cols,
+                                               const __nv_bfloat16* rows) {
+#pragma unroll
+  for (int it = 0; it < kRows * (D / 8) / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads;
+    const int rr = e % kRows, c = e / kRows;
+    put_row<D>(nullptr, cols,
+               *reinterpret_cast<const uint4*>(rows + rr * (D + 8) + 8 * c),
+               rr, c);
+  }
+}
+
+// bf16x2 multiply and add, each rounded to nearest even: the explicit
+// .rn keeps the code generator from contracting them into an FMA (which
+// would round the product only once with the sum)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// x c + y s on two bf16 lanes, each product and the sum rounded
+__device__ __forceinline__ uint32_t rot_bf16x2(uint32_t x, uint32_t y,
+                                               uint32_t c, uint32_t s) {
+  return add_bf16x2(mul_bf16x2(x, c), mul_bf16x2(y, s));
+}
+
+// Rotate `rows` rows of a row-major bf16 tile [rows][D + 8] in place
+// (row r: table row (first + r) / div, as rope_tile), 16 bytes at a time:
+// a thread takes 8 columns of a row's first half and the 8 matching ones
+// of its second half, and the tables' same columns.  bf16x2 arithmetic
+// rounds each product and the sum to bf16 — exactly the reference's
+// three roundings (the product of two bf16 values is exact in f32, so
+// rope_pair<__nv_bfloat16> gives the same bits) — at three instructions
+// per two outputs.  Neighbouring threads take neighbouring chunks of a
+// row: conflict-free 16-byte shared accesses, coalesced table reads.
+template <int D>
+__device__ __forceinline__ void rope_rows(__nv_bfloat16* tile, int rows,
+                                          const __nv_bfloat16* cos_t,
+                                          const __nv_bfloat16* sin_t,
+                                          int first, int div) {
+  constexpr int H8 = D / 16;          // 16-byte chunks in half a row
+  for (int e = threadIdx.x; e < rows * H8; e += kThreads) {
+    const int r = e / H8, c = e - r * H8;
+    uint4* p1 = reinterpret_cast<uint4*>(tile + r * (D + 8) + 8 * c);
+    uint4* p2 = reinterpret_cast<uint4*>(tile + r * (D + 8) + D / 2 + 8 * c);
+    const long long t = static_cast<long long>((first + r) / div) * D + 8 * c;
+    const uint4 x1 = *p1, x2 = *p2;
+    const uint4 c1 = *reinterpret_cast<const uint4*>(cos_t + t);
+    const uint4 c2 = *reinterpret_cast<const uint4*>(cos_t + t + D / 2);
+    const uint4 s1 = *reinterpret_cast<const uint4*>(sin_t + t);
+    const uint4 s2 = *reinterpret_cast<const uint4*>(sin_t + t + D / 2);
+    *p1 = make_uint4(rot_bf16x2(x1.x, x2.x, c1.x, s1.x),
+                     rot_bf16x2(x1.y, x2.y, c1.y, s1.y),
+                     rot_bf16x2(x1.z, x2.z, c1.z, s1.z),
+                     rot_bf16x2(x1.w, x2.w, c1.w, s1.w));
+    *p2 = make_uint4(rot_bf16x2(x2.x, x1.x, c2.x, s2.x),
+                     rot_bf16x2(x2.y, x1.y, c2.y, s2.y),
+                     rot_bf16x2(x2.z, x1.z, c2.z, s2.z),
+                     rot_bf16x2(x2.w, x1.w, c2.w, s2.w));
   }
 }
 

@@ -45,19 +45,34 @@ to same-segment pairs — the padding and varlen masks:
 * causal composes by global position: per-sequence causality for packed
   sequences.
 
-In-kernel RoPE (``flash_attention_packed_rope``, K10) is not ported yet.
+In-kernel RoPE (``flash_attention_packed_rope``, the reference's :1370):
+q and k arrive raw in the projection layout with the standard tables
+``cos``/``sin [Lk, D]``, and the kernels rotate them (K10: the ``rope``
+branches of the forward, dK/dV and dQ kernels).  ``rope_kernel_tables``
+casts the tables to the input dtype, pre-signs sin and aligns the q
+tables to the last Lq positions (bottom-right, as the causal mask); the
+plain versions take those tables as ``rope=(qcos, qsin, kcos, ksin)``,
+rotate q and k in the input dtype as the reference's kernels do (each
+product and the sum rounded to it: three roundings at bf16, unlike K6's
+one), attend, and in the backward accumulate dq and dk in rotated space
+and rotate them back with -sin in f32 before the one cast; dv is not
+rotated.  cos and sin get zero gradients.  The model does not route here
+(the reference's ``models/llama.py`` rotates with K6 and calls
+``flash_attention_packed``); ``rope_fusable`` is the reference's gate
+without its TPU test.
 """
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.core.device import resolve_impl
+from paddle_tpu_torch.ops.fused_rope import signed_sin
 
 __all__ = ["available", "blockwise_attention", "flash_attention_blhd",
            "flash_attention_packed", "flash_attention_packed_rope",
            "flash_attention_packed_segmented", "flash_bwd_reference",
            "flash_delta_reference", "flash_fwd_reference", "repeat_kv",
-           "validate_gqa"]
+           "rope_fusable", "rope_kernel_tables", "validate_gqa"]
 
 #: runs of the plain versions, by step (plain integers)
 plain_runs = {"fwd": 0, "delta": 0, "bwd": 0}
@@ -138,6 +153,27 @@ def _scale(scale, d):
     return float(scale if scale is not None else 1.0 / (d ** 0.5))
 
 
+def _rot(x, c, s, dtype=torch.float32):
+    """The reference's ``_rot_tile`` on f32 ``[..., L, D]`` with f32 tables
+    ``[L, D]`` (``s`` signed; ``-s`` rotates back): ``x*c + swap(x)*s``,
+    ``swap(x) = concat(x[D/2:], x[:D/2])``, in ``dtype``'s arithmetic —
+    each product and the sum formed in f32 and rounded to ``dtype``, as
+    the reference computes on input-dtype tiles (returned widened)."""
+    d2 = x.shape[-1] // 2
+    sw = torch.cat([x[..., d2:], x[..., :d2]], dim=-1)
+
+    def r(t):
+        return t.to(dtype).float()
+    return r(r(x * c) + r(sw * s))
+
+
+def _rope_qk(qf, kf, rope, dtype):
+    """Rotate the widened q ``[B, Hkv, G, Lq, D]`` and k ``[B, Hkv, Lk, D]``
+    by the kernel tables in the input dtype ``dtype``."""
+    qc, qs, kc, ks = (t.float() for t in rope)
+    return _rot(qf, qc, qs, dtype), _rot(kf, kc, ks, dtype)
+
+
 def _scores(qb, kf, scale, causal, q0, q_offset, qseg=None, kseg=None):
     """f32 scores ``[B, Hkv, G, rows, Lk]`` of query positions
     ``q0..q0+rows``: cross-segment pairs at -1e30, the causal mask as
@@ -160,10 +196,13 @@ def _scores(qb, kf, scale, causal, q0, q_offset, qseg=None, kseg=None):
 
 
 def flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal=False,
-                        scale=None, q_segments=None, k_segments=None):
+                        scale=None, q_segments=None, k_segments=None,
+                        rope=None):
     """Plain forward: ``(out [B, Lq, H*D] in q's dtype, lse [B, H, Lq]
     f32)``, softmax in f32; optional int32 segment ids ``[B, Lq]`` /
-    ``[B, Lk]`` (rows with a negative q segment come out zero)."""
+    ``[B, Lk]`` (rows with a negative q segment come out zero); optional
+    ``rope=(qcos, qsin, kcos, ksin)`` kernel tables (``rope_kernel_tables``)
+    that rotate the raw q and k first."""
     plain_runs["fwd"] += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -171,6 +210,8 @@ def flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal=False,
     scale = _scale(scale, d)
     qf = _heads_q(q, num_heads, num_kv_heads)
     kf, vf = _heads_kv(k, num_kv_heads), _heads_kv(v, num_kv_heads)
+    if rope is not None:
+        qf, kf = _rope_qk(qf, kf, rope, q.dtype)
     out = torch.empty(qf.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty(qf.shape[:-1], dtype=torch.float32, device=q.device)
     for q0 in range(0, lq, _QBLOCK):
@@ -203,11 +244,14 @@ def flash_delta_reference(dout, out, num_heads):
 
 def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
                         causal=False, scale=None, q_segments=None,
-                        k_segments=None):
+                        k_segments=None, rope=None):
     """Plain backward from the forward's ``lse`` and ``delta``:
     ``(dq, dk, dv)`` in the inputs' dtypes, accumulated in f32.  With
     segment ids, ``dout`` of rows with a negative q segment must already
-    be zero (``flash_attention_packed_segmented`` zeroes it)."""
+    be zero (``flash_attention_packed_segmented`` zeroes it).  With
+    ``rope`` tables, q and k are the raw residuals: they are rotated again,
+    and dq and dk, accumulated in rotated space, are rotated back with
+    -sin in f32 before their cast."""
     plain_runs["bwd"] += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -216,6 +260,8 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
     qf, dof = (_heads_q(q, num_heads, num_kv_heads),
                _heads_q(dout, num_heads, num_kv_heads))
     kf, vf = _heads_kv(k, num_kv_heads), _heads_kv(v, num_kv_heads)
+    if rope is not None:
+        qf, kf = _rope_qk(qf, kf, rope, q.dtype)
     lse5 = lse.view(b, num_kv_heads, g, lq)
     dl5 = delta.view(b, num_kv_heads, g, lq)
     dq = torch.empty(qf.shape, dtype=torch.float32, device=q.device)
@@ -245,6 +291,9 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
         ds = ds.to(q.dtype).float()
         dq[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
         dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb)
+    if rope is not None:
+        qc, qs, kc, ks = (t.float() for t in rope)
+        dq, dk = _rot(dq, qc, -qs), _rot(dk, kc, -ks)
 
     def kv_packed(x, dtype):
         return x.permute(0, 2, 1, 3).reshape(b, lk, num_kv_heads * d) \
@@ -254,29 +303,31 @@ def flash_bwd_reference(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
 
 
 # ------------------------------------------------------------------ routing
-def _forward(q, k, v, num_heads, num_kv_heads, causal, scale, qseg, kseg):
+def _forward(q, k, v, num_heads, num_kv_heads, causal, scale, qseg, kseg,
+             rope=None):
     if resolve_impl(None, q.device, "flash_attention") == "reference":
         return flash_fwd_reference(q, k, v, num_heads, num_kv_heads, causal,
-                                   scale, qseg, kseg)
+                                   scale, qseg, kseg, rope)
     from paddle_tpu_torch.ops import flash_attention_cuda as fc
 
     return fc.flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale,
-                        qseg, kseg)
+                        qseg, kseg, rope)
 
 
 def _backward(q, k, v, out, lse, dout, num_heads, num_kv_heads, causal,
-              scale, qseg, kseg):
+              scale, qseg, kseg, rope=None):
     if resolve_impl(None, q.device, "flash_attention") == "reference":
         delta = flash_delta_reference(dout, out, num_heads)
         return flash_bwd_reference(q, k, v, dout, lse, delta, num_heads,
-                                   num_kv_heads, causal, scale, qseg, kseg)
+                                   num_kv_heads, causal, scale, qseg, kseg,
+                                   rope)
     from paddle_tpu_torch.ops import flash_attention_cuda as fc
 
     delta = fc.flash_delta(dout, out, num_heads)
     dk, dv = fc.flash_bwd_dkv(q, k, v, dout, lse, delta, num_heads,
-                              num_kv_heads, causal, scale, qseg, kseg)
+                              num_kv_heads, causal, scale, qseg, kseg, rope)
     dq = fc.flash_bwd_dq(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
-                         causal, scale, qseg, kseg)
+                         causal, scale, qseg, kseg, rope)
     return dq, dk, dv
 
 
@@ -341,10 +392,107 @@ def flash_attention_packed_segmented(q, k, v, q_segments, k_segments,
         int(num_heads), int(num_kv_heads), bool(causal), _scale(scale, d))
 
 
-def flash_attention_packed_rope(*args, **kwargs):
-    raise NotImplementedError(
-        "flash attention with in-kernel RoPE (K10) is not ported yet; the "
-        "training path rotates with the fused RoPE kernel (ops/fused_rope)")
+_VMEM_BUDGET = 12 * 1024 * 1024   # the reference's _stream_kv threshold
+
+
+def rope_kernel_tables(cos, sin, lq, lk, dtype):
+    """The reference's ``_rope_kernel_tables`` (:1325): the standard
+    tables ``[Lk, D]`` -> ``(qcos, qsin, kcos, ksin)`` in ``dtype``, sin
+    pre-signed (``signed_sin``), the q tables the LAST ``lq`` rows (the
+    cached-prefill, bottom-right convention); 2-D and contiguous, as the
+    kernels take them (the reference adds a leading 1 for its blocks)."""
+    cos = cos.to(dtype)
+    sin_s = signed_sin(sin).to(dtype)
+    return tuple(t.contiguous() for t in (cos[lk - lq:], sin_s[lk - lq:],
+                                          cos, sin_s))
+
+
+def rope_fusable(q_shape, k_shape, num_heads, num_kv_heads):
+    """Gate for ``flash_attention_packed_rope`` (the reference's :1346
+    without its TPU test): head_dim a multiple of 128 that the kernels are
+    built for (128 or 256; the reference's flash gate ``available`` takes
+    no larger one either), G*head_dim a multiple of 128, Lq and Lk
+    multiples of 128, and the reference's residency budget with the rope
+    tables counted like another K/V pair (``16*Lk*D <= 12 MiB``)."""
+    _, lq, qd = q_shape
+    lk = k_shape[1]
+    d = qd // num_heads
+    if d * num_heads != qd or d not in (128, 256):
+        return False
+    g = num_heads // num_kv_heads
+    if g * num_kv_heads != num_heads or (g * d) % 128:
+        return False
+    if 16 * lk * d > _VMEM_BUDGET:
+        return False
+    return lq % 128 == 0 and lk % 128 == 0
+
+
+class _FlashAttentionPackedRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, num_heads, num_kv_heads, causal,
+                scale):
+        tables = rope_kernel_tables(cos, sin, q.shape[1], k.shape[1],
+                                    q.dtype)
+        out, lse = _forward(q, k, v, num_heads, num_kv_heads, causal, scale,
+                            None, None, tables)
+        ctx.save_for_backward(q, k, v, out, lse, *tables)
+        ctx.cfg = (num_heads, num_kv_heads, causal, scale)
+        ctx.table_meta = [(t.shape, t.dtype, t.device) for t in (cos, sin)]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, *tables = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout.contiguous(),
+                               *ctx.cfg, None, None, tuple(tables))
+        # the tables are positional constants: zero cotangents (:1411)
+        dcos, dsin = (
+            torch.zeros(shape, dtype=dtype, device=dev) if need else None
+            for need, (shape, dtype, dev) in zip(ctx.needs_input_grad[3:5],
+                                                 ctx.table_meta))
+        return dq, dk, dv, dcos, dsin, None, None, None, None
+
+
+def flash_attention_packed_rope(q, k, v, cos, sin, num_heads, num_kv_heads,
+                                causal=False, scale=None):
+    """GQA flash attention with RoPE inside the kernels (K10): q
+    ``[B, Lq, H*D]`` and k ``[B, Lk, Hkv*D]`` arrive RAW in the projection
+    layout and are rotated by the standard half-duplicated tables
+    ``cos``/``sin [Lk, D]`` (the first Lk rows are used; the queries take
+    the last Lq positions), v ``[B, Lk, Hkv*D]``; returns
+    ``[B, Lq, H*D]``, differentiable in q, k, v (cos and sin get zero
+    gradients).  Raises ``ValueError`` where the reference does: G*head_dim
+    not a multiple of 128 (the reference wires rotation only into its
+    packed one-head-per-program kernels), ``8*Lk*D > 12 MiB`` (its
+    streamed kernels have no rotation), causal with Lq > Lk; and where the
+    tables cannot cover the positions (Lq > Lk, or fewer than Lk rows).
+    Gate with ``rope_fusable``."""
+    _, lq, hd = q.shape
+    lk = k.shape[1]
+    _reject_causal_lq_gt_lk(lq, lk, causal, "flash_attention")
+    g = validate_gqa(num_heads, num_kv_heads, "flash_attention")
+    d = hd // num_heads
+    if (g * d) % 128:
+        raise ValueError(
+            f"flash_attention_packed_rope: G*head_dim = {g}*{d} is not a "
+            "multiple of 128 — in-kernel rotation is only wired for the "
+            "packed one-head-per-program kernels; gate with rope_fusable()")
+    if 8 * lk * d > _VMEM_BUDGET:
+        raise ValueError(
+            f"flash_attention_packed_rope: Lk={lk} at head_dim {d} takes the "
+            "reference's streamed kernels, which have no in-kernel rotation; "
+            "gate with rope_fusable()")
+    if lq > lk:
+        raise ValueError(
+            f"flash_attention_packed_rope: Lq={lq} > Lk={lk} — the q tables "
+            "are the last Lq of the Lk positions")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.dim() != 2 or t.shape[0] < lk or t.shape[1] != d:
+            raise ValueError(f"flash_attention_packed_rope: {name} must be "
+                             f"[>= {lk}, {d}], got {tuple(t.shape)}")
+    return _FlashAttentionPackedRope.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), cos[:lk], sin[:lk],
+        int(num_heads), int(num_kv_heads), bool(causal), _scale(scale, d))
 
 
 def flash_attention_blhd(q, k, v, causal=False, scale=None, q_segments=None,

@@ -7,8 +7,15 @@ here, ``csrc/flash_attention_fwd.cu``) and the backward's delta (K3
 (``csrc/flash_attention_bwd.cu``), each with and without the reference's
 segment masks (``segmented=True``: int32 ``q_segments [B, Lq]`` and
 ``k_segments [B, Lk]``, a compile-time switch of the same templates).
-Each source's note says what bounds its kernels on the card and how the
-design answers that.
+The ``rope`` operand (K10: the reference's ``rope=True`` branches of the
+forward, dK/dV and dQ kernels, reached through
+``flash_attention_packed_rope`` :1370) hands the forward, K4 and K5 four
+tables — ``qcos``/``qsin [Lq, D]`` and ``kcos``/``ksin [Lk, D]`` in the
+input dtype, sin pre-signed (``ops/flash_attention.rope_kernel_tables``)
+— with which they rotate raw q and k inside the kernel and rotate dq and
+dk back before their cast (another compile-time switch, ``ROPE``,
+without segments, at head_dim 128 and 256).  Each source's note says what
+bounds its kernels on the card and how the design answers that.
 
 Every wrapper takes CUDA tensors in the packed projection layout
 (q/out ``[B, Lq, H*D]``, k/v ``[B, Lk, Hkv*D]``, contiguous, one dtype of
@@ -16,20 +23,23 @@ float32/bfloat16/float16) and row statistics ``[B, H, Lq]`` f32,
 launches its kernel on the current stream, and raises on anything the
 kernel does not take.  The plain PyTorch versions and the routing live in
 ``ops/flash_attention.py``; ``launches`` counts the launches of each
-kernel, the segmented instances under ``*_seg``.
+kernel, the segmented instances under ``*_seg``, the rope ones under
+``*_rope``.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["flash_fwd", "flash_delta", "flash_bwd_dkv", "flash_bwd_dq",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "ROPE_HEAD_DIMS"]
 
 #: kernel launches by kernel (plain integers; callers may reset them to 0)
 launches = {"fwd": 0, "delta": 0, "dkv": 0, "dq": 0, "fwd_seg": 0,
-            "dkv_seg": 0, "dq_seg": 0}
+            "dkv_seg": 0, "dq_seg": 0, "fwd_rope": 0, "dkv_rope": 0,
+            "dq_rope": 0}
 
 HEAD_DIMS = (64, 128, 256)
+ROPE_HEAD_DIMS = (128, 256)     # the head dims of the ROPE instances
 _ROWS = 64          # flattened (position, group head) rows per kernel tile
 _KEYS = 64          # Lk multiple every kernel's key tile divides
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -99,6 +109,33 @@ def _check_segments(where, dev, b, lq, lk, qseg, kseg):
     return qseg.data_ptr(), kseg.data_ptr(), "_seg"
 
 
+def _check_rope(where, q, lq, lk, d, rope, segmented):
+    """Validate the optional rope tables ``(qcos, qsin, kcos, ksin)``:
+    contiguous, 16-byte aligned (the tensor-core kernels read them 16
+    bytes at a time), in q's dtype, on q's device, ``[Lq, D]`` and
+    ``[Lk, D]``.
+    Return their four pointers (None without rope) and the counter's
+    suffix."""
+    if rope is None:
+        return (None,) * 4, ""
+    if segmented:
+        raise ValueError(f"{where}: the rope kernels take no segment ids")
+    if d not in ROPE_HEAD_DIMS:
+        raise ValueError(f"{where}: head_dim {d} — the rope kernels take "
+                         f"{ROPE_HEAD_DIMS}")
+    if len(rope) != 4:
+        raise ValueError(f"{where}: rope must be (qcos, qsin, kcos, ksin)")
+    for name, x, l in zip(("qcos", "qsin", "kcos", "ksin"), rope,
+                          (lq, lq, lk, lk)):
+        if x.dtype != q.dtype or tuple(x.shape) != (l, d) \
+                or x.device != q.device or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{where}: {name} must be a contiguous, "
+                             f"16-byte aligned {q.dtype} [{l}, {d}] tensor "
+                             f"on {q.device}")
+    return tuple(x.data_ptr() for x in rope), "_rope"
+
+
 def _ok(where, rc, kernel):
     if rc != 0:
         raise RuntimeError(f"{where}: kernel launch failed with CUDA error "
@@ -107,15 +144,17 @@ def _ok(where, rc, kernel):
 
 
 def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale, qseg=None,
-              kseg=None):
+              kseg=None, rope=None):
     """K1/K2: ``(out [B, Lq, H*D] in q's dtype, lse [B, H, Lq] f32)``;
-    with segment ids, rows with a negative q segment come out zero."""
+    with segment ids, rows with a negative q segment come out zero; with
+    ``rope`` tables (K10), q and k are rotated in the kernel."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _geometry("flash_fwd", q, k, v, num_heads, num_kv_heads,
                              causal)
     qs, ks, tag = _check_segments("flash_fwd", q.device, b, lq, lk, qseg,
                                   kseg)
+    rp, rtag = _check_rope("flash_fwd", q, lq, lk, d, rope, qs is not None)
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, lq), dtype=torch.float32,
                       device=q.device)
@@ -123,10 +162,10 @@ def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale, qseg=None,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), qs, ks, b, num_heads,
+            out.data_ptr(), lse.data_ptr(), qs, ks, *rp, b, num_heads,
             num_kv_heads, lq, lk, d, int(bool(causal)), float(scale),
             _stream(q.device))
-    _ok("flash_fwd", rc, "fwd" + tag)
+    _ok("flash_fwd", rc, "fwd" + tag + rtag)
     return out, lse
 
 
@@ -173,45 +212,51 @@ def _bwd_operands(where, q, k, v, dout, lse, delta, num_heads, num_kv_heads,
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
-                  causal, scale, qseg=None, kseg=None):
+                  causal, scale, qseg=None, kseg=None, rope=None):
     """K4: ``(dk, dv)`` in k's dtype, each kv head summed over its G query
     heads in-kernel; with segment ids, ``dout`` of padding rows must be
-    zero."""
+    zero; with ``rope`` tables (K10), q and k are the raw residuals and
+    dk comes out in raw space."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _bwd_operands("flash_bwd_dkv", q, k, v, dout, lse, delta,
                                  num_heads, num_kv_heads, causal)
     qs, ks, tag = _check_segments("flash_bwd_dkv", q.device, b, lq, lk,
                                   qseg, kseg)
+    rp, rtag = _check_rope("flash_bwd_dkv", q, lq, lk, d, rope,
+                           qs is not None)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_dkv(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks,
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks, *rp,
             dk.data_ptr(), dv.data_ptr(), b, num_heads, num_kv_heads, lq, lk,
             d, int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_bwd_dkv", rc, "dkv" + tag)
+    _ok("flash_bwd_dkv", rc, "dkv" + tag + rtag)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, num_heads, num_kv_heads, causal,
-                 scale, qseg=None, kseg=None):
-    """K5: ``dq`` in q's dtype (segment ids as ``flash_bwd_dkv``)."""
+                 scale, qseg=None, kseg=None, rope=None):
+    """K5: ``dq`` in q's dtype (segment ids and ``rope`` as
+    ``flash_bwd_dkv``)."""
     from paddle_tpu_torch.ops import _build
 
     b, lq, lk, d = _bwd_operands("flash_bwd_dq", q, k, v, dout, lse, delta,
                                  num_heads, num_kv_heads, causal)
     qs, ks, tag = _check_segments("flash_bwd_dq", q.device, b, lq, lk, qseg,
                                   kseg)
+    rp, rtag = _check_rope("flash_bwd_dq", q, lq, lk, d, rope,
+                           qs is not None)
     dq = torch.empty_like(q)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_dq(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks,
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks, *rp,
             dq.data_ptr(), b, num_heads, num_kv_heads, lq, lk, d,
             int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_bwd_dq", rc, "dq" + tag)
+    _ok("flash_bwd_dq", rc, "dq" + tag + rtag)
     return dq

@@ -22,8 +22,10 @@ from paddle_tpu.ops.flash_attention import (
     _delta_pallas, _flash_bwd_pallas, _flash_fwd_pallas,
 )
 from paddle_tpu.ops.flash_attention import available as j_available
+from paddle_tpu_torch.models.llama import _rope_cos_sin
 from paddle_tpu_torch.nn.functional import attention as tattn
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import fused_rope as trope
 
 # small shapes: torch's intra-op threads would only contend with the
 # other test processes sharing this machine
@@ -221,13 +223,14 @@ def test_sdpa_dense_path_takes_a_general_mask(kind):
 
 
 def test_sdpa_refuses_what_is_not_ported():
-    """In-kernel RoPE (K10) is refused, as are float segment ids and a
-    lone ``q_segments``.  Key-padding masks, attention dropout and
-    segment ids run: a key-padding mask on the segmented flash path (no
-    dense run), dropout on the dense path, segment ids through
-    ``flash_attention_blhd`` (the full behaviour is held to the
-    reference in ``test_torch_flash_segmented.py`` and
-    ``test_torch_bert.py``)."""
+    """Float segment ids and a lone ``q_segments`` are refused.
+    Key-padding masks, attention dropout, segment ids and in-kernel RoPE
+    run: a key-padding mask on the segmented flash path (no dense run),
+    dropout on the dense path, segment ids through
+    ``flash_attention_blhd``, and ``flash_attention_packed_rope`` on CPU
+    tensors equals rotate-then-attend (the full behaviour is held to the
+    reference in ``test_torch_flash_segmented.py``,
+    ``test_torch_bert.py`` and ``test_torch_flash_rope.py``)."""
     q = torch.randn((1, 128, 4, 64), generator=torch.Generator()
                     .manual_seed(0))
     mask = torch.ones((1, 128), dtype=torch.bool)
@@ -247,5 +250,9 @@ def test_sdpa_refuses_what_is_not_ported():
                                  k_segments=seg.float())
     with pytest.raises(ValueError, match="both"):
         tfa.flash_attention_blhd(q, q, q, q_segments=seg)
-    with pytest.raises(NotImplementedError, match="K10"):
-        tfa.flash_attention_packed_rope(q, q, q)
+    qp, (cos, sin) = q.reshape(1, 128, 256), _rope_cos_sin(
+        128, 128, 10000.0, torch.float32, "cpu")
+    rq, rk = trope.rope_reference(qp, qp, cos, sin, 2, 2)
+    torch.testing.assert_close(
+        tfa.flash_attention_packed_rope(qp, qp, qp, cos, sin, 2, 2, True),
+        tfa.flash_attention_packed(rq, rk, qp, 2, 2, True), **FWD)

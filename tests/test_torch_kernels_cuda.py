@@ -17,7 +17,9 @@ training kernels (K1-K5 flash attention, K6 RoPE) run at every dtype,
 head_dim 64/128/256, G 1/2/3/4/8, Lq < Lk and non-causal, against their
 plain versions (tolerances at ``FLASH_TOL``; RoPE bitwise) and against
 themselves (bitwise, run to run); the segmented flash kernels likewise,
-with key padding (a dead row among them) and causal varlen.  The loss
+with key padding (a dead row among them) and causal varlen; the rope
+ones (K10) at every dtype, head_dim 128/256, G 1-3, Lq < Lk and
+non-causal, and end to end card vs CPU.  The loss
 chunk's bf16 GEMM with an
 f32 result (the card's branch of ``ops/chunked_ce.py``) runs against the
 widened f32 branch.  The int8 kernels: K8's and K9's int8 branches
@@ -307,6 +309,108 @@ def test_segmented_autograd_on_the_card_matches_cpu(dtype):
         grads.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
     for a, c in zip(grads[1], grads[0]):
         torch.testing.assert_close(a.float(), c.float(), **FLASH_TOL[dtype])
+
+
+def _rope_tables(dev, dtype, lq, lk, d, seed):
+    """K10's kernel tables from random angles (cos/sin ``[Lk, D]``)."""
+    gen = torch.Generator().manual_seed(seed)
+    ang = torch.rand(lk, d, generator=gen) * 6.0
+    return tfa.rope_kernel_tables(ang.cos().to(dev), ang.sin().to(dev), lq,
+                                  lk, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("geom", [
+    (2, 128, 128, 4, 2, 128, True), (1, 128, 256, 4, 2, 128, True),
+    (2, 128, 128, 8, 1, 128, False), (1, 64, 128, 2, 1, 256, True),
+    (1, 192, 192, 6, 2, 128, True)],
+    ids=["gqa", "gqa-lq<lk", "mqa-noncausal", "d256", "g3"])
+def test_rope_flash_kernels_match_plain(dtype, geom):
+    """K10: the ROPE instances of the forward (out, lse), K4 dK/dV and K5
+    dQ (K3 on their output) against the plain versions with the same
+    tables, q tables bottom-right at Lq < Lk; only the ``*_rope`` counters
+    move; bitwise repeatable."""
+    dev = _card()
+    b, lq, lk, h, hkv, d, causal = geom
+    q, k, v, do = _flash_inputs(dev, dtype, b, lq, lk, h, hkv, d, 23)
+    rope = _rope_tables(dev, dtype, lq, lk, d, 5)
+    scale = d ** -0.5
+    before = dict(kfa.launches)
+    out, lse = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, rope=rope)
+    ref, rlse = tfa.flash_fwd_reference(q, k, v, h, hkv, causal, scale,
+                                        rope=rope)
+    delta = kfa.flash_delta(do, out, h)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                               scale, rope=rope)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                          rope=rope)
+    rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, h,
+                                            hkv, causal, scale, rope=rope)
+    torch.cuda.synchronize()
+    for key in ("fwd_rope", "dkv_rope", "dq_rope"):
+        assert kfa.launches[key] == before[key] + 1
+    for key in ("fwd", "dkv", "dq", "fwd_seg", "dkv_seg", "dq_seg"):
+        assert kfa.launches[key] == before[key]
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    for a, r in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    dk2, dv2 = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                                 scale, rope=rope)
+    dq2 = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                           rope=rope)
+    out2, lse2 = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, rope=rope)
+    for a, a2 in ((dq, dq2), (dk, dk2), (dv, dv2), (out, out2),
+                  (lse, lse2)):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rope_autograd_on_the_card_matches_cpu(dtype):
+    """``flash_attention_packed_rope`` end to end on the card (K10-fwd,
+    K3, K10-dkv, K10-dq) and on the CPU (plain versions), cached-prefill
+    shape (Lq 128 < Lk 256, causal)."""
+    dev = _card()
+    q, k, v, _ = _flash_inputs("cpu", dtype, 2, 256, 256, 4, 2, 128, 29)
+    q, do = q[:, 128:].contiguous(), torch.randn(
+        2, 128, 4 * 128, generator=torch.Generator().manual_seed(3)) \
+        .to(dtype)
+    ang = torch.rand(256, 128, generator=torch.Generator().manual_seed(4))
+    grads = []
+    for device in ("cpu", dev):
+        xs = [x.detach().to(device).requires_grad_(True) for x in (q, k, v)]
+        out = tfa.flash_attention_packed_rope(
+            *xs, ang.cos().to(device), ang.sin().to(device), 4, 2,
+            causal=True)
+        out.backward(do.to(device))
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for a, c in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.float(), c.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_rope_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    q = torch.zeros((1, 128, 4 * 64), device=dev)
+    k = torch.zeros((1, 128, 2 * 64), device=dev)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        kfa.flash_fwd(q, k, k, 4, 2, True, 1.0,
+                      rope=_rope_tables(dev, q.dtype, 128, 128, 64, 0))
+    q = torch.zeros((1, 128, 2 * 128), device=dev)
+    k = torch.zeros((1, 128, 128), device=dev)
+    rope = _rope_tables(dev, q.dtype, 128, 128, 128, 0)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no segment ids"):
+        kfa.flash_fwd(q, k, k, 2, 1, True, 1.0, seg, seg, rope=rope)
+    with pytest.raises(ValueError, match="qcos"):
+        kfa.flash_fwd(q, k, k, 2, 1, True, 1.0,
+                      rope=(rope[0].bfloat16(),) + rope[1:])
+    with pytest.raises(ValueError, match="kcos"):
+        kfa.flash_fwd(q, k, k, 2, 1, True, 1.0,
+                      rope=rope[:2] + (rope[2][:64],) + rope[3:])
 
 
 @pytest.mark.cuda

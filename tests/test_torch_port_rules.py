@@ -82,13 +82,20 @@ def test_training_kernels_take_no_cpu_tensors():
     q = torch.zeros((1, 128, 4 * 64))
     k = torch.zeros((1, 128, 2 * 64))
     st = torch.zeros((1, 4, 128))
+    rope = (torch.zeros((128, 128)),) * 4        # K10's tables, D 128
     for call in (lambda: kfa.flash_fwd(q, k, k, 4, 2, True, 1.0),
                  lambda: kfa.flash_delta(q, q, 4),
                  lambda: kfa.flash_bwd_dkv(q, k, k, q, st, st, 4, 2, True,
                                            1.0),
                  lambda: kfa.flash_bwd_dq(q, k, k, q, st, st, 4, 2, True,
                                           1.0),
-                 lambda: k6.rope(q, k, st[0], st[0], 4, 2)):
+                 lambda: k6.rope(q, k, st[0], st[0], 4, 2),
+                 lambda: kfa.flash_fwd(q, k, k, 2, 1, True, 1.0,
+                                       rope=rope),
+                 lambda: kfa.flash_bwd_dkv(q, k, k, q, st, st, 2, 1, True,
+                                           1.0, rope=rope),
+                 lambda: kfa.flash_bwd_dq(q, k, k, q, st, st, 2, 1, True,
+                                          1.0, rope=rope)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             call()
 
