@@ -9,15 +9,17 @@ Phases (any failure exits non-zero before the result line):
    kernels from ``paddle_tpu_torch/ops/csrc`` with ``nvcc`` (sm_90a).
 2. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes, for bf16 and int8 caches (the int8 rows'
-   written codes and scales bitwise): K8 paged decode attention (B 8,
-   Hkv 4, G 4,
-   D 128, C 256, lmax 2048, bf16 pool; dense and paged, T 1 and 4, mixed
-   lengths with a parked slot, a shuffled table with sentinels;
-   ``atol=rtol=1e-4`` on the f32 output) and K9 fused prefill (T 256,
-   offsets 0/256/768/1792, dense and paged, a sentinel destination;
-   output within 2 bf16 ulps, the cache BITWISE equal after the append).
-   Each kernel's time (CUDA events, after warm-up, rotating over four
-   layers' caches so the 50 MB L2 does not hold them), its plain
+   written codes and scales bitwise): K8, the split-K paged decode
+   attention (B 8, Hkv 4, G 4, D 128, C 256, lmax 2048, bf16 pool; dense
+   and paged, T 1 and 4, mixed lengths with a parked slot, a shuffled
+   table with sentinels, and a batch with a row on every block and span
+   edge; ``atol=rtol=1e-4`` on the f32 output, one launch a call, two
+   launches bitwise equal) and K9 fused prefill through its tensor-core
+   instance (T 256, offsets 0/256/768/1792, dense and paged, a sentinel
+   destination; output within 2 bf16 ulps or 1e-6, the cache BITWISE
+   equal after the append).  Each kernel's time (CUDA events, after
+   warm-up, rotating over four layers' caches so the 50 MB L2 does not
+   hold them), its device time per launch (the profiler), its plain
    version's, one PyTorch library call's (scaled_dot_product_attention on
    a dense cache, a yardstick the port never calls) and its bound.
 3. Serving at full width: the serving bench model (vocab 32000, hidden
@@ -28,7 +30,10 @@ Phases (any failure exits non-zero before the result line):
    three times: bf16 KV, int8 KV (``bench.py`` A/B 9's configuration)
    and int8 weights, each with its token drift against the bf16 streams.
    The kernels' launch counters are set to 0 just before each run and
-   read just after; the plain versions must not run.
+   read just after; the plain versions must not run, the bf16- and
+   int8-KV runs must launch K8 7280 and K9 640 times, and every K9 launch
+   must take its tensor-core instance.  The profiled decode window gives
+   K8's device µs a decode step.
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions), with float KV,
    int8 KV, int8 weights, and both: the streams match token for token
@@ -38,7 +43,8 @@ Phases (any failure exits non-zero before the result line):
    training shape (B 16, L 2048, H 16, Hkv 4, D 128, bf16, causal): K1/K2
    forward (out, lse), K3 delta, K4 dK/dV, K5 dQ, K6 RoPE (forward and
    inverse, bitwise); the forward, delta and dQ again at the long-context
-   shape (B 1, L 16384), the flash kernels once at head_dim 64.  Each
+   shape (B 1, L 16384: K2 and K5's streamed dQ, timed there with their
+   bounds), the flash kernels once at head_dim 64.  Each
    kernel's time, its plain version's, its bound and the library
    yardstick (scaled_dot_product_attention forward; its backward stands
    for K3+K4+K5 together).  The loss chunk's bf16 logits GEMM with an f32
@@ -145,6 +151,27 @@ def time_ms(torch, fn, iters, warm=3):
     return a.elapsed_time(b) / iters
 
 
+def device_ms(torch, fn, key, iters=50):
+    """Mean device time per launch (ms) of the kernels whose profiler name
+    holds ``key``, over ``iters`` calls of ``fn(i)`` under
+    ``torch.profiler`` after 3 warm-up calls (the kernel alone, where
+    ``time_ms`` also sees the host's launch cost); None if the profiler
+    recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key)
+    return us / iters / 1e3 if us else None
+
+
 def bound(nbytes, flops):
     t_b = nbytes / H100_BYTES_PER_S
     t_f = flops / H100_BF16_FLOPS
@@ -229,10 +256,26 @@ def phase_kernels(torch, dev):
                   flush=True)
             check(ok, f"K8 disagrees with its plain version "
                       f"(paged={paged}, T={t})")
-    # time the main-path shape: paged, T = 1
+    # the main-path shape (paged, T = 1): one launch a call, bitwise the
+    # same run to run (the split-K merge runs in span order)
     qg = rnd(B, HKV, G, 1, D)
+    n0 = k8.launches
+    o1 = k8.paged_decode_attention(qg, *pools[0], lengths, scale, C, tbl,
+                                   impl="cuda")
+    o2 = k8.paged_decode_attention(qg, *pools[0], lengths, scale, C, tbl,
+                                   impl="cuda")
+    torch.cuda.synchronize()
+    check(k8.launches == n0 + 2, "K8 made more than one launch a call")
+    check(torch.equal(o1, o2), "K8 differs from itself run to run")
+    print("K8 paged T=1: one launch a call, bitwise equal run to run, ok",
+          flush=True)
+    err8 = max(err8, k8_edges(torch, dev, gen, "K8", lambda shape: rnd(
+        *shape, dtype=torch.bfloat16)))
     ms8 = time_ms(torch, lambda i: k8.paged_decode_attention(
         qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"), 200)
+    dev8 = device_ms(torch, lambda i: k8.paged_decode_attention(
+        qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"),
+        "paged_decode_kernel")
     plain8 = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
         qg, *pools[i % ROT], lengths, scale, C, tbl), 10, warm=1)
     # library yardstick: SDPA over the dense cache at the same lengths
@@ -249,8 +292,8 @@ def phase_kernels(torch, dev):
     flops = sum(4 * HKV * G * D * r for r in rows)
     b_ms, b_by = bound(kv_bytes + io_bytes, flops)
     res["paged_decode_attention"] = dict(
-        max_abs_err=err8, ms=ms8, plain_ms=plain8, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib8)
+        max_abs_err=err8, ms=ms8, device_ms=dev8, plain_ms=plain8,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib8)
 
     # ---- K9: offsets 0/256/768/1792, dense and paged, a sentinel dest
     T = 256
@@ -268,11 +311,14 @@ def phase_kernels(torch, dev):
             kn = rnd(1, T, HKV, D, dtype=torch.bfloat16)
             vn = rnd(1, T, HKV, D, dtype=torch.bfloat16)
             k2, v2 = kc.clone(), vc.clone()
+            n_mma = k9.launches_mma
             o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, slot, off,
                                             scale, C, tr, impl="cuda")
             o2, _, _ = k9.prefill_attention_reference(
                 q, kn, vn, k2, v2, slot, off, scale, C, tr)
             torch.cuda.synchronize()
+            check(k9.launches_mma == n_mma + 1,
+                  "K9 bf16 did not take its tensor-core instance")
             check(torch.equal(kc, k2) and torch.equal(vc, v2),
                   f"K9 cache differs from the plain append (paged={paged}, "
                   f"offset={off})")
@@ -301,6 +347,9 @@ def phase_kernels(torch, dev):
     ms9 = time_ms(torch, lambda i: k9.prefill_attention(
         q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow,
         impl="cuda"), 200)
+    dev9 = device_ms(torch, lambda i: k9.prefill_attention(
+        q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow,
+        impl="cuda"), "prefill_mma_kernel")
     plain9 = time_ms(torch, lambda i: k9.prefill_attention_reference(
         q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow), 10, warm=1)
     qs = q.transpose(1, 2)
@@ -317,15 +366,66 @@ def phase_kernels(torch, dev):
     fl9 = 4 * HKV * G * D * (T * off + T * (T + 1) // 2)
     b_ms, b_by = bound(io9, fl9)
     res["prefill_attention"] = dict(
-        max_abs_err=err9, ms=ms9, plain_ms=plain9, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib9, max_ulps=ulp9)
+        max_abs_err=err9, ms=ms9, device_ms=dev9, plain_ms=plain9,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib9, max_ulps=ulp9)
     res.update(phase_kernels_int8(torch, dev, gen, lib8, lib9))
     for name, r in res.items():
-        print(f"{name}: {r['ms'] * 1e3:.1f} us/launch, plain "
-              f"{r['plain_ms'] * 1e3:.1f} us, library "
+        dev = ("not measured" if r["device_ms"] is None
+               else f"{r['device_ms'] * 1e3:.1f} us")
+        print(f"{name}: {r['ms'] * 1e3:.1f} us/launch (device {dev}), "
+              f"plain {r['plain_ms'] * 1e3:.1f} us, library "
               f"{r['library_ms'] * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})", flush=True)
     return res
+
+
+def k8_edges(torch, dev, gen, tag, make):
+    """K8 at the serving widths (Hkv 4, G 4, D 128, C 256, lmax 2048) with
+    one batch row on every edge of its pool blocks and of its spans of S
+    keys (0, 1, S-1, S, S+1, C-1, C, C+1, 2C-1, lmax-1), one parked at
+    lmax and one past it; dense and paged (sentinels past each row's
+    blocks), T 1 and 4: live rows within atol=rtol=1e-4 of the plain
+    version, two launches bitwise equal.  ``make(shape)`` makes a cache
+    leaf (a tensor or an int8 pair).  Returns the largest absolute
+    error."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+
+    HKV, G, D, C, W = 4, 4, 128, 256, 8
+    LMAX = C * W
+    S = k8._SPLIT
+    lens = sorted({0, 1, S - 1, S, S + 1, C - 1, C, C + 1, 2 * C - 1,
+                   LMAX - 1}) + [LMAX, LMAX + 5]
+    B, N = len(lens), len(lens) * W
+    pool, dense = ((make((N, C, HKV, D)), make((N, C, HKV, D))),
+                   (make((B, LMAX, HKV, D)), make((B, LMAX, HKV, D))))
+    perm = torch.randperm(N, generator=gen, device=dev).cpu()
+    table = torch.full((B, W), N, dtype=torch.int32)
+    for b, n in enumerate(lens[:-2]):
+        used = min(-(-(n + 4) // C), W)
+        table[b, :used] = perm[b * W:b * W + used]
+    tbl = table.to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = slice(0, B - 2)
+    err = 0.0
+    for paged in (False, True):
+        for t in (1, 4):
+            kc, vc = pool if paged else dense
+            tb = tbl if paged else None
+            qg = torch.randn(B, HKV, G, t, D, generator=gen, device=dev)
+            out = k8.paged_decode_attention(qg, kc, vc, lengths, D ** -0.5,
+                                            C, tb, impl="cuda")
+            again = k8.paged_decode_attention(qg, kc, vc, lengths,
+                                              D ** -0.5, C, tb, impl="cuda")
+            ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                                      D ** -0.5, C, tb)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"{tag} output not finite")
+            check(torch.equal(out, again), f"{tag} differs from itself run "
+                  "to run at the split edges")
+            err = max(err, check_f32(
+                f"{tag} split edges {'paged' if paged else 'dense'} T={t} "
+                "(bitwise run to run)", out[live], ref[live], 1e-4, 1e-4))
+    return err
 
 
 def phase_kernels_int8(torch, dev, gen, lib8, lib9):
@@ -384,9 +484,14 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
             err8 = max(err8, check_f32(
                 f"K8-int8 {'paged' if paged else 'dense'} T={t}", out[live],
                 ref[live], 1e-4, 1e-4))
+    err8 = max(err8, k8_edges(torch, dev, gen, "K8-int8", lambda shape: q8(
+        *shape)))
     qg = rnd(B, HKV, G, 1, D)
     ms8 = time_ms(torch, lambda i: k8.paged_decode_attention(
         qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"), 200)
+    dev8 = device_ms(torch, lambda i: k8.paged_decode_attention(
+        qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"),
+        "paged_decode_kernel")
     plain8 = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
         qg, *pools[i % ROT], lengths, scale, C, tbl), 10, warm=1)
     rows = [int(x) + 1 for x in lens[:-1]]
@@ -395,8 +500,8 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
     flops = sum(4 * HKV * G * D * r for r in rows)
     b_ms, b_by = bound(kv_bytes + io_bytes, flops)
     res["paged_decode_attention_int8"] = dict(
-        max_abs_err=err8, ms=ms8, plain_ms=plain8, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib8)
+        max_abs_err=err8, ms=ms8, device_ms=dev8, plain_ms=plain8,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib8)
 
     T = 256
     err9 = 0.0
@@ -414,11 +519,14 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
             vn = rnd(1, T, HKV, D, dtype=torch.bfloat16)
             k2 = tuple(x.clone() for x in kc)
             v2 = tuple(x.clone() for x in vc)
+            n_mma = k9.launches_mma
             o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, slot, off,
                                             scale, C, tr, impl="cuda")
             o2, _, _ = k9.prefill_attention_reference(
                 q, kn, vn, k2, v2, slot, off, scale, C, tr)
             torch.cuda.synchronize()
+            check(k9.launches_mma == n_mma + 1,
+                  "K9-int8 did not take its tensor-core instance")
             same = all(torch.equal(a, b) for a, b in zip(kc + vc, k2 + v2))
             where = f"paged={paged}, offset={off}"
             check(same, f"K9-int8 cache differs from the plain append "
@@ -454,6 +562,9 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
     ms9 = time_ms(torch, lambda i: k9.prefill_attention(
         q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow,
         impl="cuda"), 200)
+    dev9 = device_ms(torch, lambda i: k9.prefill_attention(
+        q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow,
+        impl="cuda"), "prefill_mma_kernel")
     plain9 = time_ms(torch, lambda i: k9.prefill_attention_reference(
         q, kn, vn, *pools[i % ROT], slot, off, scale, C, trow), 10, warm=1)
     row8 = HKV * (D + 2)                      # int8 bytes per token per K/V
@@ -464,8 +575,8 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
     fl9 = 4 * HKV * G * D * (T * off + T * (T + 1) // 2)
     b_ms, b_by = bound(io9, fl9)
     res["prefill_attention_int8"] = dict(
-        max_abs_err=err9, ms=ms9, plain_ms=plain9, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib9)
+        max_abs_err=err9, ms=ms9, device_ms=dev9, plain_ms=plain9,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib9)
     del pools, denses
     torch.cuda.empty_cache()
     return res
@@ -494,6 +605,11 @@ def serving_workload(seed=0, n=16):
     prompts[-1] = np.concatenate([shared, rng.integers(0, vocab, 200)])
     return prompts, [int(o) for o in olens]
 
+
+#: the kernel launches the bf16- and int8-KV serving runs of this workload
+#: make (16 layers x 455 decode steps and x 40 prefill chunks), every K9
+#: launch through its tensor-core instance (bf16 queries)
+SERVE_LAUNCHES = dict(k8=7280, k9=640, k9_mma=640)
 
 #: the serving cell's runs: bf16 (the model's dtype), then the reference's
 #: own int8 configuration (bench.py A/B 9: int8 KV on the paged pool),
@@ -559,13 +675,14 @@ def serve_run(torch, model, prompts, olens, tag, knobs):
     eng = ServingEngine(model, **ENGINE, **knobs, registry=reg)
     torch.cuda.synchronize()
     k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
+    k9.launches_mma = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts, olens)]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(k8=k8.launches, k9=k9.launches, k8_plain=k8.plain_runs,
-                  k9_plain=k9.plain_runs)
+    counts = dict(k8=k8.launches, k9=k9.launches, k9_mma=k9.launches_mma,
+                  k8_plain=k8.plain_runs, k9_plain=k9.plain_runs)
     for r, o in zip(reqs, olens):
         check(r.status == "done" and len(r.output_ids) == o,
               f"{tag}: request {r.rid} finished {r.status} with "
@@ -574,6 +691,11 @@ def serve_run(torch, model, prompts, olens, tag, knobs):
           f"{tag}: a kernel did not run on the main path: {counts}")
     check(counts["k8_plain"] == 0 and counts["k9_plain"] == 0,
           f"{tag}: a plain version ran on the card: {counts}")
+    check(counts["k9_mma"] == counts["k9"],
+          f"{tag}: K9 left its tensor-core instance: {counts}")
+    if "weight_dtype" not in knobs:
+        check(all(counts[k] == n for k, n in SERVE_LAUNCHES.items()),
+              f"{tag}: launches {counts}, expected {SERVE_LAUNCHES}")
     st = eng.stats()
     check(st["prefix_reuse_tokens"] > 0, f"{tag}: no prefix reuse: {st}")
     lbl = dict(policy="continuous")
@@ -596,7 +718,8 @@ def serve_run(torch, model, prompts, olens, tag, knobs):
                     for q in (50, 95)}
     for fam in ("serving_hbm_gb_per_tok_q8", "serving_hbm_gb_per_tok_w8"):
         out[fam] = reg.get(fam).labels(**lbl).value
-    out["device_busy"] = profile_decode(torch, model, prompts, tag, knobs)
+    out["device_busy"], out["k8_us_per_decode_step"] = profile_decode(
+        torch, model, prompts, tag, knobs)
     print(f"serving {tag} " + json.dumps(out), flush=True)
     toks = [list(r.output_ids) for r in reqs]
     del eng
@@ -609,7 +732,8 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
     steps of 8 live slots (prefills done first) timed without the
     profiler, then ``n_steps`` more under ``torch.profiler``: device time
     by kernel (device-side events only) and its share of the unprofiled
-    wall (the device-busy share, returned; None if not measured)."""
+    wall.  Returns the device-busy share and K8's device µs a decode step
+    (both None if not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -643,7 +767,7 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
     if not total:
         print(f"profile {tag}: the profiler recorded no device time (not "
               "measured)", flush=True)
-        return None
+        return None, None
     print(f"profile {tag} decode window: {n_steps} steps, wall "
           f"{wall_us / n_steps:.1f} us/step unprofiled, device "
           f"{total / n_steps:.1f} us/step, device busy "
@@ -652,7 +776,11 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
         print(f"profile {tag}: {us / n_steps:9.1f} us/step "
               f"{count / n_steps:6.1f} launches/step  {key[:80]}",
               flush=True)
-    return total / wall_us
+    k8_us = sum(us for us, key, _ in rows if "paged_decode_kernel" in key)
+    print(f"profile {tag}: K8 {k8_us / n_steps:.1f} us of "
+          f"{total / n_steps:.1f} us device time a decode step "
+          f"({k8_us / total:.3f})", flush=True)
+    return total / wall_us, k8_us / n_steps
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1028,8 +1156,46 @@ def phase_train_kernels(torch, dev):
     res["dkv"]["library_covers"] = "K3+K4+K5 (SDPA backward)"
     del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
+    res["fwd"]["long"], res["dq"]["long"] = time_long(torch, dev, gen)
     res["adamw"] = phase_adamw_kernel(torch, dev, gen)
     return res
+
+
+def time_long(torch, dev, gen):
+    """K2 (the forward at the streamed shape) and K5's streamed dQ at the
+    long-context shape (B 1, L 16384, H 16/4, D 128, causal, bf16): µs a
+    launch, bounds (4·D and 6·D operations per visible pair, or the
+    bytes) and SDPA's forward as the yardstick.  Their values are held to
+    the plain versions in ``check_flash``."""
+    from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+
+    B, L, H, HKV, D = (FLASH_LONG[k] for k in ("B", "L", "H", "HKV", "D"))
+    q, k, v, do = flash_case(torch, dev, gen, B, L, H, HKV, D)
+    sc = D ** -0.5
+    out, lse = kfa.flash_fwd(q, k, v, H, HKV, True, sc)
+    delta = kfa.flash_delta(do, out, H)
+    ms_fwd = time_ms(torch, lambda i: kfa.flash_fwd(q, k, v, H, HKV, True,
+                                                    sc), 5)
+    ms_dq = time_ms(torch, lambda i: kfa.flash_bwd_dq(
+        q, k, v, do, lse, delta, H, HKV, True, sc), 5)
+    F = torch.nn.functional
+    q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 5)
+    pairs = B * H * causal_pairs(L, L)
+    qb, kb, stat = B * L * H * D * 2, B * L * HKV * D * 2, B * H * L * 4
+    b_fwd = bound(qb + 2 * kb + qb + stat, 4 * D * pairs)
+    b_dq = bound(2 * qb + 2 * kb + 2 * stat + qb, 6 * D * pairs)
+    print(f"K2 forward L 16384: {ms_fwd * 1e3:.1f} us/launch, library "
+          f"{lib * 1e3:.1f} us, bound {b_fwd[0] * 1e3:.2f} us ({b_fwd[1]});"
+          f" K5 streamed dQ: {ms_dq * 1e3:.1f} us/launch, bound "
+          f"{b_dq[0] * 1e3:.2f} us ({b_dq[1]})", flush=True)
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return (dict(ms=ms_fwd, bound_ms=b_fwd[0], bound_by=b_fwd[1],
+                 library_ms=lib),
+            dict(ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
+                 library_ms=None))
 
 
 def bench_param_shapes():
@@ -1889,7 +2055,7 @@ def profile_step(torch, fn, wall_ms, tag, show=15):
     if not total:
         print(f"profile {tag}: the profiler recorded no device time (not "
               "measured)", flush=True)
-        return None, rows
+        return None, None, rows
     print(f"profile {tag}: wall {wall_ms:.1f} ms unprofiled, device "
           f"{total / 1e3:.1f} ms, device busy "
           f"{total / 1e3 / wall_ms:.3f}", flush=True)
@@ -2114,19 +2280,23 @@ def main():
         dict(name="paged_decode_attention", route="cuda",
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
-             launches=bf16["k8"], **kern["paged_decode_attention"]),
+             launches=bf16["k8"], **kern["paged_decode_attention"],
+             us_per_decode_step=serving["bf16"]["k8_us_per_decode_step"]),
         dict(name="prefill_attention", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",
-             launches=bf16["k9"], **kern["prefill_attention"]),
+             launches=bf16["k9"], launches_mma=bf16["k9_mma"],
+             **kern["prefill_attention"]),
         dict(name="paged_decode_attention_int8", route="cuda",
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
-             launches=kv8["k8"], **kern["paged_decode_attention_int8"]),
+             launches=kv8["k8"], **kern["paged_decode_attention_int8"],
+             us_per_decode_step=serving["kv8"]["k8_us_per_decode_step"]),
         dict(name="prefill_attention_int8", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",
-             launches=kv8["k9"], **kern["prefill_attention_int8"]),
+             launches=kv8["k9"], launches_mma=kv8["k9_mma"],
+             **kern["prefill_attention_int8"]),
         dict(name="fused_adamw_q8", route="cuda",
              source=f"{csrc}/fused_adamw.cu",
              replaces="paddle_tpu/ops/fused_adamw.py:169",

@@ -1,10 +1,12 @@
-// Shared pieces of the port's two attention kernels (K8 paged decode,
-// K9 fused chunked prefill): a block of 256 threads holds up to 16 query
-// rows of one kv head in shared memory and folds the keys into an f32
-// online softmax, 32 keys at a time — one warp lane per key for the
-// scores and the row max/sum, one thread per (row, dim) pair of the
-// accumulator, which lives in registers.  Keys and values arrive in
-// shared memory as f32 whatever the cache stores: float caches widen,
+// Shared pieces of the port's two serving attention kernels (K8 paged
+// decode, K9 fused chunked prefill).
+//
+// The CUDA-core tile of K9's float instances: a block of 256 threads
+// holds up to 16 query rows of one kv head in shared memory and folds the
+// keys into an f32 online softmax, 32 keys at a time — one warp lane per
+// key for the scores and the row max/sum, one thread per (row, dim) pair
+// of the accumulator, which lives in registers.  Keys and values arrive
+// in shared memory as f32 whatever the cache stores: float caches widen,
 // int8 caches dequantize (code * f16 scale, exact in f32).
 //
 // The recurrence is the reference's (paddle_tpu/ops/decode_attention.py
@@ -14,6 +16,9 @@
 // rescaled by exp(m_old - m_new), final division by max(l, 1e-30).  Only
 // the summation order differs (32-key sub-tiles instead of whole
 // chunks), which moves results by float reassociation only.
+//
+// Beside it: the int8 row quantizer both kernels share (q8_row) and the
+// cp.async helpers of their shared-memory rings.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +41,23 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// 16 bytes from device memory into shared memory without a register
+// round trip (both addresses 16-byte aligned); the copies a thread issued
+// are grouped by cp_async_commit and waited for by cp_async_wait<N>,
+// which returns once at most N of the thread's groups are in flight
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Shared-memory carve-up of one block, all f32:
 //   q    [kRows][D]      the block's query rows
@@ -109,19 +131,21 @@ __device__ __forceinline__ void load_rows_q8(float* dst, int ld,
   }
 }
 
-// The reference's _q8_quantize of one row of D <= kMaxD f32 values, by one
-// warp (lane holds d = lane + 32 j): scale = f16(amax * f32(1/127)) —
+// The reference's _q8_quantize of one row of D <= kMaxD values (f32, or
+// bf16 widened exactly), by one warp (lane holds d = lane + 32 j):
+// scale = f16(amax * f32(1/127)) —
 // what XLA compiles the reference's amax / 127 into — and the codes
 // clip(rint(x * (1 / max(f32(scale), 1e-8))), +-127), each operation
 // rounded once, to nearest even.  Returns the scale; q[j] holds the code
 // of d = lane + 32 j as a float (0 past D).
-__device__ __forceinline__ __half q8_row(const float* x, int D, int lane,
+template <typename X>
+__device__ __forceinline__ __half q8_row(const X* x, int D, int lane,
                                          float (&q)[kMaxD / 32]) {
   float amax = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxD / 32; ++j) {
     const int d = lane + 32 * j;
-    q[j] = d < D ? x[d] : 0.f;
+    q[j] = d < D ? to_f32(x[d]) : 0.f;
     amax = fmaxf(amax, fabsf(q[j]));
   }
 #pragma unroll

@@ -7,7 +7,11 @@ at :259, kernel body ``_fused_kernel`` :118) for float caches and, with
 ``quant=True`` (:160-163), for int8 caches: a ``(data int8, scale f16)``
 pair per K and V, dequantized in the kernel as ``code * f32(scale)``.
 The kernel source is ``csrc/paged_decode_attention.cu``; its note says
-what bounds it on the card and how the design answers that.
+what bounds it on the card and how the design answers that: a split-K
+launch over spans of ``_SPLIT`` keys whose partials the last CTA of each
+row group merges, in one launch.  The partials' workspace and the
+merge's tickets live in a buffer cached per device and size
+(``workspace``), allocated once — no memset, nothing per call.
 
 ``paged_decode_attention`` is the one entry: on CPU tensors it runs the
 plain version (``ops/decode_attention._attend_read``, the reference's
@@ -33,6 +37,10 @@ plain_runs = 0
 
 _KEYS = 32          # keys per kernel sub-tile (one warp lane per key)
 _MAX_D = 256        # head_dim the kernel's register accumulator covers
+_SPLIT = 64         # keys a CTA folds (the fastest span measured on the card)
+_ROWS = 16          # query rows a CTA holds
+#: head_dims with a 16-byte-load instance of the kernel
+_VEC_D = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 
@@ -73,6 +81,42 @@ def cache_operands(k_cache, v_cache, where):
 
 def _ptr(x):
     return x.data_ptr() if x is not None else None
+
+
+def _aligned(*xs):
+    """Whether every tensor given (None skipped) starts on 16 bytes."""
+    return all(x.data_ptr() % 16 == 0 for x in xs if x is not None)
+
+
+def workspace_numel(b, hkv, rows, d, lmax):
+    """``(partial rows, tickets)`` the split-K merge needs for ``b`` batch
+    rows, ``hkv`` kv heads, ``rows = G * T`` query rows over a span of
+    ``lmax`` keys: each of the ``ceil(lmax / _SPLIT)`` spans of a (row,
+    head) keeps ``rows`` partial rows (``acc [d]`` and ``(m, l)`` in f32);
+    one int32 ticket per group of ``_ROWS`` query rows."""
+    spans = -(-lmax // _SPLIT)
+    return b * hkv * spans * rows, b * hkv * -(-rows // _ROWS)
+
+
+#: (device, partial rows, d, tickets) -> (acc, ml, tickets)
+_WORKSPACES = {}
+
+
+def workspace(dev, n_rows, d, n_tickets):
+    """The cached workspace of a split-K merge: ``acc`` f32
+    ``[n_rows * d]``, ``ml`` f32 ``[n_rows * 2]`` and ``n_tickets`` int32
+    tickets at 0.  The kernels leave the tickets at 0 and write every
+    partial before they read it, so one buffer serves every later launch
+    of either kernel on the same stream (and keeps its address, as a
+    captured CUDA graph needs)."""
+    key = (dev, n_rows, d, n_tickets)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        buf = torch.empty(n_rows * (d + 2), dtype=torch.float32, device=dev)
+        ws = (buf[:n_rows * d], buf[n_rows * d:],
+              torch.zeros(n_tickets, dtype=torch.int32, device=dev))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def fused_decode_supported(chunk_size, lmax, head_dim):
@@ -175,14 +219,19 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
     c = int(chunk_size)
     n_chunks = lmax // c
     out = torch.empty((b, hkv, g, t, d), dtype=torch.float32, device=dev)
+    n_rows, n_tickets = workspace_numel(b, hkv, g * t, d, lmax)
+    ws_acc, ws_ml, tickets = workspace(dev, n_rows, d, n_tickets)
+    vec = d in _VEC_D and _aligned(kd, vd)
     lib = _build.load("paged_decode_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_decode_attention(
             code, qg.data_ptr(), kd.data_ptr(), vd.data_ptr(), _ptr(ks),
             _ptr(vs), _ptr(block_table),
-            lengths.data_ptr(), out.data_ptr(), b, hkv, g, t, d, c, n_chunks,
-            lmax, n_blocks, float(scale), stream)
+            lengths.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
+            ws_ml.data_ptr(), tickets.data_ptr(), b, hkv, g, t, d, c,
+            n_chunks, lmax, n_blocks, _SPLIT, int(vec), float(scale),
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_decode_attention: kernel launch failed with CUDA error "

@@ -19,6 +19,15 @@ rows ROUNDED TO THE CACHE DTYPE (the reference reads them back from the
 cache after its scatter).  ``launches`` / ``plain_runs`` count the two
 paths.
 
+The kernel has two instances, picked by ``prefill_instance`` from the
+dtypes and head_dim alone: ``"mma"`` — bf16 queries over a bf16 cache
+(or an int8 cache fed bf16 rows) at head_dim 64/128, both products on
+the tensor cores, q read and the output written in their own ``[1, T,
+H, D]`` layout — and ``"simt"``, the CUDA-core template, for every other
+combination (f32/f16 queries or caches, other head_dims).
+``launches_mma`` counts the tensor-core instance's launches among
+``launches``.
+
 Alignment contract (as in the reference): ``offset`` is a multiple of
 the chunk width ``T`` — the engine's chunk walker guarantees it, and the
 wrapper checks it.
@@ -28,18 +37,48 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.device import resolve_impl
-from paddle_tpu_torch.ops.paged_attention_cuda import _ptr, cache_operands
+from paddle_tpu_torch.ops.paged_attention_cuda import (
+    _aligned, _ptr, cache_operands, workspace)
 
 __all__ = ["fused_prefill_supported", "prefill_attention",
-           "prefill_attention_reference"]
+           "prefill_attention_reference", "prefill_instance"]
 
-#: kernel launches made by ``prefill_attention``
+#: kernel launches made by ``prefill_attention`` (both instances)
 launches = 0
+#: of which the tensor-core instance
+launches_mma = 0
 #: runs of the plain version
 plain_runs = 0
 
 _KEYS = 32
 _MAX_D = 256
+#: head_dims of the tensor-core instance
+_MMA_D = (64, 128)
+_MMA_ROWS = 64      # query rows a CTA of the tensor-core instance holds
+_MMA_SPLITS = 2     # CTAs that share a row tile's keys
+
+
+def mma_workspace_numel(hkv, rows, d):
+    """``(partial rows, tickets)`` the tensor-core instance's merge needs
+    for ``hkv`` kv heads of ``rows = G * T`` query rows: each of the
+    ``_MMA_SPLITS`` CTAs on a 64-row tile keeps 64 partial rows (``acc
+    [d]`` and ``(m, l)`` in f32); one int32 ticket per tile."""
+    tiles = hkv * -(-rows // _MMA_ROWS)
+    return tiles * _MMA_SPLITS * _MMA_ROWS, tiles
+
+
+def prefill_instance(q_dtype, new_dtype, cache_dtype, head_dim):
+    """The kernel instance for these dtypes and head_dim: ``"mma"`` (the
+    tensor cores) for bf16 queries at head_dim 64/128 over a bf16 cache,
+    or over an int8 cache whose new rows arrive in bf16 (the instance
+    quantizes them from bf16); ``"simt"`` (the CUDA cores) otherwise."""
+    if q_dtype != torch.bfloat16 or head_dim not in _MMA_D:
+        return "simt"
+    if cache_dtype == torch.bfloat16:
+        return "mma"
+    if cache_dtype == torch.int8 and new_dtype == torch.bfloat16:
+        return "mma"
+    return "simt"
 
 
 def fused_prefill_supported(chunk_size, lmax, t, paged, head_dim):
@@ -101,7 +140,7 @@ def prefill_attention(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
 
 def _launch(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
             chunk_size, block_table):
-    global launches
+    global launches, launches_mma
     from paddle_tpu_torch.ops import _build
 
     if q.dim() != 4 or q.shape[0] != 1:
@@ -155,29 +194,57 @@ def _launch(q, k_new, v_new, k_cache, v_cache, slot, offset, scale,
         raise ValueError(f"prefill_attention: offset ({offset}) is past the "
                          f"cache span ({span})")
     c = int(chunk_size)
-    # [1, T, H, D] -> [Hkv, G*T, D]: row g*T + t of kv head k is query
-    # head k*G + g at chunk token t (the reference kernel's layout)
-    q2 = q.reshape(t, hkv, g, d).permute(1, 2, 0, 3).reshape(hkv, g * t, d) \
-        .float().contiguous()
-    # the new rows are rounded to the cache dtype BEFORE attention, as the
-    # reference reads them back from the cache after its scatter; an int8
-    # cache takes them in f32 (exact) and quantizes them in the kernel
-    new_dt = torch.float32 if ks is not None else kd.dtype
-    kn = k_new.reshape(t, hkv, d).to(new_dt).contiguous()
-    vn = v_new.reshape(t, hkv, d).to(new_dt).contiguous()
-    out = torch.empty((hkv, g * t, d), dtype=torch.float32, device=dev)
+    inst = prefill_instance(q.dtype, k_new.dtype, kd.dtype, d)
     lib = _build.load("prefill_attention")
+    if inst == "mma":
+        # q, k_new/v_new in their own layouts; the new rows rounded to
+        # the cache dtype first (a no-op for bf16 rows), as the reference
+        # reads them back from the cache after its scatter
+        qx = _aligned16(q.contiguous())
+        kn = _aligned16(k_new.to(torch.bfloat16).contiguous())
+        vn = _aligned16(v_new.to(torch.bfloat16).contiguous())
+        if not _aligned(kd, vd):
+            raise ValueError("prefill_attention: the caches must be "
+                             "16-byte aligned")
+        out = torch.empty_like(qx)
+        n_rows, n_tickets = mma_workspace_numel(hkv, g * t, d)
+        extra = tuple(x.data_ptr() for x in workspace(dev, n_rows, d,
+                                                      n_tickets))
+        fn = lib.prefill_attention_mma
+    else:
+        # [1, T, H, D] -> [Hkv, G*T, D]: row g*T + t of kv head k is
+        # query head k*G + g at chunk token t (the reference kernel's
+        # layout)
+        qx = q.reshape(t, hkv, g, d).permute(1, 2, 0, 3) \
+            .reshape(hkv, g * t, d).float().contiguous()
+        # the new rows are rounded to the cache dtype BEFORE attention, as
+        # the reference reads them back from the cache after its scatter;
+        # an int8 cache takes them in f32 (exact) and quantizes them in
+        # the kernel
+        new_dt = torch.float32 if ks is not None else kd.dtype
+        kn = k_new.reshape(t, hkv, d).to(new_dt).contiguous()
+        vn = v_new.reshape(t, hkv, d).to(new_dt).contiguous()
+        out = torch.empty((hkv, g * t, d), dtype=torch.float32, device=dev)
+        extra = ()
+        fn = lib.prefill_attention
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.prefill_attention(
-            code, q2.data_ptr(), kn.data_ptr(), vn.data_ptr(), kd.data_ptr(),
-            vd.data_ptr(), _ptr(ks), _ptr(vs), _ptr(block_table),
-            out.data_ptr(),
-            hkv, g, t, d, c, w, n_blocks, span, slot, offset, float(scale),
-            stream)
+        rc = fn(code, qx.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+                kd.data_ptr(), vd.data_ptr(), _ptr(ks), _ptr(vs),
+                _ptr(block_table), out.data_ptr(), *extra, hkv, g, t, d, c,
+                w, n_blocks, span, slot, offset, float(scale), stream)
     if rc != 0:
         raise RuntimeError(
             f"prefill_attention: kernel launch failed with CUDA error {rc}")
     launches += 1
+    if inst == "mma":
+        launches_mma += 1
+        return out, k_cache, v_cache
     out = out.reshape(hkv, g, t, d).permute(2, 0, 1, 3).reshape(1, t, h, d)
     return out.to(q.dtype), k_cache, v_cache
+
+
+def _aligned16(x):
+    """``x``, or a copy of it where its data does not start on 16 bytes
+    (the tensor-core instance's 16-byte loads)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()

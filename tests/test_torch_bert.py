@@ -324,6 +324,39 @@ def test_train_steps_match_build_train_step():
         pooler0.numpy() * np.float32(1 - LR * 0.01) ** 3, rtol=1e-6)
 
 
+def test_bf16_train_steps_match_build_train_step():
+    """Seven AdamW steps (lr 1e-4, weight decay 0.01) of the tiny BERT in
+    bf16 (the encoder; the heads stay f32 in both) with a padding mask:
+    the losses agree at every step within 2^-7 relative and fall by the
+    same amount within 5%.  Both packages round the encoder's activations
+    to bf16, at different points (XLA fuses elementwise chains, PyTorch
+    rounds after each op); one rounding moves a value by up to 2^-9
+    relative, and the logits of the unit-normal tied embedding carry it
+    into the loss: from identical weights step 0's losses differ by
+    1.3e-3 relative, and over the seven steps by at most 2.1e-3
+    (measured), with no growth from step to step."""
+    cfg = dict(TINY, dtype="bfloat16")
+    jm, tm = _pair(JMLM, tbert.BertForMaskedLM, cfg)
+    ids, _, mask, labels = _data(cfg, 2, 32, seed=4, lengths=[32, 20])
+    jnet, tnet = _jax_net(jm), _TorchNet(tm)
+    jstep = j_build(jnet, None, JAdamW(learning_rate=LR,
+                                       parameters=jnet.parameters(),
+                                       weight_decay=0.01))
+    tstep = build_train_step(tnet, None, AdamW(
+        learning_rate=LR, parameters=tnet.parameters(), weight_decay=0.01))
+    targs = [torch.from_numpy(x) for x in (ids, mask, labels)]
+    jargs = [paddle.to_tensor(x) for x in (ids, mask, labels)]
+    jls, tls = [], []
+    for i in range(7):
+        jls.append(float(np.asarray(jstep(*jargs).data)))
+        tls.append(float(tstep(*targs)))
+        assert abs(tls[-1] - jls[-1]) <= 2.0 ** -7 * abs(jls[-1]), (
+            i, tls, jls)
+    assert tm.bert.embeddings.word_embeddings.weight.dtype == torch.bfloat16
+    jdrop, tdrop = jls[0] - jls[-1], tls[0] - tls[-1]
+    assert jdrop > 0 and abs(tdrop - jdrop) <= 0.05 * jdrop, (tls, jls)
+
+
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_dropout_keeps_scales_and_is_identity_in_eval(p):
     x = torch.full((200, 500), 3.0)

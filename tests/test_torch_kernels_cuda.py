@@ -27,7 +27,12 @@ against their plain versions (K9's appended codes and scales bitwise,
 and equal to ``_q8_quantize``), and K7, the fused int8 AdamW, bitwise
 against its plain version for the dtypes the optimizer passes (bf16 and
 f32 parameters, bf16 and f32 gradients, with and without an f32
-master), whole and ragged blocks, aligned and not.
+master), whole and ragged blocks, aligned and not.  The split-K K8 at
+head_dim 128 with lengths on every pool-block and span edge (every cache
+dtype, dense and paged, T 1 and 4): one launch a call and bitwise equal
+run to run; K9's tensor-core instance (bf16 q over bf16 and int8 KV) at
+T 16-256 over chained offsets, its output within 2 bf16 ulps or 1e-6 of
+the plain version.
 """
 import pytest
 import torch
@@ -65,7 +70,7 @@ def _table(dev, gen):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("t", [1, 3, 9])     # 9: two groups of 16 rows
 def test_decode_kernel_matches_plain(dtype, paged, t):
     dev = _card()
     gen = torch.Generator().manual_seed(3)
@@ -672,3 +677,152 @@ def test_fused_adamw_kernel_unaligned_view():
     torch.cuda.synchronize()
     for k in ("p", "codes", "scales", "v"):
         assert torch.equal(views[k], b[k]), k
+
+
+# ------------------------------- the redesigned serving kernels (K8, K9)
+def _bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in units in the last
+    place (sign-magnitude bits mapped to ordered integers)."""
+    ia = a.contiguous().view(torch.int16).int()
+    ib = b.contiguous().view(torch.int16).int()
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return (ia - ib).abs()
+
+
+def _edge_lengths(c, lmax):
+    """Lengths on every edge of K8's pool blocks and of its 256-key spans,
+    then a slot parked at lmax and one past it."""
+    s = k8._SPLIT
+    live = sorted({0, 1, c - 1, c, c + 1, 2 * c - 1, s - 1, s, s + 1,
+                   lmax - 1})
+    return live + [lmax, lmax + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES + [torch.int8], ids=str)
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("c", [64, 256])
+@pytest.mark.parametrize("t", [1, 4])
+def test_decode_split_edges_match_plain_bitwise_run_to_run(dtype, paged, c,
+                                                           t):
+    """The split-K K8 at head_dim 128 with lengths on every block and
+    span edge, a parked slot at lmax and past it, sentinel entries past
+    each row's blocks: live rows within atol=rtol=1e-4 of the plain
+    version (summation order only), one launch a call, and two launches
+    bitwise equal (the merge runs in span order)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(23)
+    d, hkv, g, lmax = 128, 2, 2, 1024
+    lens = _edge_lengths(c, lmax)
+    b, w = len(lens), lmax // c
+    n = b * w
+    shape = (n, c, hkv, d) if paged else (b, lmax, hkv, d)
+    if dtype == torch.int8:
+        def leaf():
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    (0.001 + 0.05 * torch.rand(shape[:-1], generator=gen))
+                    .to(dev, torch.float16))
+        kc, vc = leaf(), leaf()
+    else:
+        kc = torch.randn(shape, generator=gen).to(dev, dtype)
+        vc = torch.randn(shape, generator=gen).to(dev, dtype)
+    table = None
+    if paged:
+        tbl = torch.full((b, w), n, dtype=torch.int32)
+        perm = torch.randperm(n, generator=gen).to(torch.int32)
+        for i, length in enumerate(lens):
+            if length < lmax:
+                used = min(-(-(length + t) // c), w)
+                tbl[i, :used] = perm[i * w:i * w + used]
+        table = tbl.to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qg = torch.randn(b, hkv, g, t, d, generator=gen).to(dev)
+    before = k8.launches
+    out = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, c,
+                                    table, impl="cuda")
+    out2 = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, c,
+                                     table, impl="cuda")
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                              d ** -0.5, c, table)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 2
+    live = torch.tensor([x < lmax for x in lens], device=dev)
+    torch.testing.assert_close(out[live], ref[live], atol=1e-4, rtol=1e-4)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("t", [16, 32, 64, 256])
+def test_prefill_mma_instance_matches_plain(kv, paged, t):
+    """K9's tensor-core instance (bf16 q, bf16 or int8 cache, head_dim
+    128) over chunks chained at offsets 0, T, 2T, ... (up to 8 chunks),
+    the caches carried along: each call launches the mma instance once;
+    the caches stay BITWISE the plain append's (int8 codes and f16 scales
+    included); the bf16 output within 2 bf16 ulps or 1e-6 of the plain
+    version (p = hi + lo keeps the reference's f32 p·v).  The paged
+    row's last block is unmapped, so the last chunks' writes drop."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(31)
+    d, hkv, g, c, lmax = 128, 2, 4, 64, 1024
+    w = lmax // c
+    shape = (w + 2, c, hkv, d) if paged else (3, lmax, hkv, d)
+    kc, vc = tda.init_kv_pool(*shape, dtype=kv, device=dev) if paged \
+        else tda.init_kv_cache(*shape, dtype=kv, device=dev)
+    trow = None
+    if paged:
+        trow = torch.randperm(w + 2, generator=gen)[:w].to(torch.int32)
+        trow[-1] = w + 2                     # a sentinel: the append drops
+        trow = trow.view(1, w).to(dev)
+
+    def clone(x):
+        return tuple(y.clone() for y in x) if isinstance(x, tuple) \
+            else x.clone()
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    k2, v2 = clone(kc), clone(vc)
+    for off in range(0, min(lmax, 8 * t), t):
+        q = torch.randn(1, t, hkv * g, d, generator=gen).to(dev,
+                                                            torch.bfloat16)
+        kn = torch.randn(1, t, hkv, d, generator=gen).to(dev, torch.bfloat16)
+        vn = (3 * torch.randn(1, t, hkv, d, generator=gen)).to(
+            dev, torch.bfloat16)
+        before = (k9.launches, k9.launches_mma)
+        o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, 1, off,
+                                        d ** -0.5, c, trow, impl="cuda")
+        o2, _, _ = k9.prefill_attention_reference(q, kn, vn, k2, v2, 1, off,
+                                                  d ** -0.5, c, trow)
+        torch.cuda.synchronize()
+        assert (k9.launches, k9.launches_mma) == (before[0] + 1,
+                                                  before[1] + 1)
+        assert equal(kc, k2) and equal(vc, v2), off
+        assert o1.dtype == torch.bfloat16 and o1.shape == q.shape
+        # where a block of the chunk is unmapped the plain version reads
+        # back rows the append dropped: compare the caches only
+        if trow is None or bool((trow[0, off // c:(off + t - 1) // c + 1]
+                                 < w + 2).all()):
+            near = (o1.float() - o2.float()).abs() <= 1e-6
+            assert ((_bf16_ulps(o1, o2) <= 2) | near).all(), off
+
+
+@pytest.mark.cuda
+def test_prefill_f32_queries_take_the_cuda_core_instance():
+    dev = _card()
+    gen = torch.Generator().manual_seed(37)
+    kc, vc = tda.init_kv_cache(2, 128, 1, 128, "bfloat16", device=dev)
+    q = torch.randn(1, 32, 2, 128, generator=gen).to(dev)
+    kn = torch.randn(1, 32, 1, 128, generator=gen).to(dev)
+    before = (k9.launches, k9.launches_mma)
+    out, _, _ = k9.prefill_attention(q, kn, kn, kc, vc, 0, 32, 128 ** -0.5,
+                                     32, impl="cuda")
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.launches_mma) == (before[0] + 1, before[1])
+    assert out.dtype == torch.float32
