@@ -109,6 +109,7 @@ The last lines are the ``kernels`` JSON, the card line and the result
 JSON ``{"ok": true, "device": {...}}``.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -170,6 +171,25 @@ def device_ms(torch, fn, key, iters=50):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and key in e.key)
     return us / iters / 1e3 if us else None
+
+
+def wgmma_ptxas(report):
+    """What ptxas said about the wgmma instances (``ptf::wg`` kernels) in
+    a library's build log: ``{"fwd_kernel<D=128, SEG=0, ROPE=0>":
+    "N bytes stack frame, ... | Used N registers, ..."}``."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for _ZN3ptf2wg\d+(\w+?)ILi(\d+)"
+                      r"ELb(\d)ELb(\d)E", line)
+        if m:
+            cur = f"{m[1]}<D={m[2]}, SEG={m[3]}, ROPE={m[4]}>"
+            out[cur] = []
+        elif cur and ("spill" in line or "registers" in line):
+            out[cur].append(line.replace("ptxas info    :", "").strip())
+            if "registers" in line:
+                out[cur] = " | ".join(out[cur])
+                cur = None
+    return out
 
 
 def bound(nbytes, flops):
@@ -1353,11 +1373,14 @@ def phase_seg_kernels(torch, dev):
     tolerances; the dead row holds the mean of V and the pad tail zeros.
     At the BERT shape the unsegmented K1, K3, K4 and K5 (what the
     unmasked run takes) are held the same way on the same inputs.  Times
-    at both shapes (at the BERT shape also the unsegmented instances':
-    what the switch costs); bounds count 4·D / 8·D / 6·D operations per
-    same-segment visible pair; the library yardstick (BERT shape only)
-    is scaled_dot_product_attention with the boolean [B, 1, 1, L] mask,
-    and its backward."""
+    at both shapes (at the BERT shape also the unsegmented instances',
+    with their bounds and SDPA's forward without a mask: what the switch
+    costs); bounds count 4·D / 8·D / 6·D operations per same-segment
+    visible pair (the unsegmented ones every pair); the library yardstick
+    is scaled_dot_product_attention with the boolean mask — [B, 1, 1, L]
+    key padding at the BERT shape, the block-diagonal causal [1, 1, L, L]
+    at the varlen shape (k and v widened to the query heads) — and its
+    backward."""
     from paddle_tpu_torch.ops import flash_attention as tfa
     from paddle_tpu_torch.ops import flash_attention_cuda as kfa
 
@@ -1447,6 +1470,26 @@ def phase_seg_kernels(torch, dev):
             dkv=plain_bwd, dq=plain_bwd)
         lib = dict(fwd=None, dkv=None, dq=None)
         unseg = dict(fwd=None, dkv=None, dq=None)
+        F = torch.nn.functional
+        if kind == "varlen":
+            # the library on the same work: SDPA with the block-diagonal
+            # causal boolean mask (k and v widened to the query heads
+            # first, outside the timing), forward and backward
+            q4 = q.view(B, L, H, D).transpose(1, 2)
+            k4, v4 = (x.view(B, L, HKV, D).transpose(1, 2)
+                      .repeat_interleave(H // HKV, 1) for x in (k, v))
+            pos = torch.arange(L, device=dev)
+            m4 = ((qseg[0][:, None] == kseg[0][None, :])
+                  & (pos[None, :] <= pos[:, None]))[None, None]
+            lib["fwd"] = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4), 3)
+            qg, kg, vg = (x.detach().requires_grad_(True)
+                          for x in (q4, k4, v4))
+            o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4)
+            do4 = do.view(B, L, H, D).transpose(1, 2)
+            lib["dkv"] = time_ms(torch, lambda i: torch.autograd.grad(
+                o4, (qg, kg, vg), do4, retain_graph=True), 3)
+            del o4, qg, kg, vg, q4, k4, v4, m4
         if kind == "bert":
             # the unsegmented instances on the same inputs (the bench's
             # own, unmasked, run takes them): right at this shape, and
@@ -1461,9 +1504,12 @@ def phase_seg_kernels(torch, dev):
                 dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
                     q, k, v, do, lse_u, delta_u, H, HKV, causal, sc), it))
             del o_u, lse_u, delta_u
-            F = torch.nn.functional
             q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2)
                           for x in (q, k, v))
+            # K1's yardstick at this shape: SDPA with no mask
+            unseg_lib = time_ms(torch, lambda i:
+                                F.scaled_dot_product_attention(q4, k4, v4),
+                                it)
             m4 = (kseg == 0)[:, None, None, :]
             lib["fwd"] = time_ms(torch, lambda i: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4), it)
@@ -1483,6 +1529,13 @@ def phase_seg_kernels(torch, dev):
                       8 * D * H * pairs),
             dq=bound(2 * qb + 2 * kb + 2 * stat + qb + segb,
                      6 * D * H * pairs))
+        # the unsegmented instances' bounds at the BERT shape: every pair
+        all_pairs = L * L
+        unseg_bounds = dict(
+            fwd=bound(qb + 2 * kb + qb + stat, 4 * D * H * all_pairs),
+            dkv=bound(2 * qb + 2 * kb + 2 * stat + 2 * kb,
+                      8 * D * H * all_pairs),
+            dq=bound(2 * qb + 2 * kb + 2 * stat + qb, 6 * D * H * all_pairs))
         res[kind] = {}
         for name in ("fwd", "dkv", "dq"):
             b_ms, b_by = bounds[name]
@@ -1492,15 +1545,21 @@ def phase_seg_kernels(torch, dev):
             libs = "—" if lib[name] is None else f"{lib[name] * 1e3:.1f} us"
             uns = ""
             if unseg[name] is not None:
-                res[kind][name]["unsegmented_ms"] = unseg[name]
-                uns = f", unsegmented {unseg[name] * 1e3:.1f} us"
+                ub_ms, ub_by = unseg_bounds[name]
+                res[kind][name].update(unsegmented_ms=unseg[name],
+                                       unsegmented_bound_ms=ub_ms,
+                                       unsegmented_bound_by=ub_by)
+                uns = (f", unsegmented {unseg[name] * 1e3:.1f} us (bound "
+                       f"{ub_ms * 1e3:.2f} us, {ub_by})")
+                if name == "fwd":
+                    res[kind][name]["unsegmented_library_ms"] = unseg_lib
+                    uns += f", SDPA without a mask {unseg_lib * 1e3:.1f} us"
             print(f"{name} {tag}: {ms[name] * 1e3:.1f} us/launch{uns}, "
                   f"plain {plain[name] * 1e3:.1f} us, library {libs}, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}; {pairs} visible pairs a "
                   "head)", flush=True)
-        if kind == "bert":
-            res[kind]["dkv"]["library_covers"] = \
-                "K3+K4+K5 (SDPA backward with the mask)"
+        res[kind]["dkv"]["library_covers"] = \
+            "K3+K4+K5 (SDPA backward with the mask)"
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return res
@@ -1571,12 +1630,15 @@ def phase_rope_kernels(torch, dev):
     counts = dict(kfa.launches, rope=k6.launches,
                   plain=sum(tfa.plain_runs.values()) + trope.plain_runs)
     want = {key: 0 for key in counts}
-    want.update(fwd_rope=1, delta=1, dkv_rope=1, dq_rope=1)
+    want.update(fwd_rope=1, delta=1, dkv_rope=1, dq_rope=1,
+                fwd_rope_wgmma=1, dkv_rope_wgmma=1)
     print(f"K10 main path (flash_attention_packed_rope forward + backward, "
           f"Llama shape) launches: {counts}", flush=True)
     check(counts == want, f"K10 path launches {counts}, expected {want}")
     launches = dict(fwd=counts["fwd_rope"], dkv=counts["dkv_rope"],
                     dq=counts["dq_rope"], delta=counts["delta"])
+    launches_wgmma = dict(fwd=counts["fwd_rope_wgmma"],
+                          dkv=counts["dkv_rope_wgmma"])
     k10 = [out.detach()] + [x.grad for x in xs]
 
     # ---- against the composition the model runs (K6, then K1-K5)
@@ -1713,6 +1775,8 @@ def phase_rope_kernels(torch, dev):
         res[name] = dict(max_abs_err=err[name], ms=ms[name],
                          plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib[name], launches=launches[name])
+        if name in launches_wgmma:
+            res[name]["launches_wgmma"] = launches_wgmma[name]
         libs = "—" if lib[name] is None else f"{lib[name] * 1e3:.1f} us"
         print(f"K10 {name}: {ms[name] * 1e3:.1f} us/launch, plain "
               f"{plain[name] * 1e3:.1f} us, library {libs}, bound "
@@ -1758,6 +1822,10 @@ def kernel_counters():
                     fwd_seg=kfa.launches["fwd_seg"],
                     dkv_seg=kfa.launches["dkv_seg"],
                     dq_seg=kfa.launches["dq_seg"],
+                    fwd_wgmma=kfa.launches["fwd_wgmma"],
+                    dkv_wgmma=kfa.launches["dkv_wgmma"],
+                    fwd_seg_wgmma=kfa.launches["fwd_seg_wgmma"],
+                    dkv_seg_wgmma=kfa.launches["dkv_seg_wgmma"],
                     rope=k6.launches, adamw=k7.launches,
                     plain_flash=sum(tfa.plain_runs.values()),
                     plain_rope=trope.plain_runs, plain_adamw=k7.plain_runs,
@@ -1807,8 +1875,11 @@ def phase_train(torch, dev, n_warm=2, n_steps=5):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     L, n = cfg.num_hidden_layers, n_steps
     rl = cfg.recompute_layers
+    # every bf16 head_dim-128 forward and dK/dV launch took the wgmma
+    # instance
     want = dict(fwd=(L + rl) * n, delta=L * n, dkv=L * n, dq=L * n,
-                fwd_seg=0, dkv_seg=0, dq_seg=0,
+                fwd_seg=0, dkv_seg=0, dq_seg=0, fwd_wgmma=(L + rl) * n,
+                dkv_wgmma=L * n, fwd_seg_wgmma=0, dkv_seg_wgmma=0,
                 rope=(L + rl + L) * n, adamw=n_tensors * n, plain_flash=0,
                 plain_rope=0, plain_adamw=0, dense_sdpa=0)
     print(f"train launches over {n} steps: {counts}", flush=True)
@@ -2080,7 +2151,8 @@ def phase_bert(torch, dev, n_warm=2, n_steps=5):
     segmented ones.  Each run: 2 warm-up and 5 timed steps; the loss is
     finite and falls; counters set to 0 just before the timed steps show
     every flash kernel launched 12 times a step (forward, delta, dK/dV,
-    dQ) and no plain version or dense attention.  Prints samples/s, step
+    dQ), the forward and dK/dV through their wgmma instances, and no
+    plain version or dense attention.  Prints samples/s, step
     ms, MFU (bench.py's FLOP count over the dense bf16 peak), peak memory
     and one profiled step."""
     from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
@@ -2118,10 +2190,16 @@ def phase_bert(torch, dev, n_warm=2, n_steps=5):
                                       f"{losses}")
         L, n = cfg.num_hidden_layers, n_steps
         seg = lengths is not None
+        # every bf16 head_dim-64 forward and dK/dV launch took the wgmma
+        # instance
         want = dict(fwd=0 if seg else L * n, delta=L * n,
                     dkv=0 if seg else L * n, dq=0 if seg else L * n,
                     fwd_seg=L * n if seg else 0, dkv_seg=L * n if seg else 0,
-                    dq_seg=L * n if seg else 0, rope=0, adamw=0,
+                    dq_seg=L * n if seg else 0,
+                    fwd_wgmma=0 if seg else L * n,
+                    dkv_wgmma=0 if seg else L * n,
+                    fwd_seg_wgmma=L * n if seg else 0,
+                    dkv_seg_wgmma=L * n if seg else 0, rope=0, adamw=0,
                     plain_flash=0, plain_rope=0, plain_adamw=0,
                     dense_sdpa=0)
         print(f"bert {tag} launches over {n} steps: {counts}", flush=True)
@@ -2241,6 +2319,11 @@ def main():
         for line in _build.ptxas_report(src).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}", flush=True)
+    wg_ptxas = {}
+    for src in ("flash_attention_fwd", "flash_attention_bwd"):
+        wg_ptxas.update(wgmma_ptxas(_build.ptxas_report(src)))
+    for inst, line in wg_ptxas.items():
+        print(f"ptxas wgmma instance {inst}: {line}", flush=True)
 
     t = time.perf_counter()
     kern = phase_kernels(torch, dev)
@@ -2305,6 +2388,15 @@ def main():
     ]
     fa = "paddle_tpu/ops/flash_attention.py"
     unmasked = bert["unmasked"][1]
+
+    def wgmma(key, SEG, ROPE):
+        """The wgmma instances of a forward or dK/dV entry and their ptxas
+        lines (registers, shared memory, spills)."""
+        kern = "fwd_kernel" if key == "fwd" else "dkv_kernel"
+        ds = (128,) if ROPE else (64, 128)
+        insts = [f"{kern}<D={d}, SEG={SEG}, ROPE={ROPE}>" for d in ds]
+        return dict(kernel=[f"ptf::wg::{i}" for i in insts],
+                    ptxas={i: wg_ptxas.get(i) for i in insts})
     for kname, key, src, replaces, also in (
             ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu",
              f"{fa}:653", f"{fa}:571"),
@@ -2320,6 +2412,9 @@ def main():
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=train_launches[key],
                      **tk[key])
+        if key in ("fwd", "dkv"):
+            entry.update(wgmma(key, SEG=0, ROPE=0),
+                         launches_wgmma=train_launches[key + "_wgmma"])
         if key in sk["unsegmented"]:
             # also held at the BERT shape (and K3 on the segmented runs'
             # outputs); the unmasked BERT run launches them too
@@ -2327,6 +2422,14 @@ def main():
                 entry["max_abs_err"], sk["unsegmented"][key],
                 sk["delta_err"] if key == "delta" else 0.0)
             entry["bert_unmasked_launches"] = unmasked[key]
+            if key in ("fwd", "dkv"):
+                entry["bert_unmasked_launches_wgmma"] = \
+                    unmasked[key + "_wgmma"]
+                entry["bert"] = {f: sk["bert"][key][f] for f in (
+                    "unsegmented_ms", "unsegmented_bound_ms",
+                    "unsegmented_bound_by")}
+                entry["bert"]["library_ms"] = \
+                    sk["bert"][key].get("unsegmented_library_ms")
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)
@@ -2341,11 +2444,15 @@ def main():
         entry = dict(name=kname, route="cuda",
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=padded[key + "_seg"],
-                     **sk["bert"][key])
+                     **{f: v for f, v in sk["bert"][key].items()
+                        if not f.startswith("unsegmented")})
+        if key in ("fwd", "dkv"):
+            entry.update(wgmma(key, SEG=1, ROPE=0),
+                         launches_wgmma=padded[key + "_seg_wgmma"])
         entry["max_abs_err"] = max(sk["bert"][key]["max_abs_err"],
                                    sk["varlen"][key]["max_abs_err"])
-        entry["varlen"] = {f: sk["varlen"][key][f]
-                           for f in ("ms", "plain_ms", "bound_ms")}
+        entry["varlen"] = {f: sk["varlen"][key][f] for f in (
+            "ms", "plain_ms", "bound_ms", "library_ms")}
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)
@@ -2356,10 +2463,14 @@ def main():
              1131),
             ("flash_attention_bwd_dq_rope", "dq", "flash_attention_bwd.cu",
              1242)):
-        kernels.append(dict(name=kname, route="cuda",
-                            source=f"paddle_tpu_torch/ops/csrc/{src}",
-                            replaces=f"{fa}:{line}", branch="rope=True",
-                            via=f"{fa}:1370", **rk10[key]))
+        entry = dict(name=kname, route="cuda",
+                     source=f"paddle_tpu_torch/ops/csrc/{src}",
+                     replaces=f"{fa}:{line}", branch="rope=True",
+                     via=f"{fa}:1370", **rk10[key])
+        if key in ("fwd", "dkv"):
+            entry.update(wgmma(key, SEG=0, ROPE=1),
+                         launches_wgmma=rk10[key]["launches_wgmma"])
+        kernels.append(entry)
     for k in kernels:
         k.pop("max_ulps", None)
     print(json.dumps({"kernels": kernels}), flush=True)

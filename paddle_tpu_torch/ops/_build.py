@@ -32,6 +32,9 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the only card the libraries are built for (compute capability 9.0)
 TARGET = "sm_90a"
+#: extra ``-D`` flags for every build (``flash_probe.py`` sets the flash
+#: kernels' tile sizes with them); part of each library's digest
+DEFINES = ()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -82,28 +85,32 @@ def _nvcc():
         "CUDA kernels are built from source at first use")
 
 
-def _lib_path(name):
-    h = hashlib.sha1(" ".join(_FLAGS).encode())
+def _lib_path(name, defines=None):
+    flags = _FLAGS + tuple(DEFINES if defines is None else defines)
+    h = hashlib.sha1(" ".join(flags).encode())
     h.update((_CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(_CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES):
+def build(names=SOURCES, defines=None):
     """Compile every library in ``names`` that is not built yet: one
-    ``nvcc`` per source, all started together.  Returns ``{name: seconds
-    it took}`` (0.0 for a library already built).  Raises with the
-    compiler's output if any build fails."""
+    ``nvcc`` per source, all started together, with ``defines`` (default
+    ``DEFINES``) added.  Returns ``{name: seconds it took}`` (0.0 for a
+    library already built).  Raises with the compiler's output if any
+    build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    defines = tuple(DEFINES if defines is None else defines)
     procs, out = {}, {}
     for name in names:
-        path = _lib_path(name)
+        path = _lib_path(name, defines)
         if path.exists():
             out[name] = 0.0
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, *defines, "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path, time.perf_counter())
@@ -111,7 +118,7 @@ def build(names=SOURCES):
     for name, (proc, tmp, path, t0) in procs.items():
         log, _ = proc.communicate()
         out[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        path.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu "
                           f"(exit {proc.returncode}):\n{log}")
@@ -156,7 +163,8 @@ def load(name):
 
 
 def ptxas_report(name):
-    """What ``ptxas -v`` said about ``name``'s kernels at its last build
-    (registers, shared memory, spills); empty if it was not built here."""
-    p = BUILD_DIR / f"{name}.log"
+    """What ``ptxas -v`` said about ``name``'s kernels when its current
+    library was built (registers, shared memory, spills); empty if it was
+    not built here."""
+    p = _lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""

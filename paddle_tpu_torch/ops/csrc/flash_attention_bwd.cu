@@ -14,10 +14,9 @@
 //  * delta (K3): one warp per (batch, position, head) row, a 32-lane
 //    butterfly — bound by the bytes of do and o.
 //  * dK/dV (K4): block (key tile, kv head, batch) keeps its K and V tiles
-//    in shared memory and dK/dV in registers, and sweeps the flattened
-//    query rows of all G heads (flash_tile.cuh): the G heads' sum happens
-//    in-block, with no atomics.  Causal blocks start at the first row
-//    tile that sees their keys.
+//    in shared memory and dK/dV in registers, and sweeps the query rows of
+//    all G heads: the G heads' sum happens in-block, with no atomics.
+//    Causal blocks start at the first row tile that sees their keys.
 //  * dQ (K5): block (row tile, kv head, batch) keeps q, do and dQ and
 //    sweeps the key tiles (causal: up to the tile's last visible key).
 //    K/V stream through shared memory, so it has no residency limit and
@@ -26,10 +25,12 @@
 // What bounds K4 and K5 on the card: operations (the two passes together
 // do 2.5x the forward's, 10·D per visible (query head, key) pair, counting
 // the score recomputed in both passes once).  For bf16 at head_dim 64/128
-// (the training path) both run their products on the tensor cores (the
-// `mma` paths below); f32, f16 and head_dim 256 run in f32 on the CUDA
-// cores with register micro-tiles.  wgmma, TMA, a pipelined tile ring and
-// a single fused pass are later work.  As in the reference, p and ds are
+// (the training path) K4 runs as the `wg` instance below — wgmma fed by a
+// TMA ring of q/dO tiles, one consumer warpgroup per gradient — and K5 on
+// the tensor cores with mma.sync (the `mma` path: redesigning it on the
+// same building blocks is the next step); f32, f16 and head_dim 256 run in
+// f32 on the CUDA cores with register micro-tiles.  As in the reference,
+// p and ds are
 // computed in f32 and rounded to the input dtype where they enter a
 // product (dV = p^T·do, dK = ds^T·q, dQ = ds·k); ds is built from the
 // unrounded p.  Every sum runs in a fixed order: results are bitwise
@@ -59,6 +60,9 @@
 // their one cast; dV is not rotated.  K3 needs no switch (out and dout
 // are not rotated).
 #include "flash_tile.cuh"
+#include "hopper.cuh"
+
+#include <climits>
 
 namespace ptf {
 
@@ -422,7 +426,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int key0 = 0; key0 < key_end; key0 += kKeys) {
     __syncthreads();   // the previous tile's K and V reads are done
     // with ROPE, K^T is made from the rotated K tile below
-    load_kv<D>(Ks, ROPE ? nullptr : Kt, Vs, nullptr, k, v,
+    load_kv<D>(Ks, ROPE ? nullptr : Kt, Vs, k, v,
                kv0 + key0 * stride, stride);
     if (SEG && threadIdx.x < kKeys)
       kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
@@ -526,191 +530,358 @@ int launch_dq(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------- K4 on the tensor cores (bf16)
-// dK/dV for bf16 at head_dim 64/128: block (64-key tile, kv head, batch),
-// 4 warps, warp w owning keys 16w..16w+15 and their dK/dV accumulators.
-// Per 64-row tile of the flattened query rows (q and do row-major and
-// transposed in shared memory), in two halves of 32 rows: s^T = K·q^T and
-// dp^T = V·do^T into f32 fragments, p^T and ds^T in registers, then
-// dV += p^T·do and dK += ds^T·q with p and ds rounded to bf16 into the A
-// fragments (the reference's rounding points).  Causal blocks start at
-// the first row tile that sees their keys.
+}  // namespace mma
+
+// ------------------------------------- K4 on the tensor cores (bf16, wgmma)
+// dK/dV for bf16 at head_dim 64/128 on Hopper's asynchronous tensor-core
+// path (hopper.cuh).  Block (kv head, batch, key block) owns kDkvKeys = 64
+// keys; K and V arrive once by TMA and stay in shared memory.  A producer
+// warp streams the row tiles — 64 positions of ONE query head (a TMA
+// box of q and of dO, rows past Lq zero-filled), with the rows'
+// lse, delta (and segment ids) beside them — through a ring of
+// kDkvStages stages, over the G query heads of the kv head in turn and,
+// causal, from the first position tile that sees the block's keys.  The
+// two consumer warpgroups split the work by side, so that each holds one
+// gradient:
+//  * the p side takes s^T = K·q^T (wgmma, both operands K-major in shared
+//    memory), rebuilds p = exp(s·scale - lse) in f32 on the accumulator
+//    fragments, leaves p in the stage's f32 tile (an mbarrier tells the
+//    other side), rounds it to bf16 into the register A operand and adds
+//    dV += p^T·dO, dO read MN-major through the transpose bit;
+//  * the ds side takes dp^T = V·dO^T, waits for p, forms
+//    ds = p (dp - delta) scale from the unrounded p and adds
+//    dK += ds^T·q, q read MN-major.
+// Each side issues the next tile's score product before this tile's
+// gradient product, so that its elementwise work overlaps the product.
+// One gradient (64 accumulator registers a thread at D 128) plus one
+// score tile keeps each side inside the ~168 registers ptxas gives wgmma
+// accumulators whatever setmaxnreg grants (one warpgroup holding both
+// gradients spilled them around every score product and ran 1.5x
+// slower).  No transposed copies.  The sum over the G heads and the
+// position tiles runs in that fixed order in every block: bitwise
+// reproducible.  ROPE: the p side rotates the K tile once, both rotate
+// each q tile as it lands (fence.proxy.async and a named barrier before
+// wgmma reads it), and dK goes back from rotated space with -sin on the
+// f32 accumulators.  The stage count is flash_probe.py sweep's.
+namespace wg {
+
+#ifndef PTF_DKV_STAGES
+#define PTF_DKV_STAGES 3
+#endif
+constexpr int kDkvKeys = 64;                     // keys a block
+constexpr int kDkvStages = PTF_DKV_STAGES;
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kRows = 64;               // positions a row tile
+  static constexpr int kKV = kDkvKeys * D * 2;   // bytes of K or V
+  static constexpr int kRow = kRows * D * 2;     // of a q or dO tile
+  static constexpr int kStat = kRows * 4;        // of lse, delta or qseg
+  static constexpr int kP = kDkvKeys * kRows * 4;      // f32 p
+  static constexpr int kStage =                  // 1024-byte aligned
+      (2 * kRow + kP + 3 * kStat + 1023) / 1024 * 1024;
+  static constexpr size_t kBytes = 1024 + 2 * kKV + kDkvStages * kStage;
+};
+
 template <int D, bool SEG, bool ROPE>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const int* __restrict__ qseg, const int* __restrict__ kseg,
                Rope<__nv_bfloat16> rp, __nv_bfloat16* __restrict__ dk,
                __nv_bfloat16* __restrict__ dv, Geom g) {
-  constexpr int QS = D + 8, TS = kRows + 8;
-  constexpr int KD = D / 16, ND = D / 8, NH = 4;   // NH n-tiles per half
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kKeys * QS;    // [64 keys][QS]
-  __nv_bfloat16* Qs = Vs + kKeys * QS;    // [64 rows][QS]
-  __nv_bfloat16* dOs = Qs + kRows * QS;   // [64 rows][QS]
-  __nv_bfloat16* Qt = dOs + kRows * QS;   // [D][TS]
-  __nv_bfloat16* dOt = Qt + D * TS;       // [D][TS]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * TS);
-  float* dl_s = lse_s + kRows;
-  __shared__ int qseg_s[SEG ? kRows : 1];
+  using Sm = DkvSmem<D>;
+  constexpr int S = kDkvStages, NB = D / 64, ND = D / 8, BR = Sm::kRows;
+  constexpr int NR = BR / 8;                    // 8-column blocks of a tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);      // [NB][kDkvKeys][64]
+  unsigned char* Vs = Ks + Sm::kKV;
+  unsigned char* stages = Vs + Sm::kKV;         // q, dO, p, lse, delta, qseg
+  __shared__ __align__(8) uint64_t full[S], empty[S], pready[S], kvbar;
 
-  const int key0 = blockIdx.x * kKeys, kvh = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int klo = 16 * warp + gq, khi = klo + 8;   // the lane's two keys
-  const long long kb0 = static_cast<long long>(b) * g.Lk + key0;
-  const int ks_lo = SEG ? kseg[kb0 + klo] : 0;
-  const int ks_hi = SEG ? kseg[kb0 + khi] : 0;
-  const long long stride = static_cast<long long>(g.Hkv) * D;
-  const long long kv0 = (static_cast<long long>(b) * g.Lk + key0) * stride +
-                        static_cast<long long>(kvh) * D;
-  load_kv<D>(Ks, nullptr, Vs, nullptr, k, v, kv0, stride);
-  if constexpr (ROPE) {   // this block's K tile, rotated once
-    __syncthreads();
-    rope_rows<D>(Ks, kKeys, rp.kcos, rp.ksin, key0, 1);
-  }
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int key0 = blockIdx.z * kDkvKeys;
+  const int n_pt = (g.Lq + BR - 1) / BR;
+  // causal: the first position tile with a row that sees key0
+  const int pt0 = g.causal ? max(0, key0 - g.q_offset) / BR : 0;
+  const int per_head = n_pt - pt0;
+  const int n_t = g.G * per_head;
 
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.f;
-
-  const int n_rows = g.Lq * g.G;
-  int r_start = 0;
-  if (g.causal) {
-    const int pos0 = max(0, key0 - g.q_offset);   // first row seeing key0
-    r_start = min(n_rows, pos0 * g.G) / kRows * kRows;
-  }
-  for (int r0 = r_start; r0 < n_rows; r0 += kRows) {
-    __syncthreads();   // the previous tile's reads are done
-    // with ROPE, q^T is made from the rotated q tile below
-    load_rows_t<D>(Qs, ROPE ? nullptr : Qt, q, g, b, kvh, r0);
-    load_rows_t<D>(dOs, dOt, dout, g, b, kvh, r0);
-    if (threadIdx.x < kRows) {
-      const long long so = stat_off(g, b, kvh, r0 + threadIdx.x);
-      lse_s[threadIdx.x] = lse[so];
-      dl_s[threadIdx.x] = delta[so];
-      if (SEG) qseg_s[threadIdx.x] = row_seg(qseg, g, b, r0 + threadIdx.x);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(&full[s], 32);
+      hop::mbar_init(&empty[s], 128 * kConsumers);
+      hop::mbar_init(&pready[s], 128);
     }
-    __syncthreads();
-    if constexpr (ROPE) {   // each q tile of the sweep
-      rope_rows<D>(Qs, kRows, rp.qcos, rp.qsin, r0, g.G);
-      __syncthreads();
-      transpose_tile<D>(Qt, Qs);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[NH][4], dp[NH][4];
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int ko = 16 * kk + 2 * tq;
-        const uint32_t ak[4] = {ld32(Ks + klo * QS + ko),
-                                ld32(Ks + khi * QS + ko),
-                                ld32(Ks + klo * QS + ko + 8),
-                                ld32(Ks + khi * QS + ko + 8)};
-        const uint32_t av[4] = {ld32(Vs + klo * QS + ko),
-                                ld32(Vs + khi * QS + ko),
-                                ld32(Vs + klo * QS + ko + 8),
-                                ld32(Vs + khi * QS + ko + 8)};
-#pragma unroll
-        for (int j = 0; j < NH; ++j) {
-          const int o = (8 * (NH * half + j) + gq) * QS + ko;
-          mma16816(s[j], ak, ld32(Qs + o), ld32(Qs + o + 8));
-          mma16816(dp[j], av, ld32(dOs + o), ld32(dOs + o + 8));
+    hop::mbar_init(&kvbar, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hop::warpgroup() == 0) {
+    // ---- producer warpgroup: one warp issues the loads
+    hop::regs_dec<kProducerRegs>();
+    const int lane = threadIdx.x & 31;
+    if (hop::warp_in_warpgroup() == 0) {
+      if (lane == 0) {
+        hop::mbar_arrive_tx(&kvbar, 2 * Sm::kKV);
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_3d(Ks + c * kDkvKeys * 128, &tk, &kvbar,
+                           kvh * D + 64 * c, key0, b);
+          hop::tma_load_3d(Vs + c * kDkvKeys * 128, &tv, &kvbar,
+                           kvh * D + 64 * c, key0, b);
         }
       }
-      // p^T in s, ds^T in dp; column = query row, row = key
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int rr = 8 * (NH * half + j) + 2 * tq + (c & 1);
-          const int key = key0 + (c >= 2 ? khi : klo);
-          const int vis =
-              g.causal ? (r0 + rr) / g.G + g.q_offset : g.Lk - 1;
-          if constexpr (SEG) {
-            float p = 0.f, ds = 0.f;
-            if (key <= vis)
-              seg_p_ds(s[j][c] * g.scale, dp[j][c], lse_s[rr], dl_s[rr],
-                       g.scale, qseg_s[rr] == (c >= 2 ? ks_hi : ks_lo),
-                       inv_keys(vis), p, ds);
-            s[j][c] = p;
-            dp[j][c] = ds;
-          } else {
-            const float p =
-                key <= vis ? expf(s[j][c] * g.scale - lse_s[rr]) : 0.f;
-            s[j][c] = p;
-            dp[j][c] = p * (dp[j][c] - dl_s[rr]) * g.scale;
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % S;
+        const int h = kvh * g.G + t / per_head;
+        const int p0 = (pt0 + t % per_head) * BR;
+        unsigned char* st = stages + s * Sm::kStage;
+        float* stat = reinterpret_cast<float*>(st + 2 * Sm::kRow + Sm::kP);
+        hop::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        if (lane == 0) {   // the tiles first: they land while the lanes load
+          hop::mbar_expect_tx(&full[s], 2 * Sm::kRow);
+          for (int c = 0; c < NB; ++c) {
+            hop::tma_load_3d(st + c * BR * 128, &tq, &full[s],
+                             h * D + 64 * c, p0, b);
+            hop::tma_load_3d(st + Sm::kRow + c * BR * 128, &tdo, &full[s],
+                             h * D + 64 * c, p0, b);
           }
         }
-#pragma unroll
-      for (int x = 0; x < NH / 2; ++x) {
-        uint32_t pa[4], da[4];
-        a_frag(s[2 * x], s[2 * x + 1], pa);
-        a_frag(dp[2 * x], dp[2 * x + 1], da);
-        const int ro = 16 * (2 * half + x) + 2 * tq;   // rows of this step
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const int t = (8 * n + gq) * TS + ro;
-          mma16816(dva[n], pa, ld32(dOt + t), ld32(dOt + t + 8));
-          mma16816(dka[n], da, ld32(Qt + t), ld32(Qt + t + 8));
+        const long long so = (static_cast<long long>(b) * g.H + h) * g.Lq;
+        for (int i = lane; i < BR; i += 32) {
+          const int pos = p0 + i;
+          const bool in = pos < g.Lq;
+          stat[i] = in ? lse[so + pos] : 0.f;
+          stat[BR + i] = in ? delta[so + pos] : 0.f;
+          if constexpr (SEG)
+            reinterpret_cast<int*>(stat)[2 * BR + i] =
+                in ? qseg[static_cast<long long>(b) * g.Lq + pos] : -1;
         }
+        hop::mbar_arrive(&full[s]);
       }
     }
-  }
-  if constexpr (ROPE) {   // dK back from rotated space: fragments n, n + ND/2
-    const long long t_lo = static_cast<long long>(key0 + klo) * D;
-    const long long t_hi = static_cast<long long>(key0 + khi) * D;
+  } else {
+    // ---- consumer warpgroups: 1 the p side (dV), 2 the ds side (dK)
+    hop::regs_inc<kConsumerRegs>();
+    const bool pside = hop::warpgroup() == 1;
+    const int ct = threadIdx.x - 128;            // 0 .. 255
+    const int wt = threadIdx.x & 127;
+    const int warp = wt >> 5, lane = wt & 31, gq = lane >> 2, tq = lane & 3;
+    const int k_lo = key0 + 16 * warp + gq, k_hi = k_lo + 8;
+    int ks_lo = 0, ks_hi = 0;
+    if constexpr (SEG) {
+      const long long kb = static_cast<long long>(b) * g.Lk;
+      ks_lo = k_lo < g.Lk ? kseg[kb + k_lo] : INT_MIN;
+      ks_hi = k_hi < g.Lk ? kseg[kb + k_hi] : INT_MIN;
+    }
+    // the score product's operands (K·q^T or V·dO^T, K-major) and the
+    // gradient product's B (dO for dV, q for dK, MN-major), stage 0
+    const uint64_t da0 = hop::desc_sw128(pside ? Ks : Vs, 0);
+    const uint64_t db0 = hop::desc_sw128(stages + (pside ? 0 : Sm::kRow), 0);
+    const uint64_t dt0 =
+        hop::desc_sw128(stages + (pside ? Sm::kRow : 0), BR * 128);
+
+    hop::mbar_wait(&kvbar, 0);
+    if (ROPE && pside) {   // the K tile, rotated once
+      mma::rope_sw128(Ks, kDkvKeys, 0, min(kDkvKeys, g.Lk - key0), rp.kcos,
+                      rp.ksin, key0, wt, 128);
+      hop::fence_proxy_async();
+      hop::bar_sync(2, 128);
+    }
+    float acc[ND][4];                            // dV (p side), dK (ds side)
 #pragma unroll
-    for (int n = 0; n < ND / 2; ++n)
+    for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        unrope_pair(dka[n][c], dka[n + ND / 2][c], rp.kcos, rp.ksin,
-                    (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1), D / 2);
-  }
-  const long long o_lo = kv0 + klo * stride, o_hi = kv0 + khi * stride;
+      for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+    // Tile t's score product (s^T on the p side, dp^T on the ds side),
+    // issued once its stage has landed (and its q tile is rotated)
+    auto score = [&](int t, float (&x)[NR][4]) {
+      const int s = t % S;
+      hop::mbar_wait(&full[s], (t / S) & 1);
+      if constexpr (ROPE) {   // each q tile, rotated by both sides
+        const int p0 = (pt0 + t % per_head) * BR;
+        mma::rope_sw128(stages + s * Sm::kStage, BR, 0, min(BR, g.Lq - p0),
+                        rp.qcos, rp.qsin, p0, ct, 128 * kConsumers);
+        hop::fence_proxy_async();
+        hop::bar_sync(1, 128 * kConsumers);
+      }
+      const uint64_t da = hop::opaque(da0);
+      const uint64_t db = hop::opaque(hop::desc_at(db0, s * Sm::kStage));
+      hop::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int d = 8 * n + 2 * tq;
-    *reinterpret_cast<uint32_t*>(dk + o_lo + d) = pack(dka[n][0], dka[n][1]);
-    *reinterpret_cast<uint32_t*>(dk + o_hi + d) = pack(dka[n][2], dka[n][3]);
-    *reinterpret_cast<uint32_t*>(dv + o_lo + d) = pack(dva[n][0], dva[n][1]);
-    *reinterpret_cast<uint32_t*>(dv + o_hi + d) = pack(dva[n][2], dva[n][3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::ss<BR>(x, hop::desc_at(da, (kk >> 2) * kDkvKeys * 128 +
+                                            (kk & 3) * 32),
+                    hop::desc_at(db, (kk >> 2) * BR * 128 + (kk & 3) * 32),
+                    kk > 0);
+      hop::wgmma_commit();
+    };
+    // tile t's p (p side: also left for the ds side) or ds in place of its
+    // finished score tile; column = position p0 + rr, row = key
+    auto side = [&](int t, float (&x)[NR][4]) {
+      const int s = t % S;
+      const int p0 = (pt0 + t % per_head) * BR;
+      float* pb = reinterpret_cast<float*>(stages + s * Sm::kStage +
+                                           2 * Sm::kRow);
+      const float* stat = pb + BR * kDkvKeys;
+      const int* sseg = reinterpret_cast<const int*>(stat) + 2 * BR;
+      hop::fence_regs(x);
+      if (pside) {
+        const bool whole =
+            !SEG && p0 + BR <= g.Lq &&
+            (!g.causal || key0 + kDkvKeys - 1 <= p0 + g.q_offset);
+        // p in place of the scores; the unrounded p the ds side takes (0
+        // where ds is 0) to the stage's p tile
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          float pd[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int rr = 8 * j + 2 * tq + (c & 1);
+            const float l_r = stat[rr];
+            float p = 0.f;
+            if (whole) {
+              p = expf(x[j][c] * g.scale - l_r);
+            } else {
+              const int pos = p0 + rr, key = c >= 2 ? k_hi : k_lo;
+              const int vis = g.causal ? pos + g.q_offset : g.Lk - 1;
+              const bool ok = pos < g.Lq && key <= vis;
+              if constexpr (SEG) {
+                float ds;
+                const bool same = sseg[rr] == (c >= 2 ? ks_hi : ks_lo);
+                if (ok)
+                  seg_p_ds(x[j][c] * g.scale, 0.f, l_r, 0.f, g.scale, same,
+                           inv_keys(vis), p, ds);
+                pd[c] = same ? p : 0.f;   // a dead row's 1/n takes no ds
+              } else {
+                p = ok ? expf(x[j][c] * g.scale - l_r) : 0.f;
+              }
+            }
+            x[j][c] = p;
+            if constexpr (!SEG) pd[c] = p;
+          }
+          reinterpret_cast<float4*>(pb)[j * 128 + wt] =
+              make_float4(pd[0], pd[1], pd[2], pd[3]);
+        }
+        hop::mbar_arrive(&pready[s]);
+      } else {
+        hop::mbar_wait(&pready[s], (t / S) & 1);
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          const float4 p4 = reinterpret_cast<const float4*>(pb)[j * 128 + wt];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int rr = 8 * j + 2 * tq + (c & 1);
+            x[j][c] = p[c] * (x[j][c] - stat[BR + rr]) * g.scale;
+          }
+        }
+      }
+    };
+
+    // Software-pipelined: tile t+1's score product is issued before tile
+    // t's gradient product and its p or ds are formed while that runs, so
+    // the tensor cores always hold queued work.  Groups complete in order
+    // (wait_group 1: t+1's scores, 0: t's gradient).  ptxas keeps the
+    // products asynchronous only if every group inside the loop is issued
+    // unconditionally (the last tile's gradient product is peeled) and no
+    // register of an operand in flight is written: p or ds goes to bf16
+    // into the A operand (the reference's rounding points) once the
+    // previous gradient product is done.
+    float x[NR][4];
+    uint32_t af[NR / 2][4];
+    auto to_a = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < NR / 2; ++kk)
+        mma::a_frag(x[2 * kk], x[2 * kk + 1], af[kk]);
+    };
+    auto gradient = [&](int t) {   // acc += p^T·dO or ds^T·q of tile t
+      const uint64_t dt =
+          hop::opaque(hop::desc_at(dt0, (t % S) * Sm::kStage));
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NR / 2; ++kk)
+        hop::rs<D>(acc, af[kk], hop::desc_at(dt, kk * 2048), 1);
+      hop::wgmma_commit();
+    };
+    score(0, x);
+    hop::wgmma_wait<0>();
+    side(0, x);
+    to_a();
+    for (int t = 0; t + 1 < n_t; ++t) {
+      score(t + 1, x);
+      gradient(t);
+      hop::wgmma_wait<1>();
+      side(t + 1, x);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[t % S]);
+      to_a();
+    }
+    gradient(n_t - 1);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::mbar_arrive(&empty[(n_t - 1) % S]);
+
+    if (ROPE && !pside) {   // dK back from rotated space: n and n + ND/2
+      const long long t_lo = static_cast<long long>(min(k_lo, g.Lk - 1)) * D;
+      const long long t_hi = static_cast<long long>(min(k_hi, g.Lk - 1)) * D;
+#pragma unroll
+      for (int n = 0; n < ND / 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          unrope_pair(acc[n][c], acc[n + ND / 2][c], rp.kcos, rp.ksin,
+                      (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1),
+                      D / 2);
+    }
+    __nv_bfloat16* grad = pside ? dv : dk;
+    const long long stride = static_cast<long long>(g.Hkv) * D;
+    const long long kv0 = static_cast<long long>(b) * g.Lk * stride +
+                          static_cast<long long>(kvh) * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = half ? k_hi : k_lo;
+      if (key >= g.Lk) continue;
+      const long long o = kv0 + key * stride;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(grad + o + 8 * n + 2 * tq) =
+            mma::pack(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
   }
 }
 
 template <int D, bool SEG, bool ROPE = false>
 int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (4 * kRows * (D + 8) +
-                                               2 * D * (kRows + 8)) +
-                      sizeof(float) * 2 * kRows;
-  if (g.Lk % kKeys != 0) return -1;
+  CUtensorMap tq, tdo, tk, tv;
+  const uint64_t qw = static_cast<uint64_t>(g.H) * D;
+  const uint64_t kw = static_cast<uint64_t>(g.Hkv) * D;
+  if (hop::bf16_map(&tq, a.q, qw, g.Lq, g.B, DkvSmem<D>::kRows) ||
+      hop::bf16_map(&tdo, a.dout, qw, g.Lq, g.B, DkvSmem<D>::kRows) ||
+      hop::bf16_map(&tk, a.k, kw, g.Lk, g.B, kDkvKeys) ||
+      hop::bf16_map(&tv, a.v, kw, g.Lk, g.B, kDkvKeys))
+    return -2;
+  const size_t smem = DkvSmem<D>::kBytes;
   cudaError_t err = set_smem(dkv_kernel<D, SEG, ROPE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.Lk / kKeys, g.Hkv, g.B);
+  static const bool regs = regs_ok(dkv_kernel<D, SEG, ROPE>);
+  if (!regs) return -3;
+  const dim3 grid(g.Hkv, g.B, (g.Lk + kDkvKeys - 1) / kDkvKeys);
   dkv_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      a.qseg, a.kseg, a.rope.as<__nv_bfloat16>(),
-      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
-      g);
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.qseg, a.kseg,
+      a.rope.as<__nv_bfloat16>(), static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace mma
+}  // namespace wg
 
 // ------------------------------------------------------------- launches
 // key tiles: dK/dV as the forward (64, 32 at D 256); dQ 32 keys at
@@ -766,7 +937,7 @@ int run(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
 template <int D, bool SEG, bool ROPE = false>
 int run_mma(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
   return dq ? mma::launch_dq<D, SEG, ROPE>(a, g, s)
-            : mma::launch_dkv<D, SEG, ROPE>(a, g, s);
+            : wg::launch_dkv<D, SEG, ROPE>(a, g, s);
 }
 
 // K4 or K5 by dtype and head_dim: bf16 at head_dim 64/128 on the tensor

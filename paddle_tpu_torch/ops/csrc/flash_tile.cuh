@@ -395,14 +395,14 @@ __device__ __forceinline__ void put_row(__nv_bfloat16* rows,
   }
 }
 
-// kKeys rows of K and of V (row s at base + s * stride) into shared
-// tiles; a null destination is skipped.  Neighbouring threads take
-// neighbouring keys, so the transposed stores are conflict-free.
+// kKeys rows of K and of V (row s at base + s * stride) into row-major
+// shared tiles, K also transposed unless k_cols is null.  Neighbouring
+// threads take neighbouring keys, so the transposed stores are
+// conflict-free.
 template <int D>
 __device__ __forceinline__ void load_kv(__nv_bfloat16* k_rows,
                                         __nv_bfloat16* k_cols,
                                         __nv_bfloat16* v_rows,
-                                        __nv_bfloat16* v_cols,
                                         const __nv_bfloat16* k,
                                         const __nv_bfloat16* v,
                                         long long base, long long stride) {
@@ -414,24 +414,7 @@ __device__ __forceinline__ void load_kv(__nv_bfloat16* k_rows,
     const uint4 kx = *reinterpret_cast<const uint4*>(k + src);
     const uint4 vx = *reinterpret_cast<const uint4*>(v + src);
     put_row<D>(k_rows, k_cols, kx, sk, c);
-    put_row<D>(v_rows, v_cols, vx, sk, c);
-  }
-}
-
-// the 64 query rows [r0, r0 + 64) into a row-major and a transposed tile
-template <int D>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* rows,
-                                            __nv_bfloat16* cols,
-                                            const __nv_bfloat16* src,
-                                            const Geom& g, int b, int kvh,
-                                            int r0) {
-#pragma unroll
-  for (int it = 0; it < kRows * (D / 8) / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int rr = e % kRows, c = e / kRows;
-    const uint4 x = *reinterpret_cast<const uint4*>(
-        src + row_off<D>(g, b, kvh, r0 + rr) + 8 * c);
-    put_row<D>(rows, cols, x, rr, c);
+    put_row<D>(v_rows, nullptr, vx, sk, c);
   }
 }
 
@@ -495,6 +478,39 @@ __device__ __forceinline__ void rope_rows(__nv_bfloat16* tile, int rows,
     const uint4 c2 = *reinterpret_cast<const uint4*>(cos_t + t + D / 2);
     const uint4 s1 = *reinterpret_cast<const uint4*>(sin_t + t);
     const uint4 s2 = *reinterpret_cast<const uint4*>(sin_t + t + D / 2);
+    *p1 = make_uint4(rot_bf16x2(x1.x, x2.x, c1.x, s1.x),
+                     rot_bf16x2(x1.y, x2.y, c1.y, s1.y),
+                     rot_bf16x2(x1.z, x2.z, c1.z, s1.z),
+                     rot_bf16x2(x1.w, x2.w, c1.w, s1.w));
+    *p2 = make_uint4(rot_bf16x2(x2.x, x1.x, c2.x, s2.x),
+                     rot_bf16x2(x2.y, x1.y, c2.y, s2.y),
+                     rot_bf16x2(x2.z, x1.z, c2.z, s2.z),
+                     rot_bf16x2(x2.w, x1.w, c2.w, s2.w));
+  }
+}
+
+// The same rotation on a head_dim-128 tile of R rows held as two
+// 128-byte-swizzled boxes [R][64] (hopper.cuh; the wgmma kernels' tiles,
+// written by TMA): the pair (d, d + 64) sits at one offset in the two
+// boxes, so a thread takes chunk c of row r in both.  Rows [r0, r1) are
+// rotated, row r by table row first + r; threads t, t + nt, ... share
+// the work.
+__device__ __forceinline__ void rope_sw128(unsigned char* tile, int R, int r0,
+                                           int r1,
+                                           const __nv_bfloat16* cos_t,
+                                           const __nv_bfloat16* sin_t,
+                                           int first, int t, int nt) {
+  for (int e = 8 * r0 + t; e < 8 * r1; e += nt) {
+    const int r = e >> 3, c = e & 7;
+    const int off = r * 128 + ((c ^ (r & 7)) << 4);
+    uint4* p1 = reinterpret_cast<uint4*>(tile + off);
+    uint4* p2 = reinterpret_cast<uint4*>(tile + R * 128 + off);
+    const long long tt = static_cast<long long>(first + r) * 128 + 8 * c;
+    const uint4 x1 = *p1, x2 = *p2;
+    const uint4 c1 = *reinterpret_cast<const uint4*>(cos_t + tt);
+    const uint4 c2 = *reinterpret_cast<const uint4*>(cos_t + tt + 64);
+    const uint4 s1 = *reinterpret_cast<const uint4*>(sin_t + tt);
+    const uint4 s2 = *reinterpret_cast<const uint4*>(sin_t + tt + 64);
     *p1 = make_uint4(rot_bf16x2(x1.x, x2.x, c1.x, s1.x),
                      rot_bf16x2(x1.y, x2.y, c1.y, s1.y),
                      rot_bf16x2(x1.z, x2.z, c1.z, s1.z),

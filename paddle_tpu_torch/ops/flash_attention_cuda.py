@@ -24,22 +24,28 @@ launches its kernel on the current stream, and raises on anything the
 kernel does not take.  The plain PyTorch versions and the routing live in
 ``ops/flash_attention.py``; ``launches`` counts the launches of each
 kernel, the segmented instances under ``*_seg``, the rope ones under
-``*_rope``.
+``*_rope``; the launches of the forward and dK/dV that went to their
+wgmma instances (``flash_instance``: bf16 at head_dim 64/128) are counted
+again under ``*_wgmma``, so a run can show that all of them did.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["flash_fwd", "flash_delta", "flash_bwd_dkv", "flash_bwd_dq",
-           "HEAD_DIMS", "ROPE_HEAD_DIMS"]
+           "flash_instance", "HEAD_DIMS", "ROPE_HEAD_DIMS",
+           "WGMMA_HEAD_DIMS"]
 
 #: kernel launches by kernel (plain integers; callers may reset them to 0)
 launches = {"fwd": 0, "delta": 0, "dkv": 0, "dq": 0, "fwd_seg": 0,
             "dkv_seg": 0, "dq_seg": 0, "fwd_rope": 0, "dkv_rope": 0,
-            "dq_rope": 0}
+            "dq_rope": 0, "fwd_wgmma": 0, "fwd_seg_wgmma": 0,
+            "fwd_rope_wgmma": 0, "dkv_wgmma": 0, "dkv_seg_wgmma": 0,
+            "dkv_rope_wgmma": 0}
 
 HEAD_DIMS = (64, 128, 256)
 ROPE_HEAD_DIMS = (128, 256)     # the head dims of the ROPE instances
+WGMMA_HEAD_DIMS = (64, 128)     # the forward's and dK/dV's wgmma instances
 _ROWS = 64          # flattened (position, group head) rows per kernel tile
 _KEYS = 64          # Lk multiple every kernel's key tile divides
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -136,11 +142,31 @@ def _check_rope(where, q, lq, lk, d, rope, segmented):
     return tuple(x.data_ptr() for x in rope), "_rope"
 
 
-def _ok(where, rc, kernel):
+def flash_instance(dtype, head_dim):
+    """The instance of the forward and dK/dV kernels these inputs take:
+    ``"wgmma"`` (Hopper's asynchronous tensor-core path: TMA ring,
+    warp-specialised blocks) for bf16 at head_dim 64/128, ``"simt"`` (f32
+    on the CUDA cores) otherwise.  dQ keeps its ``mma.sync`` instance for
+    bf16 at 64/128."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+_FAILURES = {-1: "a shape the kernel does not take",
+             -2: "the driver refused a TMA tensor map (pointers must be "
+                 "16-byte aligned)",
+             -3: "the kernel was built with too few registers for its "
+                 "warpgroup split"}
+
+
+def _ok(where, rc, kernel, wgmma=False):
     if rc != 0:
-        raise RuntimeError(f"{where}: kernel launch failed with CUDA error "
-                           f"{rc}")
+        why = _FAILURES.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{where}: kernel launch failed: {why}")
     launches[kernel] += 1
+    if wgmma:
+        launches[kernel + "_wgmma"] += 1
 
 
 def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale, qseg=None,
@@ -165,7 +191,8 @@ def flash_fwd(q, k, v, num_heads, num_kv_heads, causal, scale, qseg=None,
             out.data_ptr(), lse.data_ptr(), qs, ks, *rp, b, num_heads,
             num_kv_heads, lq, lk, d, int(bool(causal)), float(scale),
             _stream(q.device))
-    _ok("flash_fwd", rc, "fwd" + tag + rtag)
+    _ok("flash_fwd", rc, "fwd" + tag + rtag,
+        flash_instance(q.dtype, d) == "wgmma")
     return out, lse
 
 
@@ -234,7 +261,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, num_heads, num_kv_heads,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks, *rp,
             dk.data_ptr(), dv.data_ptr(), b, num_heads, num_kv_heads, lq, lk,
             d, int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_bwd_dkv", rc, "dkv" + tag + rtag)
+    _ok("flash_bwd_dkv", rc, "dkv" + tag + rtag,
+        flash_instance(q.dtype, d) == "wgmma")
     return dk, dv
 
 

@@ -826,3 +826,77 @@ def test_prefill_f32_queries_take_the_cuda_core_instance():
     torch.cuda.synchronize()
     assert (k9.launches, k9.launches_mma) == (before[0] + 1, before[1])
     assert out.dtype == torch.float32
+
+
+# The forward's and dK/dV's wgmma instances (bf16, head_dim 64/128) at the
+# edges of their tiles: blocks of 128 positions of one head (Lq 64: a
+# half-empty block; G 3), key tiles of 128 (Lk 64: one half tile; Lk 192
+# and 320: a ragged last tile), causal with q_offset > 0, segments with a
+# dead row and a pad tail, and the rope instance.
+# (id, B, Lq, Lk, H, Hkv, D, causal, kind)
+WGMMA_EDGES = [
+    ("lqg64", 2, 64, 64, 1, 1, 64, True, None),
+    ("g3-lqg192", 1, 64, 64, 3, 1, 128, True, None),
+    ("lq<lk-ragged-keys", 1, 64, 192, 4, 2, 128, True, None),
+    ("lk64-noncausal", 2, 128, 64, 4, 2, 64, False, None),
+    ("lk64-causal", 1, 64, 64, 2, 2, 128, True, None),
+    ("g3-d64-lq<lk", 2, 128, 320, 6, 2, 64, True, None),
+    ("padding-d128", 4, 192, 192, 4, 2, 128, False, "padding"),
+    ("varlen-d64-g3", 1, 320, 320, 3, 1, 64, True, "varlen"),
+    ("rope-g3-lq<lk", 1, 64, 192, 6, 2, 128, True, "rope"),
+    ("rope-noncausal-lk64", 2, 64, 64, 4, 4, 128, False, "rope"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", WGMMA_EDGES, ids=[g[0] for g in WGMMA_EDGES])
+def test_wgmma_flash_edges_match_plain(geom):
+    """Forward (out, lse) and dK/dV of the wgmma instances against the
+    plain versions at ``FLASH_TOL`` (lse on live rows; padding rows zero),
+    launched through the wgmma instances (their ``*_wgmma`` counters move
+    with the kernel's), and bitwise equal run to run."""
+    dev = _card()
+    _, b, lq, lk, h, hkv, d, causal, kind = geom
+    dtype = torch.bfloat16
+    q, k, v, do = _flash_inputs(dev, dtype, b, lq, lk, h, hkv, d, 31)
+    seg, extra, tag = (), {}, ""
+    if kind in ("padding", "varlen"):
+        seg = _segments(dev, kind, b, lq)
+        do = do.masked_fill((seg[0] < 0)[:, :, None], 0)
+        tag = "_seg"
+    elif kind == "rope":
+        extra["rope"] = _rope_tables(dev, dtype, lq, lk, d, 7)
+        tag = "_rope"
+    scale = d ** -0.5
+
+    def run():
+        out, lse = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, *seg,
+                                 **extra)
+        delta = kfa.flash_delta(do, out, h)
+        dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, h, hkv, causal,
+                                   scale, *seg, **extra)
+        return out, lse, delta, dk, dv
+
+    before = dict(kfa.launches)
+    out, lse, delta, dk, dv = run()
+    ref, rlse = tfa.flash_fwd_reference(q, k, v, h, hkv, causal, scale,
+                                        *seg, **extra)
+    _, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, h, hkv,
+                                          causal, scale, *seg, **extra)
+    torch.cuda.synchronize()
+    for key in ("fwd", "dkv"):
+        assert kfa.launches[key + tag] == before[key + tag] + 1
+        assert kfa.launches[key + tag + "_wgmma"] == \
+            before[key + tag + "_wgmma"] + 1
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    live = (seg[0] >= 0)[:, None, :] if seg else 1
+    torch.testing.assert_close(lse * live, rlse * live, atol=1e-5,
+                               rtol=1e-5)
+    if seg:
+        assert float(out.float().masked_fill((seg[0] >= 0)[:, :, None], 0)
+                     .abs().max()) == 0.0
+    for a, r in ((dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    for a, a2 in zip((out, lse, delta, dk, dv), run()):
+        assert torch.equal(a, a2)

@@ -52,7 +52,8 @@ def _imports(path):
 
 def test_no_jax_or_reference_import_in_the_port_sources():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "serving_probe.py",
+              ROOT / "flash_probe.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
