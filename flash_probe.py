@@ -3,6 +3,7 @@
 
     python3 flash_probe.py times    # the forward and dK/dV as built now
     python3 flash_probe.py sweep    # the same for each tile variant
+    python3 flash_probe.py ablate   # the same with one step taken out
 
 ``times`` gives µs a launch of the forward (K1) and dK/dV (K4) at
 ``chip_smoke.py``'s shapes — Llama (B 16, L 2048, H 16/4, D 128, causal;
@@ -13,9 +14,15 @@ beside SDPA's forward at the same shapes.  ``sweep`` builds every entry of
 counts: ``-D`` flags of ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``), all builds at once, then times each in
 turn, twice over, on one card: the sweep that chose the defaults in the
-sources.  bf16, inputs random from fixed seeds.  Exits non-zero without a
-CUDA card.
+sources.  ``ablate`` times copies of the sources with one step of a
+kernel taken out (``ABLATIONS``; their results are wrong, only their
+time counts), built side by side under ``ops/_build/ablate``: what each
+step costs.  bf16, inputs random from fixed seeds.  Exits non-zero
+without a CUDA card.
 """
+import os
+import shutil
+import subprocess
 import sys
 import threading
 
@@ -42,6 +49,33 @@ def smem_bytes(variant, d=128):
     stage = -(-(2 * 64 * d * 2 + 64 * 64 * 4 + 3 * 64 * 4) // 1024)
     dkv = 1024 + 2 * 64 * d * 2 + dkv_stages * stage * 1024
     return fwd, dkv
+
+
+#: (name, source, text, replacement): one step of a kernel taken out
+ABLATIONS = (
+    ("K4 without its p/ds step", "flash_attention_bwd.cu",
+     "      hop::fence_regs(x);\n      if (pside) {",
+     "      hop::fence_regs(x);\n      if (pside) {\n"
+     "        hop::mbar_arrive(&pready[s]);\n        return;\n      }\n"
+     "      hop::mbar_wait(&pready[s], (t / S) & 1);\n      return;\n"
+     "      if (pside) {"),
+    ("K4 without its gradient products", "flash_attention_bwd.cu",
+     "        hop::rs<D>(acc, af[kk], hop::desc_at(dt, kk * 2048), 1);",
+     "        ;"),
+    ("K4 without its score products", "flash_attention_bwd.cu",
+     "      for (int kk = 0; kk < D / 16; ++kk)\n        hop::ss<BR>(",
+     "      for (int kk = 0; kk < 0; ++kk)\n        hop::ss<BR>("),
+    ("K1 without its softmax", "flash_attention_fwd.cu",
+     "      hop::fence_regs(sc);\n      if (SEG",
+     "      hop::fence_regs(sc);\n      c_lo = c_hi = 1.f;\n      return;\n"
+     "      if (SEG"),
+    ("K1 without its P.V", "flash_attention_fwd.cu",
+     "        hop::rs<D>(o, pa[kk], hop::desc_at(dv, kk * 2048), 1);",
+     "        ;"),
+    ("K1 without its q.K^T", "flash_attention_fwd.cu",
+     "      for (int kk = 0; kk < D / 16; ++kk)\n        hop::ss<BK>(",
+     "      for (int kk = 0; kk < 0; ++kk)\n        hop::ss<BK>("),
+)
 
 
 def defines(variant):
@@ -125,8 +159,51 @@ def sweep(torch, dev):
             f"{x * 1e3:.1f}" if x else "nan" for x in us), flush=True)
 
 
+def ablate(torch, dev):
+    """``times`` for each entry of ``ABLATIONS``, each in its own copy of
+    the package (its libraries built in parallel first), after the
+    package as it is."""
+    from paddle_tpu_torch.ops import _build
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(_build.BUILD_DIR, "ablate")
+    shutil.rmtree(root, ignore_errors=True)
+    trees = []
+    for i, (name, src, text, repl) in enumerate((("as it is", None, "",
+                                                  ""),) + ABLATIONS):
+        tree = os.path.join(root, str(i))
+        shutil.copytree(os.path.join(here, "paddle_tpu_torch"),
+                        os.path.join(tree, "paddle_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build"))
+        for f in ("chip_smoke.py", "flash_probe.py"):
+            shutil.copy(os.path.join(here, f), tree)
+        if src:
+            path = os.path.join(tree, "paddle_tpu_torch", "ops", "csrc", src)
+            with open(path) as fh:
+                code = fh.read()
+            if text not in code:
+                raise RuntimeError(f"ablation {name!r}: its text is not in "
+                                   f"{src} any more")
+            with open(path, "w") as fh:
+                fh.write(code.replace(text, repl, 1))
+        trees.append((name, tree))
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "from paddle_tpu_torch.ops import _build; "
+         "_build.build(('flash_attention_fwd', 'flash_attention_bwd'))"],
+        cwd=tree) for _, tree in trees]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("an ablation did not build")
+    for name, tree in trees:
+        r = subprocess.run([sys.executable, "flash_probe.py", "times"],
+                           cwd=tree, capture_output=True, text=True)
+        for line in r.stdout.splitlines():
+            if "us" in line:
+                print(f"{name}: {line}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv):
-    if not argv or argv[0] not in ("times", "sweep"):
+    if not argv or argv[0] not in ("times", "sweep", "ablate"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -138,7 +215,7 @@ def main(argv):
     dev = torch.device("cuda:0")
     import chip_smoke as cs
     print(f"card: {cs.card_line()}", flush=True)
-    {"times": times, "sweep": sweep}[argv[0]](torch, dev)
+    {"times": times, "sweep": sweep, "ablate": ablate}[argv[0]](torch, dev)
     return 0
 
 

@@ -746,7 +746,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float l_r = stat[rr];
             float p = 0.f;
             if (whole) {
-              p = expf(x[j][c] * g.scale - l_r);
+              p = exp_ex2(x[j][c] * g.scale - l_r);
             } else {
               const int pos = p0 + rr, key = c >= 2 ? k_hi : k_lo;
               const int vis = g.causal ? pos + g.q_offset : g.Lk - 1;
@@ -759,7 +759,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            inv_keys(vis), p, ds);
                 pd[c] = same ? p : 0.f;   // a dead row's 1/n takes no ds
               } else {
-                p = ok ? expf(x[j][c] * g.scale - l_r) : 0.f;
+                p = ok ? exp_ex2(x[j][c] * g.scale - l_r) : 0.f;
               }
             }
             x[j][c] = p;

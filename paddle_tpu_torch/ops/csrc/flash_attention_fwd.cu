@@ -423,10 +423,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        sc[j][0] = expf(sc[j][0] - mn_lo);   // masked: exp(-inf) = 0
-        sc[j][1] = expf(sc[j][1] - mn_lo);
-        sc[j][2] = expf(sc[j][2] - mn_hi);
-        sc[j][3] = expf(sc[j][3] - mn_hi);
+        sc[j][0] = exp_ex2(sc[j][0] - mn_lo);   // masked: exp(-inf) = 0
+        sc[j][1] = exp_ex2(sc[j][1] - mn_lo);
+        sc[j][2] = exp_ex2(sc[j][2] - mn_hi);
+        sc[j][3] = exp_ex2(sc[j][3] - mn_hi);
         sum_lo += sc[j][0] + sc[j][1];
         sum_hi += sc[j][2] + sc[j][3];
       }
@@ -435,8 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, x);
         sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, x);
       }
-      c_lo = expf(m_lo - mn_lo);
-      c_hi = expf(m_hi - mn_hi);
+      c_lo = exp_ex2(m_lo - mn_lo);
+      c_hi = exp_ex2(m_hi - mn_hi);
       l_lo = l_lo * c_lo + sum_lo;
       l_hi = l_hi * c_hi + sum_hi;
       m_lo = mn_lo;

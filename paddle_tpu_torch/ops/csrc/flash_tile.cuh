@@ -2,7 +2,9 @@
 // K3 delta, K4 dK/dV, K5 dQ, and their ROPE instances, K10): the
 // packed-layout geometry, f32 tiles in shared memory with a
 // register-tiled product on the CUDA cores, the bf16 tiles and mma.sync
-// fragments of the tensor-core paths, and the in-tile rotation.
+// fragments of the tensor-core paths (the wgmma kernels reuse their
+// fragment conversion), the in-tile rotation (also on the wgmma kernels'
+// swizzled tiles) and the wgmma kernels' exponential.
 //
 // Layout (the JAX package's projection layout, consumed without a
 // transpose): q/out/dq [B, Lq, H*D], k/v/dk/dv [B, Lk, Hkv*D], row
@@ -70,6 +72,13 @@ __device__ __forceinline__ void seg_p_ds(float s_scaled, float dp, float lse,
     p = lse <= kDeadLse ? inv_n : 0.f;
     ds = 0.f;
   }
+}
+
+// e^x as the wgmma kernels take it: one ex2 of x·log2(e) (exp2f: the
+// hardware's exponential, within 2 ulps in f32 as expf is) in place of
+// expf's range reduction — their softmax is bound by these instructions
+__device__ __forceinline__ float exp_ex2(float x) {
+  return exp2f(x * 1.4426950408889634f);
 }
 
 // the number of keys flattened row r sees (1/n is a dead row's p)

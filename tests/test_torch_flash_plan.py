@@ -4,7 +4,8 @@ The kernels themselves run only on the card (``test_torch_kernels_cuda.py``
 holds them against their plain versions there).  What runs here: which
 instance a call takes, how the wrappers count and report launches, how the
 tile sweep names its builds (``_build`` digests with ``-D`` flags, the
-ptxas log of the library in use), and the sweep's shared-memory plan.
+ptxas log of the library in use), the sweep's shared-memory plan, and
+that every ablation of ``flash_probe.py`` still finds its step.
 """
 import re
 
@@ -106,7 +107,16 @@ def test_sweep_variants_are_distinct_and_the_default_comes_first():
                                       "PTF_DKV_STAGES"), default))
 
 
-@pytest.mark.parametrize("argv", [[], ["bogus"], ["times"], ["sweep"]])
+@pytest.mark.parametrize("ablation", flash_probe.ABLATIONS,
+                         ids=[a[0] for a in flash_probe.ABLATIONS])
+def test_every_ablation_finds_the_step_it_takes_out(ablation):
+    name, src, text, repl = ablation
+    assert (_build._CSRC / src).read_text().count(text) == 1
+    assert repl != text
+
+
+@pytest.mark.parametrize("argv", [[], ["bogus"], ["times"], ["sweep"],
+                                  ["ablate"]])
 def test_probe_needs_a_subcommand_and_a_card(argv, capsys):
     # on the CPU every call stops before measuring anything
     assert flash_probe.main(argv) == 2
