@@ -4,6 +4,8 @@
     python3 flash_probe.py times    # the forward and dK/dV as built now
     python3 flash_probe.py sweep    # the same for each tile variant
     python3 flash_probe.py ablate   # the same with one step taken out
+    python3 flash_probe.py steps [TREE]        # the Llama and BERT steps
+    python3 flash_probe.py ab TREE_A TREE_B    # steps: A, B, B, A
 
 ``times`` gives µs a launch of the forward (K1) and dK/dV (K4) at
 ``chip_smoke.py``'s shapes — Llama (B 16, L 2048, H 16/4, D 128, causal;
@@ -17,8 +19,13 @@ turn, twice over, on one card: the sweep that chose the defaults in the
 sources.  ``ablate`` times copies of the sources with one step of a
 kernel taken out (``ABLATIONS``; their results are wrong, only their
 time counts), built side by side under ``ops/_build/ablate``: what each
-step costs.  bf16, inputs random from fixed seeds.  Exits non-zero
-without a CUDA card.
+step costs.  ``steps`` runs ``chip_smoke.py``'s Llama training step
+(phase 6) and its two BERT steps (phase 8) from TREE (a checkout of this
+repository, another commit unpacked with ``git archive`` say; default
+this one); ``ab`` runs ``steps`` for two trees in turns, each in its own
+process, so two versions are compared on one card within one call.
+bf16, inputs random from fixed seeds.  Exits non-zero without a CUDA
+card.
 """
 import os
 import shutil
@@ -202,20 +209,60 @@ def ablate(torch, dev):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def steps(torch, dev):
+    """The Llama step (ms, and its device time) and the two BERT steps."""
+    import chip_smoke as cs
+
+    llama, _ = cs.phase_train(torch, dev)
+    bert = cs.phase_bert(torch, dev)
+    print(f"steps: Llama {llama['step_ms']:.2f} ms; BERT unmasked "
+          f"{bert['unmasked'][0]['step_ms']:.2f}, padded "
+          f"{bert['padded'][0]['step_ms']:.2f} ms", flush=True)
+
+
+def ab(tree_a, tree_b):
+    """``steps`` for A, B, B, A, each in its own process; prints the lines
+    that carry the numbers."""
+    keep = ("steps:", "profile train step: wall", "profile bert")
+    rc = 0
+    for tree in (tree_a, tree_b, tree_b, tree_a):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "steps", tree], capture_output=True, text=True)
+        rc |= r.returncode
+        for line in r.stdout.splitlines():
+            if line.startswith(keep) and ("wall" in line or "steps" in line):
+                print(f"{tree}: {line}", flush=True)
+        if r.returncode:
+            print(f"{tree} failed:\n{r.stderr[-3000:]}", flush=True)
+    return rc
+
+
 def main(argv):
-    if not argv or argv[0] not in ("times", "sweep", "ablate"):
+    if not argv or argv[0] not in ("times", "sweep", "ablate", "steps",
+                                   "ab"):
         print(__doc__, file=sys.stderr)
         return 2
+    if argv[0] == "ab":
+        if len(argv) != 3:
+            print(__doc__, file=sys.stderr)
+            return 2
+        return ab(*argv[1:3])
+    if argv[0] == "steps" and len(argv) > 1:
+        root = os.path.abspath(argv[1])       # import that tree's package
+        sys.path.insert(0, root)
+        os.chdir(root)
     import torch
 
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     import chip_smoke as cs
     print(f"card: {cs.card_line()}", flush=True)
-    {"times": times, "sweep": sweep, "ablate": ablate}[argv[0]](torch, dev)
+    {"times": times, "sweep": sweep, "ablate": ablate,
+     "steps": steps}[argv[0]](torch, dev)
     return 0
 
 

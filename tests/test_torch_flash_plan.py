@@ -116,7 +116,8 @@ def test_every_ablation_finds_the_step_it_takes_out(ablation):
 
 
 @pytest.mark.parametrize("argv", [[], ["bogus"], ["times"], ["sweep"],
-                                  ["ablate"]])
+                                  ["ablate"], ["steps"], ["ab"],
+                                  ["ab", "."]])
 def test_probe_needs_a_subcommand_and_a_card(argv, capsys):
     # on the CPU every call stops before measuring anything
     assert flash_probe.main(argv) == 2
