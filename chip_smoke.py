@@ -42,9 +42,10 @@ Phases (any failure exits non-zero before the result line):
 5. The training path's kernels against their plain versions at the
    training shape (B 16, L 2048, H 16, Hkv 4, D 128, bf16, causal): K1/K2
    forward (out, lse), K3 delta, K4 dK/dV, K5 dQ, K6 RoPE (forward and
-   inverse, bitwise); the forward, delta and dQ again at the long-context
-   shape (B 1, L 16384: K2 and K5's streamed dQ, timed there with their
-   bounds), the flash kernels once at head_dim 64.  Each
+   inverse, bitwise; its share of the byte bound); every bf16 dQ launch
+   through its wgmma instance; the forward, delta and dQ again at the
+   long-context shape (B 1, L 16384: K2 and K5's streamed dQ, timed there
+   with their bounds), the flash kernels once at head_dim 64.  Each
    kernel's time, its plain version's, its bound and the library
    yardstick (scaled_dot_product_attention forward; its backward stands
    for K3+K4+K5 together).  The loss chunk's bf16 logits GEMM with an f32
@@ -61,7 +62,9 @@ Phases (any failure exits non-zero before the result line):
    random weights and data from seed 0: 2 warm-up and 5 timed steps;
    the loss must be finite and fall; every training kernel must launch
    exactly as often as the model calls it (counters set to 0 just before
-   the timed steps), and no plain version or dense attention may run.
+   the timed steps; the forward, dK/dV and dQ through their wgmma
+   instances, K6 through its vector one), and no plain version or dense
+   attention may run.
    Prints tokens/s, step ms, MFU (``bench.py``'s FLOP count over the
    dense bf16 peak), peak memory, and a profiled step's device-busy
    share and top device operations.
@@ -82,7 +85,8 @@ Phases (any failure exits non-zero before the result line):
    pad tail that must come out zero, H 16, Hkv 4, D 128, causal).  Times
    at both, bounds per same-segment visible pair, and the library
    yardstick (scaled_dot_product_attention with the boolean mask, and
-   its backward) at the BERT shape.
+   its backward against K3+K4+K5); at the BERT shape also the unsegmented
+   instances and SDPA without a mask, forward and backward.
 5c. K10, flash attention with RoPE inside the kernels
    (``flash_attention_packed_rope``, the reference's :1370), on its own
    entry point: forward and backward once at the Llama attention shape
@@ -942,6 +946,14 @@ def check_f32(name, got, ref, atol, rtol):
     return float(d.max())
 
 
+def took_wgmma(kfa, before, key, tag):
+    """Fail unless the launch since ``before`` (a copy of the counters) of
+    flash kernel ``key`` went through its wgmma instance."""
+    moved = {k: kfa.launches[k] - before[k] for k in (key, key + "_wgmma")}
+    check(moved == {key: 1, key + "_wgmma": 1},
+          f"{tag}: {key} did not take its wgmma instance ({moved})")
+
+
 def flash_case(torch, dev, gen, B, L, H, HKV, D, dtype=None):
     dtype = dtype or torch.bfloat16
 
@@ -1052,7 +1064,9 @@ def phase_train_kernels(torch, dev):
         err["delta"] = max(err.get("delta", 0.0), check_f32(
             f"K3 delta {tag}", delta, tfa.flash_delta_reference(do, out, H),
             1e-5, 1e-5))
+        before = dict(kfa.launches)
         dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV, True, sc)
+        took_wgmma(kfa, before, "dq", f"K5 dQ {tag}")
         if not dq_only:
             dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV, True,
                                        sc)
@@ -1173,6 +1187,8 @@ def phase_train_kernels(torch, dev):
               f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
     print(f"library SDPA backward {lib_bwd * 1e3:.1f} us vs K3+K4+K5 "
           f"{(ms['delta'] + ms['dkv'] + ms['dq']) * 1e3:.1f} us", flush=True)
+    print(f"K6 rope: {bounds['rope'][0] / ms['rope']:.3f} of its "
+          f"{bounds['rope'][1]} bound", flush=True)
     res["dkv"]["library_covers"] = "K3+K4+K5 (SDPA backward)"
     del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
@@ -1408,8 +1424,11 @@ def phase_seg_kernels(torch, dev):
         err["delta"] = check_f32(f"K3 delta {tag}", delta,
                                  tfa.flash_delta_reference(do, out, H),
                                  1e-5, 1e-5)
+        before = dict(kfa.launches)
         dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV, causal, sc,
                               qseg, kseg)
+        took_wgmma(kfa, before, "dq" if qseg is None else "dq_seg",
+                   f"K5 dQ {tag}")
         dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV, causal,
                                    sc, qseg, kseg)
         rdq, rdk, rdv = tfa.flash_bwd_reference(q, k, v, do, lse, delta, H,
@@ -1462,6 +1481,7 @@ def phase_seg_kernels(torch, dev):
             dq=time_ms(torch, lambda i: kfa.flash_bwd_dq(
                 q, k, v, do, lse, delta, H, HKV, causal, sc, qseg, kseg),
                 it))
+        k3 = time_ms(torch, lambda i: kfa.flash_delta(do, out, H), 50)
         plain_bwd = time_ms(torch, lambda i: tfa.flash_bwd_reference(
             q, k, v, do, lse, delta, H, HKV, causal, sc, qseg, kseg), 1,
             warm=1)
@@ -1506,10 +1526,18 @@ def phase_seg_kernels(torch, dev):
             del o_u, lse_u, delta_u
             q4, k4, v4 = (x.view(B, L, -1, D).transpose(1, 2)
                           for x in (q, k, v))
-            # K1's yardstick at this shape: SDPA with no mask
-            unseg_lib = time_ms(torch, lambda i:
-                                F.scaled_dot_product_attention(q4, k4, v4),
-                                it)
+            # the yardsticks of K1 and of K3+K4+K5 at this shape: SDPA with
+            # no mask, forward and backward
+            unseg_lib = dict(fwd=time_ms(
+                torch, lambda i: F.scaled_dot_product_attention(q4, k4, v4),
+                it))
+            qg, kg, vg = (x.detach().requires_grad_(True)
+                          for x in (q4, k4, v4))
+            o4 = F.scaled_dot_product_attention(qg, kg, vg)
+            do4 = do.view(B, L, H, D).transpose(1, 2)
+            unseg_lib["dkv"] = time_ms(torch, lambda i: torch.autograd.grad(
+                o4, (qg, kg, vg), do4, retain_graph=True), it)
+            del o4, qg, kg, vg
             m4 = (kseg == 0)[:, None, None, :]
             lib["fwd"] = time_ms(torch, lambda i: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4), it)
@@ -1530,7 +1558,8 @@ def phase_seg_kernels(torch, dev):
             dq=bound(2 * qb + 2 * kb + 2 * stat + qb + segb,
                      6 * D * H * pairs))
         # the unsegmented instances' bounds at the BERT shape: every pair
-        all_pairs = L * L
+        # of every batch row
+        all_pairs = B * L * L
         unseg_bounds = dict(
             fwd=bound(qb + 2 * kb + qb + stat, 4 * D * H * all_pairs),
             dkv=bound(2 * qb + 2 * kb + 2 * stat + 2 * kb,
@@ -1551,15 +1580,26 @@ def phase_seg_kernels(torch, dev):
                                        unsegmented_bound_by=ub_by)
                 uns = (f", unsegmented {unseg[name] * 1e3:.1f} us (bound "
                        f"{ub_ms * 1e3:.2f} us, {ub_by})")
-                if name == "fwd":
-                    res[kind][name]["unsegmented_library_ms"] = unseg_lib
-                    uns += f", SDPA without a mask {unseg_lib * 1e3:.1f} us"
+                if name in unseg_lib:
+                    res[kind][name]["unsegmented_library_ms"] = \
+                        unseg_lib[name]
+                    uns += (f", SDPA {'backward ' if name == 'dkv' else ''}"
+                            f"without a mask {unseg_lib[name] * 1e3:.1f} us")
             print(f"{name} {tag}: {ms[name] * 1e3:.1f} us/launch{uns}, "
                   f"plain {plain[name] * 1e3:.1f} us, library {libs}, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}; {pairs} visible pairs a "
                   "head)", flush=True)
         res[kind]["dkv"]["library_covers"] = \
             "K3+K4+K5 (SDPA backward with the mask)"
+        res[kind]["delta_ms"] = k3
+        print(f"library SDPA backward with the mask "
+              f"{lib['dkv'] * 1e3:.1f} us vs K3+K4+K5 ({tag}) "
+              f"{(k3 + ms['dkv'] + ms['dq']) * 1e3:.1f} us", flush=True)
+        if kind == "bert":
+            print(f"library SDPA backward without a mask "
+                  f"{unseg_lib['dkv'] * 1e3:.1f} us vs K3+K4+K5 (unsegmented "
+                  f"bert) {(k3 + unseg['dkv'] + unseg['dq']) * 1e3:.1f} us",
+                  flush=True)
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return res
@@ -1631,14 +1671,15 @@ def phase_rope_kernels(torch, dev):
                   plain=sum(tfa.plain_runs.values()) + trope.plain_runs)
     want = {key: 0 for key in counts}
     want.update(fwd_rope=1, delta=1, dkv_rope=1, dq_rope=1,
-                fwd_rope_wgmma=1, dkv_rope_wgmma=1)
+                fwd_rope_wgmma=1, dkv_rope_wgmma=1, dq_rope_wgmma=1)
     print(f"K10 main path (flash_attention_packed_rope forward + backward, "
           f"Llama shape) launches: {counts}", flush=True)
     check(counts == want, f"K10 path launches {counts}, expected {want}")
     launches = dict(fwd=counts["fwd_rope"], dkv=counts["dkv_rope"],
                     dq=counts["dq_rope"], delta=counts["delta"])
     launches_wgmma = dict(fwd=counts["fwd_rope_wgmma"],
-                          dkv=counts["dkv_rope_wgmma"])
+                          dkv=counts["dkv_rope_wgmma"],
+                          dq=counts["dq_rope_wgmma"])
     k10 = [out.detach()] + [x.grad for x in xs]
 
     # ---- against the composition the model runs (K6, then K1-K5)
@@ -1684,8 +1725,11 @@ def phase_rope_kernels(torch, dev):
         rdelta = tfa.flash_delta_reference(dd, o, H)
         dk, dv = kfa.flash_bwd_dkv(qq, kk, vv, dd, lse, delta, H, HKV, True,
                                    sc, rope=rope)
+        before = dict(kfa.launches)
         dq = kfa.flash_bwd_dq(qq, kk, vv, dd, lse, delta, H, HKV, True, sc,
                               rope=rope)
+        if dtype == torch.bfloat16 and D in kfa.WGMMA_HEAD_DIMS:
+            took_wgmma(kfa, before, "dq_rope", f"K10 {tag} dQ")
         rdq, rdk, rdv = tfa.flash_bwd_reference(qq, kk, vv, dd, lse, delta, H,
                                                 HKV, True, sc, rope=rope)
         torch.cuda.synchronize()
@@ -1826,7 +1870,10 @@ def kernel_counters():
                     dkv_wgmma=kfa.launches["dkv_wgmma"],
                     fwd_seg_wgmma=kfa.launches["fwd_seg_wgmma"],
                     dkv_seg_wgmma=kfa.launches["dkv_seg_wgmma"],
-                    rope=k6.launches, adamw=k7.launches,
+                    dq_wgmma=kfa.launches["dq_wgmma"],
+                    dq_seg_wgmma=kfa.launches["dq_seg_wgmma"],
+                    rope=k6.launches, rope_vec=k6.launches_vec,
+                    adamw=k7.launches,
                     plain_flash=sum(tfa.plain_runs.values()),
                     plain_rope=trope.plain_runs, plain_adamw=k7.plain_runs,
                     dense_sdpa=attn.dense_runs)
@@ -1836,7 +1883,8 @@ def kernel_counters():
             kfa.launches[key] = 0
         for key in tfa.plain_runs:
             tfa.plain_runs[key] = 0
-        k6.launches = trope.plain_runs = attn.dense_runs = 0
+        k6.launches = k6.launches_vec = trope.plain_runs = 0
+        attn.dense_runs = 0
         k7.launches = k7.plain_runs = 0
     return read, zero
 
@@ -1875,13 +1923,14 @@ def phase_train(torch, dev, n_warm=2, n_steps=5):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     L, n = cfg.num_hidden_layers, n_steps
     rl = cfg.recompute_layers
-    # every bf16 head_dim-128 forward and dK/dV launch took the wgmma
-    # instance
+    # every bf16 head_dim-128 forward, dK/dV and dQ launch took the wgmma
+    # instance, every K6 launch the vector one
     want = dict(fwd=(L + rl) * n, delta=L * n, dkv=L * n, dq=L * n,
                 fwd_seg=0, dkv_seg=0, dq_seg=0, fwd_wgmma=(L + rl) * n,
                 dkv_wgmma=L * n, fwd_seg_wgmma=0, dkv_seg_wgmma=0,
-                rope=(L + rl + L) * n, adamw=n_tensors * n, plain_flash=0,
-                plain_rope=0, plain_adamw=0, dense_sdpa=0)
+                dq_wgmma=L * n, dq_seg_wgmma=0, rope=(L + rl + L) * n,
+                rope_vec=(L + rl + L) * n, adamw=n_tensors * n,
+                plain_flash=0, plain_rope=0, plain_adamw=0, dense_sdpa=0)
     print(f"train launches over {n} steps: {counts}", flush=True)
     check(counts == want, f"kernel launches {counts}, expected {want}")
     tok_s = TRAIN_BATCH * TRAIN_SEQ / dt
@@ -2190,8 +2239,8 @@ def phase_bert(torch, dev, n_warm=2, n_steps=5):
                                       f"{losses}")
         L, n = cfg.num_hidden_layers, n_steps
         seg = lengths is not None
-        # every bf16 head_dim-64 forward and dK/dV launch took the wgmma
-        # instance
+        # every bf16 head_dim-64 forward, dK/dV and dQ launch took the
+        # wgmma instance
         want = dict(fwd=0 if seg else L * n, delta=L * n,
                     dkv=0 if seg else L * n, dq=0 if seg else L * n,
                     fwd_seg=L * n if seg else 0, dkv_seg=L * n if seg else 0,
@@ -2199,8 +2248,10 @@ def phase_bert(torch, dev, n_warm=2, n_steps=5):
                     fwd_wgmma=0 if seg else L * n,
                     dkv_wgmma=0 if seg else L * n,
                     fwd_seg_wgmma=L * n if seg else 0,
-                    dkv_seg_wgmma=L * n if seg else 0, rope=0, adamw=0,
-                    plain_flash=0, plain_rope=0, plain_adamw=0,
+                    dkv_seg_wgmma=L * n if seg else 0,
+                    dq_wgmma=0 if seg else L * n,
+                    dq_seg_wgmma=L * n if seg else 0, rope=0, rope_vec=0,
+                    adamw=0, plain_flash=0, plain_rope=0, plain_adamw=0,
                     dense_sdpa=0)
         print(f"bert {tag} launches over {n} steps: {counts}", flush=True)
         check(counts == want, f"bert {tag} kernel launches {counts}, "
@@ -2317,7 +2368,8 @@ def main():
           flush=True)
     for src in _build.SOURCES:
         for line in _build.ptxas_report(src).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning",
+                                       "Performance Loss")):
                 print(f"ptxas {src}: {line.strip()}", flush=True)
     wg_ptxas = {}
     for src in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -2390,9 +2442,9 @@ def main():
     unmasked = bert["unmasked"][1]
 
     def wgmma(key, SEG, ROPE):
-        """The wgmma instances of a forward or dK/dV entry and their ptxas
-        lines (registers, shared memory, spills)."""
-        kern = "fwd_kernel" if key == "fwd" else "dkv_kernel"
+        """The wgmma instances of a forward, dK/dV or dQ entry and their
+        ptxas lines (registers, shared memory, spills)."""
+        kern = f"{key}_kernel"
         ds = (128,) if ROPE else (64, 128)
         insts = [f"{kern}<D={d}, SEG={SEG}, ROPE={ROPE}>" for d in ds]
         return dict(kernel=[f"ptf::wg::{i}" for i in insts],
@@ -2412,9 +2464,11 @@ def main():
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=train_launches[key],
                      **tk[key])
-        if key in ("fwd", "dkv"):
+        if key in ("fwd", "dkv", "dq"):
             entry.update(wgmma(key, SEG=0, ROPE=0),
                          launches_wgmma=train_launches[key + "_wgmma"])
+        if key == "rope":
+            entry["launches_vec"] = train_launches["rope_vec"]
         if key in sk["unsegmented"]:
             # also held at the BERT shape (and K3 on the segmented runs'
             # outputs); the unmasked BERT run launches them too
@@ -2422,7 +2476,7 @@ def main():
                 entry["max_abs_err"], sk["unsegmented"][key],
                 sk["delta_err"] if key == "delta" else 0.0)
             entry["bert_unmasked_launches"] = unmasked[key]
-            if key in ("fwd", "dkv"):
+            if key != "delta":
                 entry["bert_unmasked_launches_wgmma"] = \
                     unmasked[key + "_wgmma"]
                 entry["bert"] = {f: sk["bert"][key][f] for f in (
@@ -2446,9 +2500,8 @@ def main():
                      replaces=replaces, launches=padded[key + "_seg"],
                      **{f: v for f, v in sk["bert"][key].items()
                         if not f.startswith("unsegmented")})
-        if key in ("fwd", "dkv"):
-            entry.update(wgmma(key, SEG=1, ROPE=0),
-                         launches_wgmma=padded[key + "_seg_wgmma"])
+        entry.update(wgmma(key, SEG=1, ROPE=0),
+                     launches_wgmma=padded[key + "_seg_wgmma"])
         entry["max_abs_err"] = max(sk["bert"][key]["max_abs_err"],
                                    sk["varlen"][key]["max_abs_err"])
         entry["varlen"] = {f: sk["varlen"][key][f] for f in (
@@ -2467,9 +2520,8 @@ def main():
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=f"{fa}:{line}", branch="rope=True",
                      via=f"{fa}:1370", **rk10[key])
-        if key in ("fwd", "dkv"):
-            entry.update(wgmma(key, SEG=0, ROPE=1),
-                         launches_wgmma=rk10[key]["launches_wgmma"])
+        entry.update(wgmma(key, SEG=0, ROPE=1),
+                     launches_wgmma=rk10[key]["launches_wgmma"])
         kernels.append(entry)
     for k in kernels:
         k.pop("max_ulps", None)

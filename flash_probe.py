@@ -1,31 +1,32 @@
 #!/usr/bin/env python3
 """Measurements behind the flash kernels' wgmma instances on one NVIDIA card.
 
-    python3 flash_probe.py times    # the forward and dK/dV as built now
+    python3 flash_probe.py times [TREE]  # the forward, dK/dV, dQ as built
     python3 flash_probe.py sweep    # the same for each tile variant
     python3 flash_probe.py ablate   # the same with one step taken out
-    python3 flash_probe.py steps [TREE]        # the Llama and BERT steps
+    python3 flash_probe.py steps [TREE]        # times, then the steps
     python3 flash_probe.py ab TREE_A TREE_B    # steps: A, B, B, A
 
-``times`` gives µs a launch of the forward (K1) and dK/dV (K4) at
-``chip_smoke.py``'s shapes — Llama (B 16, L 2048, H 16/4, D 128, causal;
-phase 5) and BERT (B 64, L 512, H 12, D 64, no mask; phase 5b) — by CUDA
-events over back-to-back launches and by device time from the profiler,
-beside SDPA's forward at the same shapes.  ``sweep`` builds every entry of
-``VARIANTS`` (keys a forward ring stage, the forward's and dK/dV's stage
-counts: ``-D`` flags of ``csrc/flash_attention_fwd.cu`` and
+``times`` gives µs a launch of the forward (K1), dK/dV (K4) and dQ (K5)
+at ``chip_smoke.py``'s shapes — Llama (B 16, L 2048, H 16/4, D 128,
+causal; phase 5, with K6 there too) and BERT (B 64, L 512, H 12, D 64, no
+mask; phase 5b) — by CUDA events over back-to-back launches and by device
+time from the profiler, beside SDPA's forward at the same shapes.
+``sweep`` builds every entry of ``VARIANTS`` (keys a forward ring stage,
+the forward's, dK/dV's and dQ's stage counts and dQ's schedule: ``-D``
+flags of ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``), all builds at once, then times each in
 turn, twice over, on one card: the sweep that chose the defaults in the
 sources.  ``ablate`` times copies of the sources with one step of a
 kernel taken out (``ABLATIONS``; their results are wrong, only their
 time counts), built side by side under ``ops/_build/ablate``: what each
-step costs.  ``steps`` runs ``chip_smoke.py``'s Llama training step
-(phase 6) and its two BERT steps (phase 8) from TREE (a checkout of this
-repository, another commit unpacked with ``git archive`` say; default
-this one); ``ab`` runs ``steps`` for two trees in turns, each in its own
-process, so two versions are compared on one card within one call.
-bf16, inputs random from fixed seeds.  Exits non-zero without a CUDA
-card.
+step costs.  ``steps`` runs ``times`` and then ``chip_smoke.py``'s Llama
+training step (phase 6) and its two BERT steps (phase 8) from TREE (a
+checkout of this repository, another commit unpacked with ``git
+archive`` say; default this one); ``ab`` runs ``steps`` for two trees in
+turns, each in its own process, so two versions' kernels and steps are
+compared on one card within one call.  bf16, inputs random from fixed
+seeds.  Exits non-zero without a CUDA card.
 """
 import os
 import shutil
@@ -33,8 +34,12 @@ import subprocess
 import sys
 import threading
 
-#: (PTF_FWD_KEYS, PTF_FWD_STAGES, PTF_DKV_STAGES); the first is the default
-VARIANTS = ((64, 4, 3), (64, 2, 2), (64, 3, 3), (64, 4, 2))
+#: (PTF_FWD_KEYS, PTF_FWD_STAGES, PTF_DKV_STAGES, PTF_DQ_STAGES,
+#: PTF_DQ_PINGPONG); the first is the default
+MACROS = ("PTF_FWD_KEYS", "PTF_FWD_STAGES", "PTF_DKV_STAGES",
+          "PTF_DQ_STAGES", "PTF_DQ_PINGPONG")
+VARIANTS = ((64, 4, 3, 3, 1), (64, 4, 3, 4, 1), (64, 4, 3, 3, 0),
+            (64, 4, 3, 4, 0), (64, 4, 3, 2, 1))
 SHAPES = (("Llama", dict(B=16, L=2048, H=16, HKV=4, D=128), True),
           ("BERT", dict(B=64, L=512, H=12, HKV=12, D=64), False))
 
@@ -45,17 +50,22 @@ SMEM_LIMIT = 232448 - 256
 
 
 def smem_bytes(variant, d=128):
-    """Dynamic shared memory of the forward and the dK/dV blocks at head
-    dim ``d`` under ``variant`` (the sources' FwdSmem and DkvSmem: 1024
-    bytes of alignment slack; a forward block's 128 q rows, and a stage's
-    K and V tiles with their int32 segment ids; a dK/dV block's 64 keys of
-    K and V, and a stage's q and dO tiles of 64 rows, the f32 p tile and
-    the rows' lse, delta and segment ids, 1024-byte aligned)."""
-    keys, fwd_stages, dkv_stages = variant
+    """Dynamic shared memory of the forward, the dK/dV and the dQ blocks
+    at head dim ``d`` under ``variant`` (the sources' FwdSmem, DkvSmem and
+    DqSmem: 1024 bytes of alignment slack; a forward block's 128 q rows,
+    and a stage's K and V tiles with their int32 segment ids; a dK/dV
+    block's 64 keys of K and V, and a stage's q and dO tiles of 64 rows,
+    the f32 p tile and the rows' lse, delta and segment ids, 1024-byte
+    aligned; a dQ block's 128 rows of q and of dO and each consumer
+    warpgroup's [64][64] bf16 dS tile, and a stage's 64-key K and V tiles
+    with their segment ids)."""
+    keys, fwd_stages, dkv_stages, dq_stages, _ = variant
     fwd = 1024 + 128 * d * 2 + fwd_stages * (2 * keys * d * 2 + keys * 4)
     stage = -(-(2 * 64 * d * 2 + 64 * 64 * 4 + 3 * 64 * 4) // 1024)
     dkv = 1024 + 2 * 64 * d * 2 + dkv_stages * stage * 1024
-    return fwd, dkv
+    dq = 1024 + 2 * 128 * d * 2 + 2 * 64 * 64 * 2 \
+        + dq_stages * (2 * 64 * d * 2 + 64 * 4)
+    return fwd, dkv, dq
 
 
 #: (name, source, text, replacement): one step of a kernel taken out
@@ -82,20 +92,33 @@ ABLATIONS = (
     ("K1 without its q.K^T", "flash_attention_fwd.cu",
      "      for (int kk = 0; kk < D / 16; ++kk)\n        hop::ss<BK>(",
      "      for (int kk = 0; kk < 0; ++kk)\n        hop::ss<BK>("),
+    ("K5 without its p step (exp, masks)", "flash_attention_bwd.cu",
+     "      hop::fence_regs(x);\n      if (!SEG && key0 + BK - 1 <= vis_min)",
+     "      hop::fence_regs(x);\n      return;\n"
+     "      if (!SEG && key0 + BK - 1 <= vis_min)"),
+    ("K5 without its ds step", "flash_attention_bwd.cu",
+     "      hop::fence_regs(dp);\n#pragma unroll",
+     "      hop::fence_regs(dp);\n      return;\n#pragma unroll"),
+    ("K5 without its dq product", "flash_attention_bwd.cu",
+     "      for (int kk = 0; kk < BK / 16; ++kk)\n        hop::ss<D, 1>(",
+     "      for (int kk = 0; kk < 0; ++kk)\n        hop::ss<D, 1>("),
+    ("K5 without its score products (s and dp)", "flash_attention_bwd.cu",
+     "      for (int kk = 0; kk < D / 16; ++kk)\n        hop::ss<BK>(",
+     "      for (int kk = 0; kk < 0; ++kk)\n        hop::ss<BK>("),
 )
 
 
 def defines(variant):
-    keys, fwd_stages, dkv_stages = variant
-    return (f"-DPTF_FWD_KEYS={keys}", f"-DPTF_FWD_STAGES={fwd_stages}",
-            f"-DPTF_DKV_STAGES={dkv_stages}")
+    return tuple(f"-D{m}={x}" for m, x in zip(MACROS, variant))
 
 
 def times(torch, dev, tag=""):
-    """µs a launch of K1 and K4 at both shapes (events, device time), and
-    SDPA's forward; returns {(shape, kernel): device µs}."""
+    """µs a launch of K1, K4 and K5 at both shapes and of K6 at the Llama
+    shape (events, device time), and SDPA's forward; returns {(shape,
+    kernel): device µs}."""
     import chip_smoke as cs
     from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+    from paddle_tpu_torch.ops import fused_rope_cuda as k6
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(97)
@@ -110,7 +133,14 @@ def times(torch, dev, tag=""):
             fwd=(lambda i: kfa.flash_fwd(q, k, v, H, HKV, causal, sc),
                  "fwd_kernel"),
             dkv=(lambda i: kfa.flash_bwd_dkv(q, k, v, do, lse, delta, H, HKV,
-                                             causal, sc), "dkv_kernel"))
+                                             causal, sc), "dkv_kernel"),
+            dq=(lambda i: kfa.flash_bwd_dq(q, k, v, do, lse, delta, H, HKV,
+                                           causal, sc), "dq_kernel"))
+        if causal:
+            ang = torch.rand(L, D, generator=gen, device=dev) * 6.0
+            cos, sin = (x.to(torch.bfloat16) for x in (ang.cos(), ang.sin()))
+            calls["rope"] = (lambda i: k6.rope(q, k, cos, sin, H, HKV),
+                             "rope_kernel")
         for kern, (fn, key) in calls.items():
             ev = cs.time_ms(torch, fn, 10)
             dv = cs.device_ms(torch, fn, key, 10)
@@ -154,13 +184,14 @@ def sweep(torch, dev):
                 continue
             _build.DEFINES = defines(v)
             _build._libs.clear()
-            got = times(torch, dev, f"keys {v[0]}, stages {v[1]}/{v[2]}: ")
+            got = times(torch, dev, f"keys {v[0]}, stages {v[1]}/{v[2]}/"
+                        f"{v[3]}, dq pingpong {v[4]}: ")
             for key, us in got.items():
                 table.setdefault((v, key), []).append(us)
     _build.DEFINES = ()
     _build._libs.clear()
-    print("variant (keys, fwd stages, dkv stages) | shape kernel | device "
-          "us, both passes", flush=True)
+    print("variant (keys, fwd/dkv/dq stages, dq pingpong) | shape kernel | "
+          "device us, both passes", flush=True)
     for (v, (shape, kern)), us in table.items():
         print(f"{v} | {shape} {kern} | " + ", ".join(
             f"{x * 1e3:.1f}" if x else "nan" for x in us), flush=True)
@@ -196,7 +227,8 @@ def ablate(torch, dev):
         trees.append((name, tree))
     builds = [subprocess.Popen(
         [sys.executable, "-c", "from paddle_tpu_torch.ops import _build; "
-         "_build.build(('flash_attention_fwd', 'flash_attention_bwd'))"],
+         "_build.build(('flash_attention_fwd', 'flash_attention_bwd', "
+         "'fused_rope'))"],
         cwd=tree) for _, tree in trees]
     if any(b.wait() for b in builds):
         raise RuntimeError("an ablation did not build")
@@ -210,9 +242,11 @@ def ablate(torch, dev):
 
 
 def steps(torch, dev):
-    """The Llama step (ms, and its device time) and the two BERT steps."""
+    """The kernels' times, then the Llama step (ms, and its device time)
+    and the two BERT steps."""
     import chip_smoke as cs
 
+    times(torch, dev)
     llama, _ = cs.phase_train(torch, dev)
     bert = cs.phase_bert(torch, dev)
     print(f"steps: Llama {llama['step_ms']:.2f} ms; BERT unmasked "
@@ -230,7 +264,8 @@ def ab(tree_a, tree_b):
                             "steps", tree], capture_output=True, text=True)
         rc |= r.returncode
         for line in r.stdout.splitlines():
-            if line.startswith(keep) and ("wall" in line or "steps" in line):
+            if line.startswith(keep) and ("wall" in line or "steps" in line) \
+                    or "us/launch" in line:
                 print(f"{tree}: {line}", flush=True)
         if r.returncode:
             print(f"{tree} failed:\n{r.stderr[-3000:]}", flush=True)
@@ -247,7 +282,7 @@ def main(argv):
             print(__doc__, file=sys.stderr)
             return 2
         return ab(*argv[1:3])
-    if argv[0] == "steps" and len(argv) > 1:
+    if argv[0] in ("steps", "times") and len(argv) > 1:
         root = os.path.abspath(argv[1])       # import that tree's package
         sys.path.insert(0, root)
         os.chdir(root)

@@ -33,7 +33,9 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the only card the libraries are built for (compute capability 9.0)
 TARGET = "sm_90a"
 #: extra ``-D`` flags for every build (``flash_probe.py`` sets the flash
-#: kernels' tile sizes with them); part of each library's digest
+#: kernels' tile sizes, ring stages and dQ schedule with them:
+#: ``PTF_FWD_KEYS``, ``PTF_FWD_STAGES``, ``PTF_DKV_STAGES``,
+#: ``PTF_DQ_STAGES``, ``PTF_DQ_PINGPONG``); part of each library's digest
 DEFINES = ()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -61,7 +63,7 @@ _SIGNATURES = {
             _P] * 7 + [_I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "fused_rope": {
         "fused_rope": [_I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P]},
+                       _I, _I, _I, _I, _I, _I, _I, _P]},
     "fused_adamw": {
         "fused_adamw_q8": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L]
         + [_F] * 9 + [_P]},

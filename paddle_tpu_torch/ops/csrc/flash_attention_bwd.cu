@@ -25,16 +25,14 @@
 // What bounds K4 and K5 on the card: operations (the two passes together
 // do 2.5x the forward's, 10·D per visible (query head, key) pair, counting
 // the score recomputed in both passes once).  For bf16 at head_dim 64/128
-// (the training path) K4 runs as the `wg` instance below — wgmma fed by a
-// TMA ring of q/dO tiles, one consumer warpgroup per gradient — and K5 on
-// the tensor cores with mma.sync (the `mma` path: redesigning it on the
-// same building blocks is the next step); f32, f16 and head_dim 256 run in
-// f32 on the CUDA cores with register micro-tiles.  As in the reference,
-// p and ds are
-// computed in f32 and rounded to the input dtype where they enter a
-// product (dV = p^T·do, dK = ds^T·q, dQ = ds·k); ds is built from the
-// unrounded p.  Every sum runs in a fixed order: results are bitwise
-// reproducible.
+// (the training path) K4 and K5 run as the `wg` instances below — wgmma
+// fed by a TMA ring (K4: of q/dO tiles, one consumer warpgroup per
+// gradient; K5: of K/V tiles, two consumer warpgroups of 64 positions);
+// f32, f16 and head_dim 256 run in f32 on the CUDA cores with register
+// micro-tiles.  As in the reference, p and ds are computed in f32 and
+// rounded to the input dtype where they enter a product (dV = p^T·do,
+// dK = ds^T·q, dQ = ds·k); ds is built from the unrounded p.  Every sum
+// runs in a fixed order: results are bitwise reproducible.
 //
 // Segment masks (the reference's segmented=True branches of
 // _bwd_dkv_kernel :754-812, _bwd_dq_kernel :879-927 and
@@ -53,11 +51,11 @@
 // at head_dim 128 (bf16 on the tensor cores) and 256.  q and k arrive raw
 // and are re-rotated in shared memory from the residuals: K4 rotates its
 // K tile once and each q tile of its sweep, K5 its q tile once and each K
-// tile of its sweep (flash_tile.cuh); where a tensor-core kernel also
-// needs a tile transposed, the rotated tile is transposed in shared
-// memory.  dK and dQ accumulate in rotated space in f32 and are rotated
-// back with -sin on the accumulator (the tables widened to f32) before
-// their one cast; dV is not rotated.  K3 needs no switch (out and dout
+// tile of its sweep (flash_tile.cuh; the wgmma instances on their
+// swizzled tiles, which they also read transposed).  dK and dQ accumulate
+// in rotated space in f32 and are rotated back with -sin on the
+// accumulator (the tables widened to f32) before their one cast; dV is
+// not rotated.  K3 needs no switch (out and dout
 // are not rotated).
 #include "flash_tile.cuh"
 #include "hopper.cuh"
@@ -352,185 +350,6 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CD; ++c) dq[o + tx + 16 * c] = from_f32<T>(acc[i][c]);
   }
 }
-
-// ------------------------------------------- K5 on the tensor cores (bf16)
-// dQ for bf16 at head_dim 64/128 with the three products on the tensor
-// cores (mma.sync, flash_tile.cuh): block = 4 warps over 64 rows, q
-// fragments in registers, per 64-key tile s = q·K^T and dp = do·V^T into
-// f32 fragments, ds = p (dp - delta) scale in registers, dq += ds·K with
-// ds rounded to bf16 straight into the A fragments (the reference's
-// rounding point).
-namespace mma {
-
-template <int D, bool SEG, bool ROPE>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const int* __restrict__ qseg, const int* __restrict__ kseg,
-              Rope<__nv_bfloat16> rp, __nv_bfloat16* __restrict__ dq,
-              Geom g) {
-  constexpr int QS = D + 8, VS = kKeys + 8;
-  constexpr int KD = D / 16, NT = kKeys / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + kRows * QS;   // [64][QS]
-  __nv_bfloat16* Ks = dOs + kRows * QS;   // [64 keys][QS]
-  __nv_bfloat16* Vs = Ks + kKeys * QS;    // [64 keys][QS]
-  __nv_bfloat16* Kt = Vs + kKeys * QS;    // [D][VS]
-  __shared__ int kseg_s[SEG ? kKeys : 1];
-
-  const int n_tiles = g.Lq * g.G / kRows;
-  const int tile = g.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
-  const int r0 = tile * kRows, kvh = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int lo = 16 * warp + gq, hi = lo + 8;
-
-  load_rows<D>(Qs, q, g, b, kvh, r0);
-  load_rows<D>(dOs, dout, g, b, kvh, r0);
-  __syncthreads();
-  if constexpr (ROPE) {   // rotate the q tile before its fragments load
-    rope_rows<D>(Qs, kRows, rp.qcos, rp.qsin, r0, g.G);
-    __syncthreads();
-  }
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    qa[kk][0] = ld32(Qs + lo * QS + 16 * kk + 2 * tq);
-    qa[kk][1] = ld32(Qs + hi * QS + 16 * kk + 2 * tq);
-    qa[kk][2] = ld32(Qs + lo * QS + 16 * kk + 8 + 2 * tq);
-    qa[kk][3] = ld32(Qs + hi * QS + 16 * kk + 8 + 2 * tq);
-  }
-  const float lse_lo = lse[stat_off(g, b, kvh, r0 + lo)];
-  const float lse_hi = lse[stat_off(g, b, kvh, r0 + hi)];
-  const float dl_lo = delta[stat_off(g, b, kvh, r0 + lo)];
-  const float dl_hi = delta[stat_off(g, b, kvh, r0 + hi)];
-  const int vis_lo = g.causal ? (r0 + lo) / g.G + g.q_offset : g.Lk - 1;
-  const int vis_hi = g.causal ? (r0 + hi) / g.G + g.q_offset : g.Lk - 1;
-  const int qs_lo = SEG ? row_seg(qseg, g, b, r0 + lo) : 0;
-  const int qs_hi = SEG ? row_seg(qseg, g, b, r0 + hi) : 0;
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int key_end =
-      g.causal ? min(g.Lk, (r0 + kRows - 1) / g.G + g.q_offset + 1) : g.Lk;
-  const long long stride = static_cast<long long>(g.Hkv) * D;
-  const long long kv0 = static_cast<long long>(b) * g.Lk * stride +
-                        static_cast<long long>(kvh) * D;
-
-  for (int key0 = 0; key0 < key_end; key0 += kKeys) {
-    __syncthreads();   // the previous tile's K and V reads are done
-    // with ROPE, K^T is made from the rotated K tile below
-    load_kv<D>(Ks, ROPE ? nullptr : Kt, Vs, k, v,
-               kv0 + key0 * stride, stride);
-    if (SEG && threadIdx.x < kKeys)
-      kseg_s[threadIdx.x] = kseg[static_cast<long long>(b) * g.Lk + key0 +
-                                 threadIdx.x];
-    __syncthreads();
-    if constexpr (ROPE) {
-      rope_rows<D>(Ks, kKeys, rp.kcos, rp.ksin, key0, 1);
-      __syncthreads();
-      transpose_tile<D>(Kt, Ks);
-      __syncthreads();
-    }
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const uint32_t da[4] = {ld32(dOs + lo * QS + 16 * kk + 2 * tq),
-                              ld32(dOs + hi * QS + 16 * kk + 2 * tq),
-                              ld32(dOs + lo * QS + 16 * kk + 8 + 2 * tq),
-                              ld32(dOs + hi * QS + 16 * kk + 8 + 2 * tq)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int o = (8 * j + gq) * QS + 16 * kk + 2 * tq;
-        mma16816(s[j], qa[kk], ld32(Ks + o), ld32(Ks + o + 8));
-        mma16816(dp[j], da, ld32(Vs + o), ld32(Vs + o + 8));
-      }
-    }
-    // ds in place of s: p = exp(s * scale - lse), 0 where masked
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = key0 + 8 * j + 2 * tq + (c & 1);
-        const bool up = c >= 2;
-        const int vis = up ? vis_hi : vis_lo;
-        if constexpr (SEG) {
-          float p, ds = 0.f;
-          if (key <= vis)
-            seg_p_ds(s[j][c] * g.scale, dp[j][c], up ? lse_hi : lse_lo,
-                     up ? dl_hi : dl_lo, g.scale,
-                     (up ? qs_hi : qs_lo) == kseg_s[8 * j + 2 * tq + (c & 1)],
-                     inv_keys(vis), p, ds);
-          s[j][c] = ds;
-        } else {
-          const float p =
-              key <= vis ? expf(s[j][c] * g.scale - (up ? lse_hi : lse_lo))
-                         : 0.f;
-          s[j][c] = p * (dp[j][c] - (up ? dl_hi : dl_lo)) * g.scale;
-        }
-      }
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t a[4];
-      a_frag(s[2 * kk], s[2 * kk + 1], a);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* kr = Kt + (8 * n + gq) * VS + 16 * kk + 2 * tq;
-        mma16816(acc[n], a, ld32(kr), ld32(kr + 8));
-      }
-    }
-  }
-  if constexpr (ROPE) {   // dQ back from rotated space: fragments n, n + ND/2
-    const long long t_lo = static_cast<long long>((r0 + lo) / g.G) * D;
-    const long long t_hi = static_cast<long long>((r0 + hi) / g.G) * D;
-#pragma unroll
-    for (int n = 0; n < ND / 2; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        unrope_pair(acc[n][c], acc[n + ND / 2][c], rp.qcos, rp.qsin,
-                    (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1), D / 2);
-  }
-  const long long o_lo = row_off<D>(g, b, kvh, r0 + lo);
-  const long long o_hi = row_off<D>(g, b, kvh, r0 + hi);
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    *reinterpret_cast<uint32_t*>(dq + o_lo + 8 * n + 2 * tq) =
-        pack(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(dq + o_hi + 8 * n + 2 * tq) =
-        pack(acc[n][2], acc[n][3]);
-  }
-}
-
-template <int D, bool SEG, bool ROPE = false>
-int launch_dq(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((2 * kRows + 2 * kKeys) * (D + 8) + D * (kKeys + 8));
-  if (g.Lk % kKeys != 0) return -1;
-  cudaError_t err = set_smem(dq_kernel<D, SEG, ROPE>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.Lq * g.G / kRows, g.Hkv, g.B);
-  dq_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      a.qseg, a.kseg, a.rope.as<__nv_bfloat16>(),
-      static_cast<__nv_bfloat16*>(a.dq), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace mma
 
 // ------------------------------------- K4 on the tensor cores (bf16, wgmma)
 // dK/dV for bf16 at head_dim 64/128 on Hopper's asynchronous tensor-core
@@ -881,6 +700,437 @@ int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------- K5 on the tensor cores (bf16, wgmma)
+// dQ for bf16 at head_dim 64/128 on the same building blocks.  Block (head
+// h, batch b, position tile) owns kDqRows = 128 positions of ONE query
+// head, the forward's layout: q and dO arrive once by TMA (rows past Lq
+// zero-filled), each consumer thread reads its two rows' lse and delta
+// (and segment ids) into registers.  A producer warp streams the kv
+// head's 64-key K and V tiles, with their key segment ids (SEG), through a
+// ring of kDqStages stages; causal blocks stop at their last visible key
+// and run longest first.  Each of the two consumer warpgroups owns 64
+// positions and, per key tile, takes s = q·K^T and dp = dO·V^T (wgmma,
+// both operands K-major in shared memory), rebuilds p = 2^(s·scale·log2 e
+// - lse·log2 e) on the accumulator fragments (the scale and log2 e folded
+// into one multiply-add, one ex2), forms ds = p (dp - delta) scale,
+// rounds it to bf16 (the reference's rounding point) into the
+// warpgroup's own 128-byte-swizzled [64][64] dS tile in shared memory once
+// every product of the warpgroup is done, and adds dq += ds·K (wgmma, both
+// operands in shared memory) with K read MN-major through the transpose
+// bit from the same swizzled stage tile — no transposed copy.  dS goes
+// through shared memory, not the register A operand: s (32 registers a
+// thread), dp (32), dQ (64 at head_dim 128) and 16 registers of A
+// fragments were more than ptxas keeps for a pipelined wgmma loop, and it
+// serialised every product (C7512).  Only key tiles that cross a row's
+// causal limit (or the end of K) test the mask per element; SEG tests
+// each pair's segments too: only same-segment pairs take p and ds
+// (seg_p_ds's 1/n on a dead row's cross-segment keys feeds dV, never ds),
+// and a warp none of whose pairs in the tile does skips the exponentials.
+// Two schedules (PTF_DQ_PINGPONG): 0 issues the next tile's s before this
+// tile's dq product and rebuilds its p while the tensor cores run dq and
+// the next dp; 1 lets the two warpgroups take the tensor cores in turns
+// through named barriers, each issuing its dq, s and dp products in one
+// turn and rebuilding p and ds while the other's run.  flash_probe.py
+// sweep chose 1 (6% less time than 0 at the Llama and BERT shapes once
+// dS left the registers; 24% more while ptxas serialised the products)
+// and 3 stages (4 within 2%, 2 stages 25% slower).  dQ sums the key tiles
+// in one fixed order: bitwise reproducible.  ROPE: each consumer rotates
+// its q rows once after they land; the producer warpgroup's three idle
+// warps rotate each K tile as it lands (fence.proxy.async, then an
+// mbarrier the consumers wait on), so the consumers never stop for it; dq
+// goes back from rotated space with -sin on the f32 accumulators before
+// its one cast.  K/V stream, so the long (streamed) shape is the same
+// kernel.
+
+#ifndef PTF_DQ_STAGES
+#define PTF_DQ_STAGES 3
+#endif
+#ifndef PTF_DQ_PINGPONG
+#define PTF_DQ_PINGPONG 1
+#endif
+constexpr int kDqRows = 64 * kConsumers;         // positions a block
+constexpr int kDqKeys = 64;                      // keys a ring stage
+constexpr int kDqStages = PTF_DQ_STAGES;
+
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = kDqRows * D * 2;     // bytes of the q or dO tile
+  static constexpr int kDS = 64 * kDqKeys * 2;   // of a warpgroup's dS tile
+  static constexpr int kKV = kDqKeys * D * 2;    // of one K or V tile
+  static constexpr size_t kBytes = 1024 + 2 * kQ + kConsumers * kDS +
+                                   2 * kDqStages * kKV +
+                                   kDqStages * kDqKeys * 4;
+};
+
+// The register split: the ROPE instance's producer warpgroup rotates K
+// tiles, which needs more than the 24 registers of a load-issuing warp
+template <bool ROPE>
+struct DqRegs {
+  static constexpr int kProducer = ROPE ? 56 : kProducerRegs;
+  static constexpr int kConsumer = ROPE ? 224 : kConsumerRegs;
+};
+
+template <int D, bool SEG, bool ROPE>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ qseg, const int* __restrict__ kseg,
+              Rope<__nv_bfloat16> rp, __nv_bfloat16* __restrict__ dq,
+              Geom g) {
+  using Sm = DqSmem<D>;
+  using Rg = DqRegs<ROPE>;
+  constexpr int S = kDqStages, BK = kDqKeys, BM = kDqRows, NB = D / 64;
+  constexpr int NT = BK / 8, ND = D / 8;
+  constexpr int kRotators = 96;                  // the producer's warps 1-3
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);       // [NB][BM][64]
+  unsigned char* dOs = Qs + Sm::kQ;              // [NB][BM][64]
+  unsigned char* dSs = dOs + Sm::kQ;             // [kConsumers][64][BK]
+  unsigned char* KVs = dSs + kConsumers * Sm::kDS;   // stage s: K, then V
+  int* kseg_s = reinterpret_cast<int*>(KVs + 2 * S * Sm::kKV);   // [S][BK]
+  __shared__ __align__(8) uint64_t full[S], empty[S], kready[S], qbar;
+
+  const int n_pt = (g.Lq + BM - 1) / BM;
+  const int pt = g.causal ? n_pt - 1 - static_cast<int>(blockIdx.z)
+                          : static_cast<int>(blockIdx.z);
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / g.G;
+  const int p0 = pt * BM;
+  const int key_end =
+      g.causal ? min(g.Lk, min(p0 + BM, g.Lq) - 1 + g.q_offset + 1) : g.Lk;
+  const int n_kt = (key_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(&full[s], 32);
+      hop::mbar_init(&empty[s], 128 * kConsumers);
+      hop::mbar_init(&kready[s], kRotators);
+    }
+    hop::mbar_init(&qbar, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hop::warpgroup() == 0) {
+    // ---- producer warpgroup: warp 0 issues the loads, ROPE: 1-3 rotate
+    hop::regs_dec<Rg::kProducer>();
+    const int lane = threadIdx.x & 31;
+    if (hop::warp_in_warpgroup() == 0) {
+      if (lane == 0) {
+        hop::mbar_arrive_tx(&qbar, 2 * Sm::kQ);
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_3d(Qs + c * BM * 128, &tq, &qbar, h * D + 64 * c, p0,
+                           b);
+          hop::tma_load_3d(dOs + c * BM * 128, &tdo, &qbar, h * D + 64 * c,
+                           p0, b);
+        }
+      }
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % S, key0 = t * BK;
+        hop::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        if (lane == 0) {   // the tiles first: they land while the lanes load
+          unsigned char* ks = KVs + 2 * s * Sm::kKV;
+          hop::mbar_expect_tx(&full[s], 2 * Sm::kKV);
+          for (int c = 0; c < NB; ++c) {
+            hop::tma_load_3d(ks + c * BK * 128, &tk, &full[s],
+                             kvh * D + 64 * c, key0, b);
+            hop::tma_load_3d(ks + Sm::kKV + c * BK * 128, &tv, &full[s],
+                             kvh * D + 64 * c, key0, b);
+          }
+        }
+        if constexpr (SEG) {
+          for (int i = lane; i < BK; i += 32) {
+            const int key = key0 + i;
+            kseg_s[s * BK + i] =
+                key < g.Lk ? kseg[static_cast<long long>(b) * g.Lk + key]
+                           : INT_MIN;
+          }
+        }
+        hop::mbar_arrive(&full[s]);
+      }
+    } else if constexpr (ROPE) {
+      // each K tile rotated where it landed, then handed to the consumers
+      const int rt = threadIdx.x - 32;
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % S;
+        hop::mbar_wait(&full[s], (t / S) & 1);
+        mma::rope_sw128(KVs + 2 * s * Sm::kKV, BK, 0, min(BK, g.Lk - t * BK),
+                        rp.kcos, rp.ksin, t * BK, rt, kRotators);
+        hop::fence_proxy_async();
+        hop::mbar_arrive(&kready[s]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query positions each
+    hop::regs_inc<Rg::kConsumer>();
+    const int wgi = hop::warpgroup() - 1;
+    const int wt = threadIdx.x & 127;
+    const int warp = wt >> 5, lane = wt & 31, gq = lane >> 2, tq = lane & 3;
+    const int r_lo = p0 + 64 * wgi + 16 * warp + gq, r_hi = r_lo + 8;
+    const int last = g.Lk - 1;
+    const int vis_lo = g.causal ? min(r_lo + g.q_offset, last) : last;
+    const int vis_hi = g.causal ? min(r_hi + g.q_offset, last) : last;
+    // the warpgroup's smallest limit: key tiles below it need no mask
+    const int vis_min =
+        g.causal ? min(p0 + 64 * wgi + g.q_offset, last) : last;
+    // the rows' statistics; a row past Lq gets lse = +inf, so p = 0
+    const long long so = (static_cast<long long>(b) * g.H + h) * g.Lq;
+    const bool in_lo = r_lo < g.Lq, in_hi = r_hi < g.Lq;
+    const float inf = __uint_as_float(0x7f800000u);
+    const float lse_lo = in_lo ? lse[so + r_lo] : inf;
+    const float lse_hi = in_hi ? lse[so + r_hi] : inf;
+    const float dl_lo = in_lo ? delta[so + r_lo] : 0.f;
+    const float dl_hi = in_hi ? delta[so + r_hi] : 0.f;
+    // p = 2^(s·sl2 - l2): the scale and log2 e in one multiply-add
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float sl2 = g.scale * kLog2e;
+    const float l2_lo = lse_lo * kLog2e, l2_hi = lse_hi * kLog2e;
+    int qs_lo = 0, qs_hi = 0;
+    if constexpr (SEG) {
+      const long long qb = static_cast<long long>(b) * g.Lq;
+      qs_lo = in_lo ? qseg[qb + r_lo] : -1;
+      qs_hi = in_hi ? qseg[qb + r_hi] : -1;
+    }
+    // descriptors of this warpgroup's q and dO rows and dS tile, and of
+    // stage 0's K (K-major for the scores, MN-major for dq) and V
+    unsigned char* dS = dSs + wgi * Sm::kDS;
+    const uint64_t dq0 = hop::desc_sw128(Qs + 64 * wgi * 128, 0);
+    const uint64_t ddo0 = hop::desc_sw128(dOs + 64 * wgi * 128, 0);
+    const uint64_t dds0 = hop::desc_sw128(dS, 0);
+    const uint64_t dk0 = hop::desc_sw128(KVs, 0);
+    const uint64_t dkt0 = hop::desc_sw128(KVs, BK * 128);
+    const uint64_t dv0 = hop::desc_sw128(KVs + Sm::kKV, 0);
+
+    hop::mbar_wait(&qbar, 0);
+    if constexpr (ROPE) {   // q rotated once, each row by its position
+      mma::rope_sw128(Qs, BM, 64 * wgi, max(0, min(64 * wgi + 64, g.Lq - p0)),
+                      rp.qcos, rp.qsin, p0, wt, 128);
+      hop::fence_proxy_async();
+      hop::bar_sync(1 + wgi, 128);
+    }
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+    // Key tile t's stage has landed (and its K tile is rotated)
+    auto landed = [&](int t) {
+      if constexpr (ROPE)
+        hop::mbar_wait(&kready[t % S], (t / S) & 1);
+      else
+        hop::mbar_wait(&full[t % S], (t / S) & 1);
+    };
+    // x = A·B^T over head_dim: A this warpgroup's q or dO rows, B key tile
+    // t's K or V (both K-major)
+    auto scores = [&](float (&x)[NT][4], uint64_t da0, uint64_t db0,
+                      int t) {
+      const uint64_t da = hop::opaque(da0);
+      const uint64_t db =
+          hop::opaque(hop::desc_at(db0, 2 * (t % S) * Sm::kKV));
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::ss<BK>(x, hop::desc_at(da, (kk >> 2) * BM * 128 + (kk & 3) * 32),
+                    hop::desc_at(db, (kk >> 2) * BK * 128 + (kk & 3) * 32),
+                    kk > 0);
+      hop::wgmma_commit();
+    };
+    // p of tile t in place of its finished scores: 0 where masked and
+    // (SEG) across segments, where ds is 0
+    auto p_step = [&](int t, float (&x)[NT][4]) {
+      const int s = t % S, key0 = t * BK;
+      hop::fence_regs(x);
+      if (!SEG && key0 + BK - 1 <= vis_min) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          x[j][0] = exp2f(fmaf(x[j][0], sl2, -l2_lo));
+          x[j][1] = exp2f(fmaf(x[j][1], sl2, -l2_lo));
+          x[j][2] = exp2f(fmaf(x[j][2], sl2, -l2_hi));
+          x[j][3] = exp2f(fmaf(x[j][3], sl2, -l2_hi));
+        }
+        return;
+      }
+      // pair (j, c) visible (and, SEG, within one segment)
+      auto takes = [&](int j, int c) {
+        const int col = 8 * j + 2 * tq + (c & 1);
+        const bool up = c >= 2;
+        return key0 + col <= (up ? vis_hi : vis_lo) &&
+               (!SEG || (up ? qs_hi : qs_lo) == kseg_s[s * BK + col]);
+      };
+      if constexpr (SEG) {   // no pair of the warp's rows takes p: skip
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) any = any || takes(j, c);
+        if (!__any_sync(0xffffffffu, any)) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) x[j][c] = 0.f;
+          return;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          x[j][c] = takes(j, c) ? exp2f(fmaf(x[j][c], sl2,
+                                             -(c >= 2 ? l2_hi : l2_lo)))
+                                : 0.f;
+    };
+    // ds = p (dp - delta) scale in place of p
+    auto ds_step = [&](float (&x)[NT][4], float (&dp)[NT][4]) {
+      hop::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        x[j][0] = x[j][0] * (dp[j][0] - dl_lo) * g.scale;
+        x[j][1] = x[j][1] * (dp[j][1] - dl_lo) * g.scale;
+        x[j][2] = x[j][2] * (dp[j][2] - dl_hi) * g.scale;
+        x[j][3] = x[j][3] * (dp[j][3] - dl_hi) * g.scale;
+      }
+    };
+    float x[NT][4], dp[NT][4];
+    // ds to bf16 into the dS tile (row r's 16-byte chunk j at j ^ (r % 8),
+    // as a TMA box is swizzled; conflict-free), once this warpgroup's dq
+    // product that read the last one is done; then visible to wgmma
+    const int row = 16 * warp + gq;
+    auto to_smem = [&]() {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        unsigned char* c = dS + row * 128 + ((j ^ (gq & 7)) << 4) + 4 * tq;
+        *reinterpret_cast<uint32_t*>(c) = mma::pack(x[j][0], x[j][1]);
+        *reinterpret_cast<uint32_t*>(c + 8 * 128) =
+            mma::pack(x[j][2], x[j][3]);
+      }
+      hop::fence_proxy_async();
+      hop::bar_sync(1 + wgi, 128);
+    };
+    auto dq_product = [&](int t) {   // acc += ds·K of tile t
+      const uint64_t da = hop::opaque(dds0);
+      const uint64_t dkt =
+          hop::opaque(hop::desc_at(dkt0, 2 * (t % S) * Sm::kKV));
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hop::ss<D, 1>(acc, hop::desc_at(da, kk * 32),
+                      hop::desc_at(dkt, kk * 2048), 1);
+      hop::wgmma_commit();
+    };
+    // Every group inside the loops is issued unconditionally (the last
+    // tile's dq product is peeled); groups complete in order.
+#if PTF_DQ_PINGPONG
+    const int mine = 3 + wgi, other = 4 - wgi;
+    if (wgi == 1) hop::bar_arrive(3, 256);   // warpgroup 0 goes first
+    landed(0);
+    hop::bar_sync(mine, 256);
+    scores(x, dq0, dk0, 0);
+    scores(dp, ddo0, dv0, 0);
+    hop::bar_arrive(other, 256);
+    hop::wgmma_wait<0>();
+    p_step(0, x);
+    ds_step(x, dp);
+    to_smem();
+    for (int t = 0; t + 1 < n_kt; ++t) {
+      landed(t + 1);
+      hop::bar_sync(mine, 256);
+      dq_product(t);
+      scores(x, dq0, dk0, t + 1);
+      scores(dp, ddo0, dv0, t + 1);
+      hop::bar_arrive(other, 256);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[t % S]);
+      p_step(t + 1, x);
+      ds_step(x, dp);
+      to_smem();
+    }
+    hop::bar_sync(mine, 256);
+    dq_product(n_kt - 1);
+    // the turns balance: warpgroup 1's first arrival stands for its last
+    if (wgi == 0) hop::bar_arrive(other, 256);
+#else
+    landed(0);
+    scores(x, dq0, dk0, 0);
+    scores(dp, ddo0, dv0, 0);
+    hop::wgmma_wait<0>();
+    p_step(0, x);
+    ds_step(x, dp);
+    to_smem();
+    for (int t = 0; t + 1 < n_kt; ++t) {
+      landed(t + 1);
+      scores(x, dq0, dk0, t + 1);
+      dq_product(t);
+      scores(dp, ddo0, dv0, t + 1);
+      hop::wgmma_wait<2>();                 // tile t+1's s
+      p_step(t + 1, x);                     // while dq(t) and dp(t+1) run
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[t % S]);
+      ds_step(x, dp);
+      to_smem();
+    }
+    dq_product(n_kt - 1);
+#endif
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::mbar_arrive(&empty[(n_kt - 1) % S]);
+
+    if constexpr (ROPE) {   // dQ back from rotated space: n and n + ND/2
+      const long long t_lo = static_cast<long long>(min(r_lo, g.Lq - 1)) * D;
+      const long long t_hi = static_cast<long long>(min(r_hi, g.Lq - 1)) * D;
+#pragma unroll
+      for (int n = 0; n < ND / 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          unrope_pair(acc[n][c], acc[n + ND / 2][c], rp.qcos, rp.qsin,
+                      (c >= 2 ? t_hi : t_lo) + 8 * n + 2 * tq + (c & 1),
+                      D / 2);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r_hi : r_lo;
+      if (r >= g.Lq) continue;
+      __nv_bfloat16* dst =
+          dq + ((static_cast<long long>(b) * g.Lq + r) * g.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(dst + 8 * n + 2 * tq) =
+            mma::pack(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
+template <int D, bool SEG, bool ROPE = false>
+int launch_dq(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  const uint64_t qw = static_cast<uint64_t>(g.H) * D;
+  const uint64_t kw = static_cast<uint64_t>(g.Hkv) * D;
+  if (hop::bf16_map(&tq, a.q, qw, g.Lq, g.B, kDqRows) ||
+      hop::bf16_map(&tdo, a.dout, qw, g.Lq, g.B, kDqRows) ||
+      hop::bf16_map(&tk, a.k, kw, g.Lk, g.B, kDqKeys) ||
+      hop::bf16_map(&tv, a.v, kw, g.Lk, g.B, kDqKeys))
+    return -2;
+  const size_t smem = DqSmem<D>::kBytes;
+  cudaError_t err = set_smem(dq_kernel<D, SEG, ROPE>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const bool regs = regs_ok(dq_kernel<D, SEG, ROPE>,
+                                   DqRegs<ROPE>::kProducer,
+                                   DqRegs<ROPE>::kConsumer);
+  if (!regs) return -3;
+  const dim3 grid(g.H, g.B, (g.Lq + kDqRows - 1) / kDqRows);
+  dq_kernel<D, SEG, ROPE><<<grid, kThreads, smem, stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.qseg, a.kseg,
+      a.rope.as<__nv_bfloat16>(), static_cast<__nv_bfloat16*>(a.dq), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 }  // namespace wg
 
 // ------------------------------------------------------------- launches
@@ -933,10 +1183,10 @@ int run(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
             : launch_dkv<T, D, SEG, ROPE>(a, g, s);
 }
 
-// the same on the tensor cores (bf16)
+// the same on the tensor cores (bf16, wgmma)
 template <int D, bool SEG, bool ROPE = false>
-int run_mma(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
-  return dq ? mma::launch_dq<D, SEG, ROPE>(a, g, s)
+int run_wg(bool dq, const BwdArgs& a, const Geom& g, cudaStream_t s) {
+  return dq ? wg::launch_dq<D, SEG, ROPE>(a, g, s)
             : wg::launch_dkv<D, SEG, ROPE>(a, g, s);
 }
 
@@ -949,8 +1199,8 @@ int dispatch_bwd(bool dq, int dtype, int D, const BwdArgs& a, const Geom& g,
     case 64: return run<float, 64, SEG>(dq, a, g, s);
     case 128: return run<float, 128, SEG>(dq, a, g, s);
     case 256: return run<float, 256, SEG>(dq, a, g, s);
-    case 1064: return run_mma<64, SEG>(dq, a, g, s);
-    case 1128: return run_mma<128, SEG>(dq, a, g, s);
+    case 1064: return run_wg<64, SEG>(dq, a, g, s);
+    case 1128: return run_wg<128, SEG>(dq, a, g, s);
     case 1256: return run<__nv_bfloat16, 256, SEG>(dq, a, g, s);
     case 2064: return run<__half, 64, SEG>(dq, a, g, s);
     case 2128: return run<__half, 128, SEG>(dq, a, g, s);
@@ -966,7 +1216,7 @@ int dispatch_bwd_rope(bool dq, int dtype, int D, const BwdArgs& a,
   switch (dtype * 1000 + D) {
     case 128: return run<float, 128, false, true>(dq, a, g, s);
     case 256: return run<float, 256, false, true>(dq, a, g, s);
-    case 1128: return run_mma<128, false, true>(dq, a, g, s);
+    case 1128: return run_wg<128, false, true>(dq, a, g, s);
     case 1256: return run<__nv_bfloat16, 256, false, true>(dq, a, g, s);
     case 2128: return run<__half, 128, false, true>(dq, a, g, s);
     case 2256: return run<__half, 256, false, true>(dq, a, g, s);

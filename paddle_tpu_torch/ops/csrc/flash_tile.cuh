@@ -1,10 +1,10 @@
 // Shared pieces of the port's flash-attention kernels (K1/K2 forward,
 // K3 delta, K4 dK/dV, K5 dQ, and their ROPE instances, K10): the
 // packed-layout geometry, f32 tiles in shared memory with a
-// register-tiled product on the CUDA cores, the bf16 tiles and mma.sync
-// fragments of the tensor-core paths (the wgmma kernels reuse their
-// fragment conversion), the in-tile rotation (also on the wgmma kernels'
-// swizzled tiles) and the wgmma kernels' exponential.
+// register-tiled product on the CUDA cores, the mma.sync fragments (K9's
+// tensor-core path; the wgmma kernels reuse their fragment conversion),
+// the in-tile rotation (also on the wgmma kernels' swizzled tiles) and the
+// wgmma kernels' exponential.
 //
 // Layout (the JAX package's projection layout, consumed without a
 // transpose): q/out/dq [B, Lq, H*D], k/v/dk/dv [B, Lk, Hkv*D], row
@@ -223,10 +223,11 @@ __device__ __forceinline__ float sum16(float x) {
 // sum is formed in f32 (exact for two bf16 or f16 factors) and rounded to
 // the input dtype, no FMA contraction, as the plain version does
 // (rope_tile); the tensor-core tiles use bf16x2 instructions with the
-// same roundings, 16 bytes a thread (rope_rows).  dq and dk accumulate in rotated space and are rotated back with
-// -sin on the f32 accumulator (f32 arithmetic, the tables widened) before
-// their one cast.  Both accumulator layouts keep columns d and
-// d + D/2 of a row in the same thread (CUDA cores: c and c + CD/2; mma C
+// same roundings, 16 bytes a thread (rope_sw128).  dq and dk accumulate
+// in rotated space and are rotated back with -sin on the f32 accumulator
+// (f32 arithmetic, the tables widened) before their one cast.  Both
+// accumulator layouts keep columns d and d + D/2 of a row in the same
+// thread (CUDA cores: c and c + CD/2; mma C
 // fragments: n and n + ND/2), so that rotation runs in registers.
 template <typename T>
 struct Rope {
@@ -331,18 +332,12 @@ struct KeyTile {
   static constexpr int value = D >= 256 ? 32 : 64;
 };
 
-// Tensor-core pieces (bf16, head_dim 64/128): 4 warps over the 64 rows of
-// a tile, warp w owning rows 16w..16w+15; mma.sync m16n8k16 fragments
-// (lane = 4*gq + tq: A rows gq and gq+8, cols 2tq.. and 2tq+8..; B col
-// gq, rows 2tq..; C rows gq/gq+8, cols 2tq, 2tq+1).  A row-major shared
-// tile padded by 8 elements keeps every 32-bit fragment load
-// conflict-free.  Two adjacent 16x8 C fragments are exactly the A
+// Tensor-core pieces (bf16): mma.sync m16n8k16 fragments (lane = 4*gq +
+// tq: A rows gq and gq+8, cols 2tq.. and 2tq+8..; B col gq, rows 2tq..; C
+// rows gq/gq+8, cols 2tq, 2tq+1), which the wgmma accumulators share per
+// 16 rows of a warp.  Two adjacent 16x8 C fragments are exactly the A
 // fragment of the next product, so probabilities never leave registers.
 namespace mma {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKeys = 64;
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -361,85 +356,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The tile loads move 16 bytes a thread and have a constant trip count,
-// so the compiler starts all of a thread's loads before its stores: the
-// blocks are few per SM and would otherwise wait on each load in turn.
-
-// the 64 query rows [r0, r0 + 64) of a packed tensor -> shared [64][D + 8]
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          const Geom& g, int b, int kvh,
-                                          int r0) {
-  constexpr int V8 = D / 8;                         // 16-byte vectors a row
-#pragma unroll
-  for (int it = 0; it < kRows * V8 / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int rr = e / V8, c = e - rr * V8;         // a row's vectors adjacent
-    *reinterpret_cast<uint4*>(dst + rr * (D + 8) + 8 * c) =
-        *reinterpret_cast<const uint4*>(
-            src + row_off<D>(g, b, kvh, r0 + rr) + 8 * c);
-  }
-}
-
-// one 16-byte vector (8 elements of row sk of a 64-row tile, from column
-// 8c) into a row-major [64][D + 8] and/or a transposed [D][64 + 8] tile
-static_assert(kKeys == kRows, "key and query tiles share one shape");
-template <int D>
-__device__ __forceinline__ void put_row(__nv_bfloat16* rows,
-                                        __nv_bfloat16* cols, const uint4& x,
-                                        int sk, int c) {
-  if (rows != nullptr)
-    *reinterpret_cast<uint4*>(rows + sk * (D + 8) + 8 * c) = x;
-  if (cols != nullptr) {
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};   // element 2i in the low half
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t bits = (w[i / 2] >> (16 * (i % 2))) & 0xffffu;
-      cols[(8 * c + i) * (kKeys + 8) + sk] =
-          __ushort_as_bfloat16(static_cast<unsigned short>(bits));
-    }
-  }
-}
-
-// kKeys rows of K and of V (row s at base + s * stride) into row-major
-// shared tiles, K also transposed unless k_cols is null.  Neighbouring
-// threads take neighbouring keys, so the transposed stores are
-// conflict-free.
-template <int D>
-__device__ __forceinline__ void load_kv(__nv_bfloat16* k_rows,
-                                        __nv_bfloat16* k_cols,
-                                        __nv_bfloat16* v_rows,
-                                        const __nv_bfloat16* k,
-                                        const __nv_bfloat16* v,
-                                        long long base, long long stride) {
-#pragma unroll
-  for (int it = 0; it < kKeys * (D / 8) / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int sk = e % kKeys, c = e / kKeys;
-    const long long src = base + sk * stride + 8 * c;
-    const uint4 kx = *reinterpret_cast<const uint4*>(k + src);
-    const uint4 vx = *reinterpret_cast<const uint4*>(v + src);
-    put_row<D>(k_rows, k_cols, kx, sk, c);
-    put_row<D>(v_rows, nullptr, vx, sk, c);
-  }
-}
-
-// a (rotated) row-major [64][D + 8] tile -> its transposed copy
-// [D][64 + 8]; neighbouring threads take neighbouring rows, as load_kv
-template <int D>
-__device__ __forceinline__ void transpose_tile(__nv_bfloat16* cols,
-                                               const __nv_bfloat16* rows) {
-#pragma unroll
-  for (int it = 0; it < kRows * (D / 8) / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int rr = e % kRows, c = e / kRows;
-    put_row<D>(nullptr, cols,
-               *reinterpret_cast<const uint4*>(rows + rr * (D + 8) + 8 * c),
-               rr, c);
-  }
 }
 
 // bf16x2 multiply and add, each rounded to nearest even: the explicit
@@ -462,46 +378,14 @@ __device__ __forceinline__ uint32_t rot_bf16x2(uint32_t x, uint32_t y,
   return add_bf16x2(mul_bf16x2(x, c), mul_bf16x2(y, s));
 }
 
-// Rotate `rows` rows of a row-major bf16 tile [rows][D + 8] in place
-// (row r: table row (first + r) / div, as rope_tile), 16 bytes at a time:
-// a thread takes 8 columns of a row's first half and the 8 matching ones
-// of its second half, and the tables' same columns.  bf16x2 arithmetic
-// rounds each product and the sum to bf16 — exactly the reference's
-// three roundings (the product of two bf16 values is exact in f32, so
-// rope_pair<__nv_bfloat16> gives the same bits) — at three instructions
-// per two outputs.  Neighbouring threads take neighbouring chunks of a
-// row: conflict-free 16-byte shared accesses, coalesced table reads.
-template <int D>
-__device__ __forceinline__ void rope_rows(__nv_bfloat16* tile, int rows,
-                                          const __nv_bfloat16* cos_t,
-                                          const __nv_bfloat16* sin_t,
-                                          int first, int div) {
-  constexpr int H8 = D / 16;          // 16-byte chunks in half a row
-  for (int e = threadIdx.x; e < rows * H8; e += kThreads) {
-    const int r = e / H8, c = e - r * H8;
-    uint4* p1 = reinterpret_cast<uint4*>(tile + r * (D + 8) + 8 * c);
-    uint4* p2 = reinterpret_cast<uint4*>(tile + r * (D + 8) + D / 2 + 8 * c);
-    const long long t = static_cast<long long>((first + r) / div) * D + 8 * c;
-    const uint4 x1 = *p1, x2 = *p2;
-    const uint4 c1 = *reinterpret_cast<const uint4*>(cos_t + t);
-    const uint4 c2 = *reinterpret_cast<const uint4*>(cos_t + t + D / 2);
-    const uint4 s1 = *reinterpret_cast<const uint4*>(sin_t + t);
-    const uint4 s2 = *reinterpret_cast<const uint4*>(sin_t + t + D / 2);
-    *p1 = make_uint4(rot_bf16x2(x1.x, x2.x, c1.x, s1.x),
-                     rot_bf16x2(x1.y, x2.y, c1.y, s1.y),
-                     rot_bf16x2(x1.z, x2.z, c1.z, s1.z),
-                     rot_bf16x2(x1.w, x2.w, c1.w, s1.w));
-    *p2 = make_uint4(rot_bf16x2(x2.x, x1.x, c2.x, s2.x),
-                     rot_bf16x2(x2.y, x1.y, c2.y, s2.y),
-                     rot_bf16x2(x2.z, x1.z, c2.z, s2.z),
-                     rot_bf16x2(x2.w, x1.w, c2.w, s2.w));
-  }
-}
-
-// The same rotation on a head_dim-128 tile of R rows held as two
-// 128-byte-swizzled boxes [R][64] (hopper.cuh; the wgmma kernels' tiles,
-// written by TMA): the pair (d, d + 64) sits at one offset in the two
-// boxes, so a thread takes chunk c of row r in both.  Rows [r0, r1) are
+// Rotate a head_dim-128 tile of R rows held as two 128-byte-swizzled
+// boxes [R][64] (hopper.cuh; the wgmma kernels' tiles, written by TMA) in
+// place, 16 bytes at a time: the pair (d, d + 64) sits at one offset in
+// the two boxes, so a thread takes chunk c of row r in both, and the
+// tables' same columns.  bf16x2 arithmetic rounds each product and the
+// sum to bf16 — exactly the reference's three roundings (the product of
+// two bf16 values is exact in f32, so rope_pair<__nv_bfloat16> gives the
+// same bits) — at three instructions per two outputs.  Rows [r0, r1) are
 // rotated, row r by table row first + r; threads t, t + nt, ... share
 // the work.
 __device__ __forceinline__ void rope_sw128(unsigned char* tile, int R, int r0,

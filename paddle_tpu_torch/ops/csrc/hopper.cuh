@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels
-// (the flash forward and dK/dV): mbarriers, TMA tensor loads, wgmma
+// (the flash forward, dK/dV and dQ): mbarriers, TMA tensor loads, wgmma
 // shared-memory descriptors and instructions, the proxy fence, register
 // reallocation between warpgroups, and the host side's tensor maps.
 //
@@ -118,9 +118,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// named barrier `id` (1-15) over `n` threads
+// named barrier `id` (1-15) over `n` threads: wait there, or only arrive
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // the warpgroup and the warp within it, as values the compiler knows to
@@ -188,10 +191,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[M][4]) {
 
 // D (m64 x N, f32, the mma.sync C layout per 8-column block: d[j][0..1]
 // row gq, d[j][2..3] row gq + 8 of the warp's 16, columns 8j + 2tq + {0,1})
-// (+)= A · B over one k-step of 16, bf16 in.  ss: A and B K-major in
-// shared memory.  rs: A from registers (the mma.sync A fragment layout of
-// the warp's 16 rows), B MN-major in shared memory (the transpose bit).
-// scale_d 0 overwrites D, 1 accumulates.
+// (+)= A · B over one k-step of 16, bf16 in.  ss: A K-major in shared
+// memory, B K-major there too or (TB = 1) MN-major (the transpose bit).
+// rs: A from registers (the mma.sync A fragment layout of the warp's 16
+// rows), B MN-major in shared memory.  scale_d 0 overwrites D, 1
+// accumulates.
+template <int TB>
 __device__ __forceinline__ void ss64(float (&d)[8][4], uint64_t da,
                                      uint64_t db, uint32_t scale_d) {
   asm volatile(
@@ -201,7 +206,7 @@ __device__ __forceinline__ void ss64(float (&d)[8][4], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -210,9 +215,10 @@ __device__ __forceinline__ void ss64(float (&d)[8][4], uint64_t da,
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+template <int TB>
 __device__ __forceinline__ void ss128(float (&d)[16][4], uint64_t da,
                                      uint64_t db, uint32_t scale_d) {
   asm volatile(
@@ -226,7 +232,7 @@ __device__ __forceinline__ void ss128(float (&d)[16][4], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -243,7 +249,7 @@ __device__ __forceinline__ void ss128(float (&d)[16][4], uint64_t da,
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 __device__ __forceinline__ void rs64(float (&d)[8][4],
@@ -304,12 +310,12 @@ __device__ __forceinline__ void rs128(float (&d)[16][4],
         "r"(scale_d));
 }
 
-template <int N>
+template <int N, int TB = 0>
 __device__ __forceinline__ void ss(float (&d)[N / 8][4], uint64_t da,
                                    uint64_t db, uint32_t scale_d) {
   static_assert(N == 64 || N == 128, "wgmma widths built: 64, 128");
-  if constexpr (N == 64) ss64(d, da, db, scale_d);
-  else ss128(d, da, db, scale_d);
+  if constexpr (N == 64) ss64<TB>(d, da, db, scale_d);
+  else ss128<TB>(d, da, db, scale_d);
 }
 template <int N>
 __device__ __forceinline__ void rs(float (&d)[N / 8][4],
@@ -409,15 +415,17 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t{1023});
 }
 
-// Whether the registers a block is launched with cover the split: a
-// consumer's setmaxnreg.inc waits for registers that the producer
-// released, and would wait for ever on a kernel built with fewer.
+// Whether the registers a block is launched with cover the split (the
+// producer's and each consumer's registers a thread): a consumer's
+// setmaxnreg.inc waits for registers that the producer released, and
+// would wait for ever on a kernel built with fewer.
 template <typename Kernel>
-inline bool regs_ok(Kernel kernel) {
+inline bool regs_ok(Kernel kernel, int producer = kProducerRegs,
+                    int consumer = kConsumerRegs) {
   cudaFuncAttributes fa;
   if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return false;
   return fa.numRegs * kThreads >=
-         kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers;
+         producer * 128 + consumer * 128 * kConsumers;
 }
 
 }  // namespace wg

@@ -24,7 +24,7 @@ launches its kernel on the current stream, and raises on anything the
 kernel does not take.  The plain PyTorch versions and the routing live in
 ``ops/flash_attention.py``; ``launches`` counts the launches of each
 kernel, the segmented instances under ``*_seg``, the rope ones under
-``*_rope``; the launches of the forward and dK/dV that went to their
+``*_rope``; the launches of the forward, dK/dV and dQ that went to their
 wgmma instances (``flash_instance``: bf16 at head_dim 64/128) are counted
 again under ``*_wgmma``, so a run can show that all of them did.
 """
@@ -41,11 +41,12 @@ launches = {"fwd": 0, "delta": 0, "dkv": 0, "dq": 0, "fwd_seg": 0,
             "dkv_seg": 0, "dq_seg": 0, "fwd_rope": 0, "dkv_rope": 0,
             "dq_rope": 0, "fwd_wgmma": 0, "fwd_seg_wgmma": 0,
             "fwd_rope_wgmma": 0, "dkv_wgmma": 0, "dkv_seg_wgmma": 0,
-            "dkv_rope_wgmma": 0}
+            "dkv_rope_wgmma": 0, "dq_wgmma": 0, "dq_seg_wgmma": 0,
+            "dq_rope_wgmma": 0}
 
 HEAD_DIMS = (64, 128, 256)
 ROPE_HEAD_DIMS = (128, 256)     # the head dims of the ROPE instances
-WGMMA_HEAD_DIMS = (64, 128)     # the forward's and dK/dV's wgmma instances
+WGMMA_HEAD_DIMS = (64, 128)     # the wgmma instances' head dims
 _ROWS = 64          # flattened (position, group head) rows per kernel tile
 _KEYS = 64          # Lk multiple every kernel's key tile divides
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -143,11 +144,10 @@ def _check_rope(where, q, lq, lk, d, rope, segmented):
 
 
 def flash_instance(dtype, head_dim):
-    """The instance of the forward and dK/dV kernels these inputs take:
-    ``"wgmma"`` (Hopper's asynchronous tensor-core path: TMA ring,
+    """The instance of the forward, dK/dV and dQ kernels these inputs
+    take: ``"wgmma"`` (Hopper's asynchronous tensor-core path: TMA ring,
     warp-specialised blocks) for bf16 at head_dim 64/128, ``"simt"`` (f32
-    on the CUDA cores) otherwise.  dQ keeps its ``mma.sync`` instance for
-    bf16 at 64/128."""
+    on the CUDA cores) otherwise."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -286,5 +286,6 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, num_heads, num_kv_heads, causal,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), qs, ks, *rp,
             dq.data_ptr(), b, num_heads, num_kv_heads, lq, lk, d,
             int(bool(causal)), float(scale), _stream(q.device))
-    _ok("flash_bwd_dq", rc, "dq" + tag + rtag)
+    _ok("flash_bwd_dq", rc, "dq" + tag + rtag,
+        flash_instance(q.dtype, d) == "wgmma")
     return dq

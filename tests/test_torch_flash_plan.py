@@ -1,11 +1,13 @@
-"""The Python around the flash kernels' wgmma instances, on the CPU.
+"""The Python around the flash kernels' wgmma instances and K6, on the CPU.
 
 The kernels themselves run only on the card (``test_torch_kernels_cuda.py``
 holds them against their plain versions there).  What runs here: which
-instance a call takes, how the wrappers count and report launches, how the
-tile sweep names its builds (``_build`` digests with ``-D`` flags, the
-ptxas log of the library in use), the sweep's shared-memory plan, and
-that every ablation of ``flash_probe.py`` still finds its step.
+instance a call takes (the flash kernels' by dtype and head_dim, K6's by
+dtype, head_dim and alignment), how the wrappers count and report
+launches, how the tile sweep names its builds (``_build`` digests with
+``-D`` flags, the ptxas log of the library in use), the sweep's
+shared-memory plan, and that every ablation of ``flash_probe.py`` still
+finds its step.
 """
 import re
 
@@ -15,6 +17,7 @@ import torch
 import flash_probe
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention_cuda as kfa
+from paddle_tpu_torch.ops import fused_rope_cuda as k6
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 FLASH_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
@@ -29,15 +32,20 @@ def test_instance_is_wgmma_for_bf16_at_64_and_128(dtype, head_dim):
 
 
 def test_every_forward_and_dkv_counter_has_a_wgmma_twin():
-    for kernel in ("fwd", "dkv"):
+    """And dQ's: every bf16 head_dim 64/128 dQ goes to its wgmma
+    instance too; K3 has none."""
+    for kernel in ("fwd", "dkv", "dq"):
         for tag in ("", "_seg", "_rope"):
             assert kernel + tag + "_wgmma" in kfa.launches
-    for kernel in ("delta", "dq", "dq_seg", "dq_rope"):
-        assert kernel + "_wgmma" not in kfa.launches
+    assert "delta_wgmma" not in kfa.launches
+    assert set(kfa.launches) == {
+        k + t + w for k in ("fwd", "dkv", "dq") for t in ("", "_seg", "_rope")
+        for w in ("", "_wgmma")} | {"delta"}
 
 
 @pytest.mark.parametrize("wgmma", [False, True])
-@pytest.mark.parametrize("kernel", ["fwd", "fwd_seg", "dkv_rope"])
+@pytest.mark.parametrize("kernel", ["fwd", "fwd_seg", "dkv_rope", "dq",
+                                    "dq_seg", "dq_rope"])
 def test_a_launch_counts_its_kernel_and_its_instance(monkeypatch, kernel,
                                                     wgmma):
     counts = dict.fromkeys(kfa.launches, 0)
@@ -85,11 +93,13 @@ def test_ptxas_report_is_the_log_of_the_library_in_use(monkeypatch, tmp_path,
 @pytest.mark.parametrize("variant", flash_probe.VARIANTS, ids=str)
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_every_sweep_variant_fits_shared_memory(variant, head_dim):
-    fwd, dkv = flash_probe.smem_bytes(variant, head_dim)
+    fwd, dkv, dq = flash_probe.smem_bytes(variant, head_dim)
     assert 0 < fwd <= flash_probe.SMEM_LIMIT
     assert 0 < dkv <= flash_probe.SMEM_LIMIT
-    keys, fwd_stages, dkv_stages = variant
+    assert 0 < dq <= flash_probe.SMEM_LIMIT
+    keys, fwd_stages, dkv_stages, dq_stages, pingpong = variant
     assert keys % 64 == 0 and fwd_stages >= 2 and dkv_stages >= 2
+    assert dq_stages >= 2 and pingpong in (0, 1)
 
 
 def test_sweep_variants_are_distinct_and_the_default_comes_first():
@@ -98,13 +108,14 @@ def test_sweep_variants_are_distinct_and_the_default_comes_first():
     assert len(set(flash_probe.VARIANTS)) == len(flash_probe.VARIANTS)
     text = "".join((_build._CSRC / f"{n}.cu").read_text()
                    for n in FLASH_SOURCES)
+    macros = ("PTF_FWD_KEYS", "PTF_FWD_STAGES", "PTF_DKV_STAGES",
+              "PTF_DQ_STAGES", "PTF_DQ_PINGPONG")
+    assert flash_probe.MACROS == macros
     default = tuple(int(re.search(rf"#define {m} (\d+)", text)[1])
-                    for m in ("PTF_FWD_KEYS", "PTF_FWD_STAGES",
-                              "PTF_DKV_STAGES"))
+                    for m in macros)
     assert flash_probe.VARIANTS[0] == default
     assert flash_probe.defines(default) == tuple(
-        f"-D{m}={x}" for m, x in zip(("PTF_FWD_KEYS", "PTF_FWD_STAGES",
-                                      "PTF_DKV_STAGES"), default))
+        f"-D{m}={x}" for m, x in zip(macros, default))
 
 
 @pytest.mark.parametrize("ablation", flash_probe.ABLATIONS,
@@ -122,3 +133,46 @@ def test_probe_needs_a_subcommand_and_a_card(argv, capsys):
     # on the CPU every call stops before measuring anything
     assert flash_probe.main(argv) == 2
     assert capsys.readouterr().err
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_dq_shared_memory_per_stage(head_dim):
+    """dQ's plan: the block's q and dO tiles (128 rows each) and the two
+    consumers' [64][64] bf16 dS tiles once, and per ring stage a 64-key K
+    and V tile with their int32 segment ids; up to 4 stages fit at
+    head_dim 128, 5 do not."""
+    def dq(stages):
+        return flash_probe.smem_bytes((64, 4, 3, stages, 1), head_dim)[2]
+    per_stage = 2 * 64 * head_dim * 2 + 64 * 4
+    assert dq(3) == 1024 + 2 * 128 * head_dim * 2 + 2 * 8192 + 3 * per_stage
+    assert dq(4) - dq(3) == per_stage
+    assert dq(4) <= flash_probe.SMEM_LIMIT
+    if head_dim == 128:
+        assert dq(5) > flash_probe.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("head_dim", [2, 8, 16, 24, 64, 96, 128, 256])
+def test_rope_instance_is_vector_where_half_a_row_is_whole_chunks(dtype,
+                                                                   head_dim):
+    width = 16 // torch.empty((), dtype=dtype).element_size()
+    aligned = [4096, 8192, 0, 16, 32, 1 << 20]
+    want = "vector" if (head_dim // 2) % width == 0 else "scalar"
+    assert k6.rope_instance(dtype, head_dim, aligned) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("which", range(6))
+def test_rope_instance_is_scalar_for_any_unaligned_pointer(dtype, which):
+    ptrs = [4096, 8192, 0, 16, 32, 1 << 20]
+    assert k6.rope_instance(dtype, 128, ptrs) == "vector"
+    ptrs[which] += torch.empty((), dtype=dtype).element_size()
+    assert k6.rope_instance(dtype, 128, ptrs) == "scalar"
+
+
+def test_rope_refuses_cpu_tensors_before_choosing_or_counting():
+    before = (k6.launches, k6.launches_vec)
+    q = torch.zeros(1, 128, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        k6.rope(q, q, torch.zeros(128, 128), torch.zeros(128, 128), 2, 2)
+    assert (k6.launches, k6.launches_vec) == before

@@ -32,7 +32,11 @@ head_dim 128 with lengths on every pool-block and span edge (every cache
 dtype, dense and paged, T 1 and 4): one launch a call and bitwise equal
 run to run; K9's tensor-core instance (bf16 q over bf16 and int8 KV) at
 T 16-256 over chained offsets, its output within 2 bf16 ulps or 1e-6 of
-the plain version.
+the plain version.  The wgmma instances of the forward, dK/dV and dQ at
+the edges of their tiles (G 1-8, Lq and Lk not multiples of 128, causal
+with q_offset > 0, segments with a dead row, rope), through their
+``*_wgmma`` counters and bitwise run to run; K6's vector and scalar
+instances bitwise equal to the plain version in every dtype.
 """
 import pytest
 import torch
@@ -900,3 +904,88 @@ def test_wgmma_flash_edges_match_plain(geom):
         torch.testing.assert_close(a.float(), r.float(), **tol)
     for a, a2 in zip((out, lse, delta, dk, dv), run()):
         assert torch.equal(a, a2)
+
+
+# The dQ kernel's wgmma instance (bf16, head_dim 64/128): blocks of 128
+# positions of one head (Lq 64 and 192: half-empty blocks), 64-key ring
+# stages (Lk 192, 320, 448), G 1/2/4/8, causal with q_offset > 0,
+# non-causal, key padding with a dead row, causal varlen with a pad tail,
+# and the rope instance.  (id, B, Lq, Lk, H, Hkv, D, causal, kind)
+DQ_EDGES = [
+    ("g1-d64-lq192", 2, 192, 192, 2, 2, 64, True, None),
+    ("g2-lq<lk-320", 1, 192, 320, 4, 2, 128, True, None),
+    ("g4-lq64-lk448", 1, 64, 448, 8, 2, 128, True, None),
+    ("g8-noncausal-lk192", 2, 128, 192, 8, 1, 64, False, None),
+    ("g8-causal-d128", 1, 320, 320, 8, 1, 128, True, None),
+    ("padding-g2-d64", 4, 192, 192, 4, 2, 64, False, "padding"),
+    ("varlen-g4-d128", 1, 320, 320, 8, 2, 128, True, "varlen"),
+    ("rope-g4-lq<lk", 1, 192, 320, 8, 2, 128, True, "rope"),
+    ("rope-g1-noncausal", 2, 64, 192, 2, 2, 128, False, "rope"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", DQ_EDGES, ids=[g[0] for g in DQ_EDGES])
+def test_wgmma_dq_edges_match_plain(geom):
+    """dQ of the wgmma instance against ``flash_bwd_reference`` at
+    ``FLASH_TOL`` (on the forward's lse and K3's delta), launched through
+    the wgmma instance (its ``*_wgmma`` counter moves with the kernel's),
+    and bitwise equal over two launches (a fixed order of key tiles)."""
+    dev = _card()
+    _, b, lq, lk, h, hkv, d, causal, kind = geom
+    dtype = torch.bfloat16
+    q, k, v, do = _flash_inputs(dev, dtype, b, lq, lk, h, hkv, d, 37)
+    seg, extra, tag = (), {}, ""
+    if kind in ("padding", "varlen"):
+        seg = _segments(dev, kind, b, lq)
+        do = do.masked_fill((seg[0] < 0)[:, :, None], 0)
+        tag = "_seg"
+    elif kind == "rope":
+        extra["rope"] = _rope_tables(dev, dtype, lq, lk, d, 9)
+        tag = "_rope"
+    scale = d ** -0.5
+    out, lse = kfa.flash_fwd(q, k, v, h, hkv, causal, scale, *seg, **extra)
+    delta = kfa.flash_delta(do, out, h)
+    before = dict(kfa.launches)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                          *seg, **extra)
+    dq2 = kfa.flash_bwd_dq(q, k, v, do, lse, delta, h, hkv, causal, scale,
+                           *seg, **extra)
+    rdq, _, _ = tfa.flash_bwd_reference(q, k, v, do, lse, delta, h, hkv,
+                                        causal, scale, *seg, **extra)
+    torch.cuda.synchronize()
+    assert kfa.launches["dq" + tag] == before["dq" + tag] + 2
+    assert kfa.launches["dq" + tag + "_wgmma"] == \
+        before["dq" + tag + "_wgmma"] + 2
+    torch.testing.assert_close(dq.float(), rdq.float(), **FLASH_TOL[dtype])
+    assert torch.isfinite(dq.float()).all()
+    assert torch.equal(dq, dq2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("neg", [False, True], ids=["fwd", "inverse"])
+@pytest.mark.parametrize("case", ["vector", "scalar-d20", "scalar-unaligned"])
+def test_rope_instances_match_plain_bitwise(dtype, neg, case):
+    """K6's vector instance (16-byte chunks) and its scalar instance (D/2
+    not a whole number of chunks, or an unaligned pointer) bitwise equal
+    to the plain version; only the vector launch moves ``launches_vec``."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(41)
+    b, l, nh, nkv = 2, 96, 4, 2
+    d = 20 if case == "scalar-d20" else 128
+    off = 1 if case == "scalar-unaligned" else 0
+
+    def packed(width):
+        flat = torch.randn(b * l * width + off, generator=gen)
+        return flat.to(dev, dtype)[off:].view(b, l, width)
+    q, k = packed(nh * d), packed(nkv * d)
+    ang = torch.rand(l, d, generator=gen).to(dev) * 6.0
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    before = (k6.launches, k6.launches_vec)
+    oq, ok = k6.rope(q, k, cos, sin, nh, nkv, neg)
+    rq, rk = trope.rope_reference(q, k, cos, sin, nh, nkv, neg)
+    torch.cuda.synchronize()
+    vec = int(case == "vector")
+    assert (k6.launches, k6.launches_vec) == (before[0] + 1, before[1] + vec)
+    assert torch.equal(oq, rq) and torch.equal(ok, rk)
