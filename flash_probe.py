@@ -13,20 +13,22 @@ causal; phase 5, with K6 there too) and BERT (B 64, L 512, H 12, D 64, no
 mask; phase 5b) — by CUDA events over back-to-back launches and by device
 time from the profiler, beside SDPA's forward at the same shapes.
 ``sweep`` builds every entry of ``VARIANTS`` (keys a forward ring stage,
-the forward's, dK/dV's and dQ's stage counts and dQ's schedule: ``-D``
-flags of ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``), all builds at once, then times each in
-turn, twice over, on one card: the sweep that chose the defaults in the
-sources.  ``ablate`` times copies of the sources with one step of a
-kernel taken out (``ABLATIONS``; their results are wrong, only their
-time counts), built side by side under ``ops/_build/ablate``: what each
-step costs.  ``steps`` runs ``times`` and then ``chip_smoke.py``'s Llama
-training step (phase 6) and its two BERT steps (phase 8) from TREE (a
-checkout of this repository, another commit unpacked with ``git
-archive`` say; default this one); ``ab`` runs ``steps`` for two trees in
-turns, each in its own process, so two versions' kernels and steps are
-compared on one card within one call.  bf16, inputs random from fixed
-seeds.  Exits non-zero without a CUDA card.
+the forward's, dK/dV's and dQ's stage counts: ``-D`` flags of
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``),
+all builds at once, then times each in turn, twice over, on one card:
+the sweep that chose the defaults in the sources.  The forward's and
+dK/dV's variants keep dQ's default and dQ's keep theirs, so each
+kernel's choice is swept on its own.  ``ablate`` times copies of the
+sources with one step of a kernel taken out (``ABLATIONS``; their
+results are wrong, only their time counts), built side by side under
+``ops/_build/ablate``: what each step costs.  ``steps`` runs ``times``
+and then ``chip_smoke.py``'s Llama training step (phase 6) and its two
+BERT steps (phase 8) from TREE (a checkout of this repository, another
+commit unpacked with ``git archive`` say; default this one); ``ab``
+runs ``steps`` for two trees in turns, each in its own process, so two
+versions' kernels and steps are compared on one card within one call.
+bf16, inputs random from fixed seeds.  Exits non-zero without a CUDA
+card.
 """
 import os
 import shutil
@@ -34,12 +36,13 @@ import subprocess
 import sys
 import threading
 
-#: (PTF_FWD_KEYS, PTF_FWD_STAGES, PTF_DKV_STAGES, PTF_DQ_STAGES,
-#: PTF_DQ_PINGPONG); the first is the default
+#: (PTF_FWD_KEYS, PTF_FWD_STAGES, PTF_DKV_STAGES, PTF_DQ_STAGES); the
+#: first is the default; then the forward's and dK/dV's variants, then
+#: dQ's
 MACROS = ("PTF_FWD_KEYS", "PTF_FWD_STAGES", "PTF_DKV_STAGES",
-          "PTF_DQ_STAGES", "PTF_DQ_PINGPONG")
-VARIANTS = ((64, 4, 3, 3, 1), (64, 4, 3, 4, 1), (64, 4, 3, 3, 0),
-            (64, 4, 3, 4, 0), (64, 4, 3, 2, 1))
+          "PTF_DQ_STAGES")
+VARIANTS = ((64, 4, 3, 3), (64, 2, 2, 3), (64, 3, 3, 3), (64, 4, 2, 3),
+            (64, 4, 3, 4), (64, 4, 3, 2))
 SHAPES = (("Llama", dict(B=16, L=2048, H=16, HKV=4, D=128), True),
           ("BERT", dict(B=64, L=512, H=12, HKV=12, D=64), False))
 
@@ -59,7 +62,7 @@ def smem_bytes(variant, d=128):
     aligned; a dQ block's 128 rows of q and of dO and each consumer
     warpgroup's [64][64] bf16 dS tile, and a stage's 64-key K and V tiles
     with their segment ids)."""
-    keys, fwd_stages, dkv_stages, dq_stages, _ = variant
+    keys, fwd_stages, dkv_stages, dq_stages = variant
     fwd = 1024 + 128 * d * 2 + fwd_stages * (2 * keys * d * 2 + keys * 4)
     stage = -(-(2 * 64 * d * 2 + 64 * 64 * 4 + 3 * 64 * 4) // 1024)
     dkv = 1024 + 2 * 64 * d * 2 + dkv_stages * stage * 1024
@@ -185,12 +188,12 @@ def sweep(torch, dev):
             _build.DEFINES = defines(v)
             _build._libs.clear()
             got = times(torch, dev, f"keys {v[0]}, stages {v[1]}/{v[2]}/"
-                        f"{v[3]}, dq pingpong {v[4]}: ")
+                        f"{v[3]}: ")
             for key, us in got.items():
                 table.setdefault((v, key), []).append(us)
     _build.DEFINES = ()
     _build._libs.clear()
-    print("variant (keys, fwd/dkv/dq stages, dq pingpong) | shape kernel | "
+    print("variant (keys, fwd/dkv/dq stages) | shape kernel | "
           "device us, both passes", flush=True)
     for (v, (shape, kern)), us in table.items():
         print(f"{v} | {shape} {kern} | " + ", ".join(

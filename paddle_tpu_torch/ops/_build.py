@@ -33,9 +33,9 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the only card the libraries are built for (compute capability 9.0)
 TARGET = "sm_90a"
 #: extra ``-D`` flags for every build (``flash_probe.py`` sets the flash
-#: kernels' tile sizes, ring stages and dQ schedule with them:
-#: ``PTF_FWD_KEYS``, ``PTF_FWD_STAGES``, ``PTF_DKV_STAGES``,
-#: ``PTF_DQ_STAGES``, ``PTF_DQ_PINGPONG``); part of each library's digest
+#: kernels' tile sizes and ring stages with them: ``PTF_FWD_KEYS``,
+#: ``PTF_FWD_STAGES``, ``PTF_DKV_STAGES``, ``PTF_DQ_STAGES``); part of
+#: each library's digest
 DEFINES = ()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -726,14 +726,12 @@ int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
 // each pair's segments too: only same-segment pairs take p and ds
 // (seg_p_ds's 1/n on a dead row's cross-segment keys feeds dV, never ds),
 // and a warp none of whose pairs in the tile does skips the exponentials.
-// Two schedules (PTF_DQ_PINGPONG): 0 issues the next tile's s before this
-// tile's dq product and rebuilds its p while the tensor cores run dq and
-// the next dp; 1 lets the two warpgroups take the tensor cores in turns
-// through named barriers, each issuing its dq, s and dp products in one
-// turn and rebuilding p and ds while the other's run.  flash_probe.py
-// sweep chose 1 (6% less time than 0 at the Llama and BERT shapes once
-// dS left the registers; 24% more while ptxas serialised the products)
-// and 3 stages (4 within 2%, 2 stages 25% slower).  dQ sums the key tiles
+// The two warpgroups take the tensor cores in turns through named
+// barriers (ping-pong), each issuing its dq, s and dp products in one
+// turn and rebuilding p and ds while the other's run: 6% less time at the
+// Llama and BERT shapes than issuing the next tile's s before this tile's
+// dq product (PERF.md, the sweep that chose it).  flash_probe.py sweep
+// chose 3 stages (4 within 2%, 2 stages 25% slower).  dQ sums the key tiles
 // in one fixed order: bitwise reproducible.  ROPE: each consumer rotates
 // its q rows once after they land; the producer warpgroup's three idle
 // warps rotate each K tile as it lands (fence.proxy.async, then an
@@ -744,9 +742,6 @@ int launch_dkv(const BwdArgs& a, const Geom& g, cudaStream_t stream) {
 
 #ifndef PTF_DQ_STAGES
 #define PTF_DQ_STAGES 3
-#endif
-#ifndef PTF_DQ_PINGPONG
-#define PTF_DQ_PINGPONG 1
 #endif
 constexpr int kDqRows = 64 * kConsumers;         // positions a block
 constexpr int kDqKeys = 64;                      // keys a ring stage
@@ -1023,7 +1018,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     // Every group inside the loops is issued unconditionally (the last
     // tile's dq product is peeled); groups complete in order.
-#if PTF_DQ_PINGPONG
     const int mine = 3 + wgi, other = 4 - wgi;
     if (wgi == 1) hop::bar_arrive(3, 256);   // warpgroup 0 goes first
     landed(0);
@@ -1053,29 +1047,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     dq_product(n_kt - 1);
     // the turns balance: warpgroup 1's first arrival stands for its last
     if (wgi == 0) hop::bar_arrive(other, 256);
-#else
-    landed(0);
-    scores(x, dq0, dk0, 0);
-    scores(dp, ddo0, dv0, 0);
-    hop::wgmma_wait<0>();
-    p_step(0, x);
-    ds_step(x, dp);
-    to_smem();
-    for (int t = 0; t + 1 < n_kt; ++t) {
-      landed(t + 1);
-      scores(x, dq0, dk0, t + 1);
-      dq_product(t);
-      scores(dp, ddo0, dv0, t + 1);
-      hop::wgmma_wait<2>();                 // tile t+1's s
-      p_step(t + 1, x);                     // while dq(t) and dp(t+1) run
-      hop::wgmma_wait<0>();
-      hop::fence_regs(acc);
-      hop::mbar_arrive(&empty[t % S]);
-      ds_step(x, dp);
-      to_smem();
-    }
-    dq_product(n_kt - 1);
-#endif
     hop::wgmma_wait<0>();
     hop::fence_regs(acc);
     hop::mbar_arrive(&empty[(n_kt - 1) % S]);

@@ -97,9 +97,9 @@ def test_every_sweep_variant_fits_shared_memory(variant, head_dim):
     assert 0 < fwd <= flash_probe.SMEM_LIMIT
     assert 0 < dkv <= flash_probe.SMEM_LIMIT
     assert 0 < dq <= flash_probe.SMEM_LIMIT
-    keys, fwd_stages, dkv_stages, dq_stages, pingpong = variant
+    keys, fwd_stages, dkv_stages, dq_stages = variant
     assert keys % 64 == 0 and fwd_stages >= 2 and dkv_stages >= 2
-    assert dq_stages >= 2 and pingpong in (0, 1)
+    assert dq_stages >= 2
 
 
 def test_sweep_variants_are_distinct_and_the_default_comes_first():
@@ -109,7 +109,7 @@ def test_sweep_variants_are_distinct_and_the_default_comes_first():
     text = "".join((_build._CSRC / f"{n}.cu").read_text()
                    for n in FLASH_SOURCES)
     macros = ("PTF_FWD_KEYS", "PTF_FWD_STAGES", "PTF_DKV_STAGES",
-              "PTF_DQ_STAGES", "PTF_DQ_PINGPONG")
+              "PTF_DQ_STAGES")
     assert flash_probe.MACROS == macros
     default = tuple(int(re.search(rf"#define {m} (\d+)", text)[1])
                     for m in macros)
@@ -142,7 +142,7 @@ def test_dq_shared_memory_per_stage(head_dim):
     and V tile with their int32 segment ids; up to 4 stages fit at
     head_dim 128, 5 do not."""
     def dq(stages):
-        return flash_probe.smem_bytes((64, 4, 3, stages, 1), head_dim)[2]
+        return flash_probe.smem_bytes((64, 4, 3, stages), head_dim)[2]
     per_stage = 2 * 64 * head_dim * 2 + 64 * 4
     assert dq(3) == 1024 + 2 * 128 * head_dim * 2 + 2 * 8192 + 3 * per_stage
     assert dq(4) - dq(3) == per_stage
