@@ -11,10 +11,11 @@ Phases (any failure exits non-zero before the result line):
    serving path's shapes, for bf16 and int8 caches (the int8 rows'
    written codes and scales bitwise): K8, the split-K paged decode
    attention (B 8, Hkv 4, G 4, D 128, C 256, lmax 2048, bf16 pool; dense
-   and paged, T 1 and 4, mixed lengths with a parked slot, a shuffled
-   table with sentinels, and a batch with a row on every block and span
-   edge; ``atol=rtol=1e-4`` on the f32 output, one launch a call, two
-   launches bitwise equal) and K9 fused prefill through its tensor-core
+   and paged, T 1 and 4 and the verify widths T 2, 3, 5, 9, mixed lengths
+   with a parked slot, a shuffled table with sentinels, and a batch with
+   a row on every block and span edge at T 1 and 4; ``atol=rtol=1e-4``
+   on the f32 output, one launch a call, two launches bitwise equal; its
+   time also at T 5 and 9) and K9 fused prefill through its tensor-core
    instance (T 256, offsets 0/256/768/1792, dense and paged, a sentinel
    destination; output within 2 bf16 ulps or 1e-6, the cache BITWISE
    equal after the append).  Each kernel's time (CUDA events, after
@@ -34,6 +35,24 @@ Phases (any failure exits non-zero before the result line):
    int8-KV runs must launch K8 7280 and K9 640 times, and every K9 launch
    must take its tensor-core instance.  The profiled decode window gives
    K8's device µs a decode step.
+3b. Speculative serving at full width: the same model on bench_serving's
+   workload (``bench.py:216-380``: prompts 64-1024 tiled from 32-token
+   segments, outputs log-uniform 128-512; 16 requests where the bench
+   has 64), batch 8, max_len 2048, sync_every 4, spec_k 8, in six arms:
+   greedy; prompt lookup (dense, pipelined); the same with
+   ``pipeline=False``; the quarter-depth draft model (4 layers, the
+   target's widths, seed 1; dense); the target drafting for itself on the
+   paged pool (blocks of 256, ``max_live_tokens`` 2·8·2048); prompt
+   lookup with the adaptive ladder (window 8, k_min 1: T 2, 3, 5, 9) and
+   int8 KV, paged.  Counters set to 0 just before each arm and read just
+   after: every request finishes with its token count, K8 and K9 launch
+   and no plain version runs, K8's launches by width are exactly the
+   verify widths dispatched (and the drafts' one-row steps); prompt
+   lookup pipelined == not, bit for bit; the self-draft arm leaks no
+   draft block and accepts >= 0.9 of its drafts (in bf16 the one-row
+   draft steps and the nine-row verify round near-ties differently).
+   Prints tok/s, TTFT and TPOT p50/p95, the accept rate and the drift
+   of each spec arm against the greedy streams.
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions), with float KV,
    int8 KV, int8 weights, and both: the streams match token for token
@@ -228,6 +247,14 @@ def bf16_ulps(a, b):
 
 
 # ----------------------------------------------------------------- phase 2
+#: K8's widths held against its plain version: a decode step (1), phase
+#: 2's earlier T 4, and the verify widths of the spec_k=8 depth ladder
+#: (k+1 for k in 1, 2, 4, 8)
+K8_WIDTHS = (1, 2, 3, 4, 5, 9)
+#: the verify widths timed
+VERIFY_TIMED = (5, 9)
+
+
 def phase_kernels(torch, dev):
     from paddle_tpu_torch.ops import paged_attention_cuda as k8
     from paddle_tpu_torch.ops import prefill_attention_cuda as k9
@@ -259,10 +286,10 @@ def phase_kernels(torch, dev):
     live = slice(0, B - 1)
     res = {}
 
-    # ---- K8: dense and paged, T = 1 and T = 4
+    # ---- K8: dense and paged, T = 1, 4 and the verify widths
     err8 = 0.0
     for paged in (False, True):
-        for t in (1, 4):
+        for t in K8_WIDTHS:
             kc, vc = pools[0] if paged else denses[0]
             tb = tbl if paged else None
             qg = rnd(B, HKV, G, t, D)
@@ -310,14 +337,24 @@ def phase_kernels(torch, dev):
             <= lengths[:, None].clamp(max=LMAX - 1))[:, None, None, :]
     lib8 = time_ms(torch, lambda i: sdpa(
         torch, q_sd, kd[i % ROT][0], kd[i % ROT][1], mask), 200)
-    rows = [int(x) + 1 for x in lens[:-1]]
-    kv_bytes = sum(rows) * HKV * D * 2 * 2
-    io_bytes = 2 * B * HKV * G * D * 4 + tbl.numel() * 4 + B * 4
-    flops = sum(4 * HKV * G * D * r for r in rows)
-    b_ms, b_by = bound(kv_bytes + io_bytes, flops)
+    b_ms, b_by = k8_bound(lens, tbl, 1, HKV * D * 2)
+    # the verify widths: SDPA with T query rows a slot, causal among them
+    lib8_t = {}
+    for t in VERIFY_TIMED:
+        q_t = rnd(B, HKV * G, t, D, dtype=torch.bfloat16)
+        pos = (lengths[:, None] + torch.arange(t, device=dev)[None, :]) \
+            .clamp(max=LMAX - 1)
+        m_t = (torch.arange(LMAX, device=dev)[None, None, :]
+               <= pos[:, :, None])[:, None]
+        lib8_t[t] = time_ms(torch, lambda i: sdpa(
+            torch, q_t, kd[i % ROT][0], kd[i % ROT][1], m_t), 200)
     res["paged_decode_attention"] = dict(
         max_abs_err=err8, ms=ms8, device_ms=dev8, plain_ms=plain8,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib8)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib8,
+        verify_widths={str(t): k8_width(torch, dev, gen, pools, lengths,
+                                        tbl, lens, t, HKV * D * 2,
+                                        lib8_t[t])
+                       for t in VERIFY_TIMED})
 
     # ---- K9: offsets 0/256/768/1792, dense and paged, a sentinel dest
     T = 256
@@ -392,15 +429,57 @@ def phase_kernels(torch, dev):
     res["prefill_attention"] = dict(
         max_abs_err=err9, ms=ms9, device_ms=dev9, plain_ms=plain9,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib9, max_ulps=ulp9)
-    res.update(phase_kernels_int8(torch, dev, gen, lib8, lib9))
+    res.update(phase_kernels_int8(torch, dev, gen, lib8, lib9, lib8_t))
     for name, r in res.items():
-        dev = ("not measured" if r["device_ms"] is None
-               else f"{r['device_ms'] * 1e3:.1f} us")
-        print(f"{name}: {r['ms'] * 1e3:.1f} us/launch (device {dev}), "
-              f"plain {r['plain_ms'] * 1e3:.1f} us, library "
-              f"{r['library_ms'] * 1e3:.1f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})", flush=True)
+        for tag, x in [("", r)] + [(f" T={t}", v) for t, v in
+                                   r.get("verify_widths", {}).items()]:
+            dev = ("not measured" if x["device_ms"] is None
+                   else f"{x['device_ms'] * 1e3:.1f} us")
+            print(f"{name}{tag}: {x['ms'] * 1e3:.1f} us/launch (device "
+                  f"{dev}), plain {x['plain_ms'] * 1e3:.1f} us, library "
+                  f"{x['library_ms'] * 1e3:.1f} us, bound "
+                  f"{x['bound_ms'] * 1e3:.2f} us ({x['bound_by']})",
+                  flush=True)
     return res
+
+
+def k8_bound(lens, tbl, t, row_bytes):
+    """K8's least time at the serving shape (B 8, Hkv 4, G 4, D 128) for
+    ``t`` query rows a slot: each live row reads its (length + t) keys of
+    K and V once (``row_bytes`` a token: Hkv·D·2 in bf16, Hkv·(D + 2) in
+    int8), q and out once in f32, the table and lengths; query row i
+    sees length + i + 1 keys, 4·D operations each per query head."""
+    HKV, G, D = 4, 4, 128
+    live = [int(x) for x in lens[:-1]]               # the last row parked
+    kv_bytes = sum(n + t for n in live) * row_bytes * 2
+    io_bytes = 2 * len(lens) * HKV * G * t * D * 4 + tbl.numel() * 4 \
+        + len(lens) * 4
+    flops = sum(4 * HKV * G * D * (t * n + t * (t + 1) // 2) for n in live)
+    return bound(kv_bytes + io_bytes, flops)
+
+
+def k8_width(torch, dev, gen, pools, lengths, tbl, lens, t, row_bytes,
+             lib_ms):
+    """K8 at ``t`` query rows a slot (a verify width) on the paged serving
+    pools: its time by events and by the profiler, its plain version's,
+    its bound, and the library yardstick ``lib_ms`` (SDPA at the same
+    width)."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+
+    B, HKV, G, D, C = len(lens), 4, 4, 128, 256
+    qg = torch.randn(B, HKV, G, t, D, generator=gen, device=dev)
+
+    def run(i):
+        return k8.paged_decode_attention(qg, *pools[i % len(pools)],
+                                         lengths, D ** -0.5, C, tbl,
+                                         impl="cuda")
+    ms = time_ms(torch, run, 200)
+    dms = device_ms(torch, run, "paged_decode_kernel")
+    plain = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
+        qg, *pools[i % len(pools)], lengths, D ** -0.5, C, tbl), 10, warm=1)
+    b_ms, b_by = k8_bound(lens, tbl, t, row_bytes)
+    return dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def k8_edges(torch, dev, gen, tag, make):
@@ -452,7 +531,7 @@ def k8_edges(torch, dev, gen, tag, make):
     return err
 
 
-def phase_kernels_int8(torch, dev, gen, lib8, lib9):
+def phase_kernels_int8(torch, dev, gen, lib8, lib9, lib8_t):
     """K8's and K9's int8 branches at the same serving shapes, on int8
     pools quantized from bf16 values: K8 dense and paged, T 1 and 4,
     within atol=rtol=1e-4 of its plain version (dequantization is exact;
@@ -494,7 +573,7 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
 
     err8 = 0.0
     for paged in (False, True):
-        for t in (1, 4):
+        for t in K8_WIDTHS:
             kc, vc = pools[0] if paged else denses[0]
             tb = tbl if paged else None
             qg = rnd(B, HKV, G, t, D)
@@ -518,14 +597,14 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9):
         "paged_decode_kernel")
     plain8 = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
         qg, *pools[i % ROT], lengths, scale, C, tbl), 10, warm=1)
-    rows = [int(x) + 1 for x in lens[:-1]]
-    kv_bytes = sum(rows) * HKV * (D + 2) * 2
-    io_bytes = 2 * B * HKV * G * D * 4 + tbl.numel() * 4 + B * 4
-    flops = sum(4 * HKV * G * D * r for r in rows)
-    b_ms, b_by = bound(kv_bytes + io_bytes, flops)
+    b_ms, b_by = k8_bound(lens, tbl, 1, HKV * (D + 2))
     res["paged_decode_attention_int8"] = dict(
         max_abs_err=err8, ms=ms8, device_ms=dev8, plain_ms=plain8,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib8)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib8,
+        verify_widths={str(t): k8_width(torch, dev, gen, pools, lengths,
+                                        tbl, lens, t, HKV * (D + 2),
+                                        lib8_t[t])
+                       for t in VERIFY_TIMED})
 
     T = 256
     err9 = 0.0
@@ -805,6 +884,200 @@ def profile_decode(torch, model, prompts, tag, knobs, n_steps=20):
           f"{total / n_steps:.1f} us device time a decode step "
           f"({k8_us / total:.3f})", flush=True)
     return total / wall_us, k8_us / n_steps
+
+
+# ---------------------------------------------------------------- phase 3b
+#: bench_serving's spec geometry (``bench.py:216-380``, :654-725): batch 8,
+#: max_len 2048, sync_every 4, spec_k 8
+SPEC_ENGINE = dict(batch_size=8, max_len=2048, sync_every=4, spec_k=8)
+#: the quarter-depth draft (bench's ``dcfg_kw``: the target's widths)
+DRAFT_LAYERS = SERVE_CFG["num_hidden_layers"] // 4
+#: the arms, in one call: (tag, engine knobs, SpecConfig knobs or None
+#: for greedy); ``draft_model`` "quarter" / "self" names the drafter
+SPEC_ARMS = (
+    ("greedy", {}, None),
+    ("pl", {}, {}),
+    ("pl_sync", dict(pipeline=False), {}),
+    ("dm_quarter", {}, dict(source="draft_model", draft_model="quarter")),
+    ("dm_self_paged", dict(kv_block=256, max_live_tokens=2 * 8 * 2048),
+     dict(source="draft_model", draft_model="self")),
+    ("pl_adaptive_kv8_paged", dict(kv_block=256, kv_dtype="int8"),
+     dict(adaptive_window=8, k_min=1)),
+)
+
+
+def spec_workload(seed=0, n=16):
+    """bench_serving's workload at 16 requests (it serves 64): prompts
+    uniform 64-1024 tokens, tiled from one 32-token segment each (the
+    prompt-lookup regime), outputs log-uniform 128-512."""
+    rng = np.random.default_rng(seed)
+    vocab = SERVE_CFG["vocab_size"]
+    plens = rng.integers(64, 1025, n)
+    olens = np.rint(np.exp(rng.uniform(np.log(128), np.log(512), n)))
+    prompts = [np.tile(rng.integers(0, vocab, 32), int(p) // 32 + 1)[:p]
+               for p in plens]
+    return prompts, [int(o) for o in olens]
+
+
+def phase_spec(torch, dev):
+    """Speculative serving at full width: the serving model behind the
+    spec arms of ``SPEC_ARMS`` on bench_serving's workload, each run with
+    the kernels' launch counters set to 0 just before and read just
+    after.  Checks: every request finishes with its token count; K8 and
+    K9 launch and no plain version runs; K8's launches by width are
+    exactly the verify widths the engine dispatched (k+1 rows a slot, 16
+    target layers a round) plus the drafts' one-row steps; prompt lookup
+    pipelined == synchronous bit for bit; the self-draft arm leaks no
+    draft block and accepts >= 0.9 of its drafts.  Prints tok/s, TTFT
+    and TPOT p50/p95, the accept rate and each spec arm's drift against
+    the greedy streams."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CFG), device=dev, seed=0)
+    quarter = LlamaForCausalLM(
+        LlamaConfig(**{**SERVE_CFG, "num_hidden_layers": DRAFT_LAYERS}),
+        device=dev, seed=1)
+    drafters = {"quarter": quarter, "self": model}
+    # warm-up (cuBLAS at the verify and draft shapes) on its own registry
+    for tag, ekw, skw in SPEC_ARMS:
+        if tag not in ("dm_quarter", "pl_adaptive_kv8_paged"):
+            continue
+        warm = ServingEngine(model, **SPEC_ENGINE, **ekw, mode="spec",
+                             spec=spec_config(SpecConfig, skw, drafters),
+                             registry=MetricsRegistry())
+        warm.submit(Request(np.arange(100) % SERVE_CFG["vocab_size"], 24))
+        warm.run()
+        del warm
+    prompts, olens = spec_workload()
+    runs, streams = {}, {}
+    for tag, ekw, skw in SPEC_ARMS:
+        runs[tag], streams[tag] = spec_run(
+            torch, model, drafters, prompts, olens, tag, ekw, skw)
+        if tag != "greedy":
+            runs[tag]["drift"], runs[tag]["flip_per_tok"] = drift(
+                streams["greedy"], streams[tag])
+            print(f"spec {tag} token drift vs greedy: "
+                  f"{runs[tag]['drift']:.4f} of positions, first-divergence "
+                  f"rate {runs[tag]['flip_per_tok']:.4f} per token",
+                  flush=True)
+    check(streams["pl"] == streams["pl_sync"],
+          "spec: prompt lookup pipelined differs from pipeline=False")
+    print("spec: prompt lookup pipelined == pipeline=False, bit for bit",
+          flush=True)
+    check(runs["dm_self_paged"]["accept_rate"] >= 0.9,
+          f"spec: the self-draft arm accepted "
+          f"{runs['dm_self_paged']['accept_rate']:.4f} < 0.9 of its drafts")
+    del model, quarter, drafters
+    torch.cuda.empty_cache()
+    return runs
+
+
+def spec_config(SpecConfig, skw, drafters):
+    if skw is None:
+        return None
+    skw = dict(skw)
+    if "draft_model" in skw:
+        skw["draft_model"] = drafters[skw["draft_model"]]
+    return SpecConfig(**skw)
+
+
+def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
+    """One spec-phase arm (``phase_spec``); returns its figures and its
+    token streams."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+    from paddle_tpu_torch.ops import prefill_attention_cuda as k9
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+
+    reg = MetricsRegistry()
+    spec = spec_config(SpecConfig, skw, drafters)
+    eng = ServingEngine(model, **SPEC_ENGINE, **ekw, registry=reg,
+                        mode="greedy" if spec is None else "spec",
+                        spec=spec)
+    rounds = {}
+    call_spec = eng._call_spec
+
+    def counted(cur, dev_len, active, k):       # verify rounds by depth
+        rounds[k] = rounds.get(k, 0) + 1
+        return call_spec(cur, dev_len, active, k)
+    eng._call_spec = counted
+    torch.cuda.synchronize()
+    k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
+    k9.launches_mma = 0
+    k8.launches_t.clear()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts, olens)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(k8=k8.launches, k9=k9.launches, k9_mma=k9.launches_mma,
+                  k8_plain=k8.plain_runs, k9_plain=k9.plain_runs,
+                  k8_by_t=dict(sorted(k8.launches_t.items())))
+    for r, o in zip(reqs, olens):
+        check(r.status == "done" and len(r.output_ids) == o,
+              f"spec {tag}: request {r.rid} finished {r.status} with "
+              f"{len(r.output_ids)}/{o} tokens")
+    check(counts["k8"] > 0 and counts["k9"] > 0,
+          f"spec {tag}: a kernel did not run on the main path: {counts}")
+    check(counts["k8_plain"] == 0 and counts["k9_plain"] == 0,
+          f"spec {tag}: a plain version ran on the card: {counts}")
+    check(counts["k9_mma"] == counts["k9"],
+          f"spec {tag}: K9 left its tensor-core instance: {counts}")
+    n_layers = SERVE_CFG["num_hidden_layers"]
+    if spec is None:
+        check(set(counts["k8_by_t"]) == {1},
+              f"spec {tag}: greedy K8 launches at widths other than 1: "
+              f"{counts}")
+    else:
+        # every verify round: k+1 rows a slot through every target layer;
+        # a draft model adds k+1 one-row steps through its layers
+        d_layers = (len(eng._dparams["layers"]) if eng._dspec else 0)
+        want = {}
+        for k, n in rounds.items():
+            want[k + 1] = want.get(k + 1, 0) + n * n_layers
+            if d_layers:
+                want[1] = want.get(1, 0) + n * (k + 1) * d_layers
+        check(counts["k8_by_t"] == dict(sorted(want.items())),
+              f"spec {tag}: K8 launches by width {counts['k8_by_t']}, the "
+              f"rounds dispatched {rounds} need {want}")
+    lbl = dict(policy="continuous")
+    n_tok = sum(olens)
+    out = dict(run=tag, knobs={**ekw, **{k: v for k, v in (skw or {}).items()
+                                         if k != "draft_model"}},
+               drafter=(skw or {}).get("draft_model"), requests=len(reqs),
+               tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+               steps=int(reg.get("serving_steps_total").labels(**lbl).value),
+               rounds_by_k=dict(sorted(rounds.items())), launches=counts)
+    out.update({f"{k}_p{q}_s": float(np.percentile(v, q))
+                for k, v in (("ttft", [r.ttft for r in reqs]),
+                             ("tpot", [r.tpot for r in reqs]))
+                for q in (50, 95)})
+    if spec is not None:
+        drafted = reg.get("serving_spec_drafted_total").labels(**lbl).value
+        accepted = reg.get("serving_spec_accepted_total").labels(**lbl).value
+        out.update(drafted=int(drafted), accepted=int(accepted),
+                   accept_rate=accepted / drafted if drafted else None,
+                   draft_k_final=reg.get("serving_spec_draft_k").labels(
+                       **lbl).value)
+        gauge = reg.get("serving_spec_accept_rate").labels(
+            source=spec.source, **lbl).value
+        check(drafted > 0 and abs(gauge - out["accept_rate"]) <= 1e-9,
+              f"spec {tag}: accept-rate gauge {gauge} vs counters {out}")
+    if eng._paged:
+        kv = eng.kv_manager
+        out["draft_blocks_leaked"] = kv.draft_blocks_used()
+        out["draft_blocks_gauge"] = reg.get("serving_kv_blocks_used").labels(
+            model="draft", **lbl).value
+        check(kv.draft_blocks_used() == 0 and out["draft_blocks_gauge"] == 0
+              and kv.outstanding() == 0,
+              f"spec {tag}: draft blocks leaked after drain: {out}")
+    print(f"spec {tag} " + json.dumps(out), flush=True)
+    toks = [list(r.output_ids) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return out, toks
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2384,6 +2657,9 @@ def main():
     serving = phase_serving(torch, dev)
     print(f"phase serving: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
+    spec = phase_spec(torch, dev)
+    print(f"phase spec: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
     phase_parity(torch, dev)
     print(f"phase parity: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
@@ -2411,12 +2687,19 @@ def main():
 
     bf16, kv8 = serving["bf16"]["launches"], serving["kv8"]["launches"]
     csrc = "paddle_tpu_torch/ops/csrc"
+    # the spec arms' launches (K8 by width), bf16-KV arms on the bf16
+    # rows, the int8-KV arm on the int8 rows
+    spec_bf16, spec_kv8 = {}, {}
+    for tag, r in spec.items():
+        (spec_kv8 if "kv8" in tag else spec_bf16)[tag] = {
+            "k8_by_t": r["launches"]["k8_by_t"], "k9": r["launches"]["k9"]}
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
              launches=bf16["k8"], **kern["paged_decode_attention"],
-             us_per_decode_step=serving["bf16"]["k8_us_per_decode_step"]),
+             us_per_decode_step=serving["bf16"]["k8_us_per_decode_step"],
+             spec_launches=spec_bf16),
         dict(name="prefill_attention", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",
@@ -2426,7 +2709,8 @@ def main():
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
              launches=kv8["k8"], **kern["paged_decode_attention_int8"],
-             us_per_decode_step=serving["kv8"]["k8_us_per_decode_step"]),
+             us_per_decode_step=serving["kv8"]["k8_us_per_decode_step"],
+             spec_launches=spec_kv8),
         dict(name="prefill_attention_int8", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",

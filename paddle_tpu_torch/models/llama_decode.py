@@ -11,6 +11,16 @@ loop of ``n_steps`` forward steps, and the caches are updated in place
 CUDA tensors (K8 decode, K9 prefill) and runs their plain versions for
 CPU tensors.
 
+Speculative decoding (``decode_speculative``, ``serving_spec_step``,
+``serving_spec_draft_step``) drafts ``k`` tokens — by prompt lookup in
+the slot's token history (``_ngram_draft``) or with a draft model — and
+verifies them in ONE ``[B, k+1]`` target forward (``_forward_step_all``;
+on the card K8 with ``T = k+1`` query rows a slot); ``_verify_and_emit``
+keeps the longest matched prefix plus the target's own pick after it, so
+every emitted token is the verify forward's greedy pick.  A rejected
+draft costs nothing to undo: the lengths rewind to the accepted prefix
+and the stale cache rows past them are masked and later overwritten.
+
 ``quantize_decode_weights`` makes the seven projections int8 with one
 f16 scale per output channel; ``_mm`` then dequantizes in the matmul,
 ``(x @ w.to(x.dtype)) * s.to(x.dtype)``: a plain ``torch.matmul``, as
@@ -32,8 +42,10 @@ from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, init_kv_cache, slot_prefill_attention,
 )
 
-__all__ = ["extract_decode_params", "decode_greedy", "quantize_decode_weights",
-           "serving_prefill_chunk", "serving_decode_steps"]
+__all__ = ["extract_decode_params", "decode_greedy", "decode_speculative",
+           "quantize_decode_weights", "serving_prefill_chunk",
+           "serving_decode_steps", "serving_spec_step",
+           "serving_spec_draft_step"]
 
 #: the projections ``weight_dtype="int8"`` quantizes; norm gains, the
 #: embedding and ``lm_head`` keep the checkpoint dtype
@@ -214,6 +226,79 @@ def _forward_step(params, cfg, tokens, caches, lengths, chunk_size=None,
                     attn_impl=attn_impl)
 
 
+def _forward_step_all(params, cfg, tokens, caches, lengths, chunk_size=None,
+                      block_tables=None, attn_impl=None):
+    """tokens ``[B, T]`` -> (logits f32 of EVERY position ``[B, T, V]``,
+    caches, lengths + T): the verify pass of speculative decoding needs
+    the target's next-token choice after each drafted token."""
+    return _forward(params, cfg, tokens, caches, lengths, last_only=False,
+                    chunk_size=chunk_size, block_tables=block_tables,
+                    attn_impl=attn_impl)
+
+
+def _set_cols(buf, cols, values, valid):
+    """``buf[b, cols[b, t]] = values[b, t]`` in place where ``valid`` —
+    the reference's ``.at[...].set(mode="drop")`` on a ``[B, L]`` int
+    buffer, without a host sync.  ``cols`` must increase along ``t`` (a
+    run of consecutive columns per row).  An invalid in-range entry
+    writes its column's current value back; an out-of-range one is
+    re-pointed at the row's first column with that column's value, so
+    duplicate indices always carry identical values and the result does
+    not depend on the order ``scatter_`` applies them."""
+    span = buf.shape[1]
+    old = torch.gather(buf, 1, cols.clamp(0, span - 1).long())
+    vals = torch.where(valid, values.to(buf.dtype), old)
+    inb = (cols >= 0) & (cols < span)
+    tgt = torch.where(inb, cols, cols[:, :1].clamp(0, span - 1))
+    vals = torch.where(inb, vals, vals[:, :1])
+    buf.scatter_(1, tgt.long(), vals)
+    return buf
+
+
+def _verify_and_emit(logits, drafts, n_out, out, max_new_tokens, spec_k):
+    """Acceptance shared by every speculative loop: greedy picks at every
+    verified position of ``logits [B, k+1, V]``, the longest matched
+    draft prefix ``j`` (cumulative product of the matches), and the
+    emitted block (d1..dj, the target's pick at j) written into ``out
+    [B, max_new_tokens]`` (in place) at per-row offsets ``n_out``;
+    columns at or past ``max_new_tokens`` drop.  Returns (out, cur' —
+    the pick at j —, j, emit [B, k+1]), all int32."""
+    b = drafts.shape[0]
+    dev = drafts.device
+    picks = torch.argmax(logits, dim=-1).to(torch.int32)      # [B, k+1]
+    match = picks[:, :spec_k] == drafts                       # [B, k]
+    j = torch.cumprod(match.to(torch.int32), dim=1).sum(
+        dim=1, dtype=torch.int32)                             # [B] 0..k
+    ar = torch.arange(spec_k + 1, dtype=torch.int32, device=dev)[None, :]
+    bonus = torch.gather(picks, 1, j[:, None].long())         # [B, 1]
+    emit = torch.where(
+        ar < j[:, None],
+        torch.cat([drafts.to(torch.int32),
+                   torch.zeros((b, 1), dtype=torch.int32, device=dev)], 1),
+        bonus)                                                # [B, k+1]
+    cols = n_out.to(torch.int32)[:, None] + ar
+    valid = (ar <= j[:, None]) & (cols < max_new_tokens)
+    _set_cols(out, cols, emit, valid)
+    return out, bonus[:, 0], j, emit
+
+
+def _ngram_draft(hist, hist_len, cur, spec_k):
+    """Model-free prompt-lookup draft: the ``spec_k`` tokens that followed
+    the most recent earlier occurrence of ``cur`` in each row's history
+    (``hist [B, lmax]`` int32, valid to ``hist_len [B]``); a miss drafts
+    from position 0 — a bad draft only costs speed, never output."""
+    lmax = hist.shape[1]
+    dev = hist.device
+    pos = torch.arange(lmax, dtype=torch.int32, device=dev)[None, :]
+    eq = (hist == cur.to(torch.int32)[:, None]) \
+        & (pos < (hist_len.to(torch.int32) - 1)[:, None])
+    m = torch.where(eq, pos, torch.full_like(pos, -1)).amax(dim=1)  # [B]
+    start = torch.where(m >= 0, m + 1, torch.zeros_like(m))
+    idx = (start[:, None] + torch.arange(spec_k, dtype=torch.int32,
+                                         device=dev)[None, :])
+    return torch.gather(hist, 1, idx.clamp(0, lmax - 1).long())   # [B, k]
+
+
 def _layer_prefill_chunk(lp, cfg, h, k_cache, v_cache, slot, offset, cos_t,
                          sin_t, chunk_size=None, block_tables=None,
                          prefill_impl=None):
@@ -239,7 +324,7 @@ def _layer_prefill_chunk(lp, cfg, h, k_cache, v_cache, slot, offset, cos_t,
 
 def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
                           slot, chunk_size=None, block_tables=None,
-                          program_key=None):
+                          program_key=None, hist=None, hist_len=None):
     """Process the next ``[1, P]`` chunk of an admitted prompt against
     slot ``slot``'s rows of the batch cache (appended in place).
 
@@ -251,7 +336,16 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
     (``clamp(prompt_len - 1 - offset, 0, P - 1)``); only the final
     chunk's pick is the request's first token.  Returns ``(first [1],
     ok [1] — all logits finite —, caches)``, ``first`` and ``ok`` left on
-    the device."""
+    the device.
+
+    With ``hist [B, lmax]`` / ``hist_len [B]`` (int32, on the device; the
+    prompt-lookup history) the slot's row accretes in place: the chunk's
+    tokens at ``offset + i`` (columns past ``lmax`` drop) and, on the
+    final chunk (``offset + P >= prompt_len``), the first token at
+    ``prompt_len`` with ``hist_len[slot] = prompt_len + 1``.  Columns
+    past ``hist_len`` may hold a prior occupant's tokens:
+    ``_ngram_draft`` masks its scan by ``hist_len``, and a stale draft
+    only costs acceptance."""
     t = tokens.shape[1]
     nh, nkv, hd, eps = cfg
     offset, slot = int(offset), int(slot)
@@ -267,6 +361,14 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
     logits = _lm_logits(params, h[:, last_rel]).float()
     first = torch.argmax(logits, dim=-1).to(torch.int32)      # [1]
     ok = torch.isfinite(logits).all(dim=-1)                   # [1]
+    if hist is not None:
+        lmax = hist.shape[1]
+        n = max(0, min(t, lmax - offset))
+        if n:
+            hist[slot, offset:offset + n] = tokens[0, :n].to(torch.int32)
+        if offset + t >= int(prompt_len):
+            hist[slot, min(max(int(prompt_len), 0), lmax - 1)] = first[0]
+            hist_len[slot] = int(prompt_len) + 1
     return first, ok, caches
 
 
@@ -291,6 +393,103 @@ def serving_decode_steps(params, cfg, cur, caches, dev_lengths, n_steps=1,
         ok = ok & torch.isfinite(logits).all(dim=-1)
         toks.append(tok)
     return torch.stack(toks, dim=1), ok, caches
+
+
+def _spec_round_out(logits, drafts, dev_lengths, active, spec_k):
+    """The verify half of one serving round: ``(emitted [B, k+1] — the
+    j+1 accepted tokens, zero-padded —, j, cur', new_len, ok, emit)``;
+    ``new_len = dev_lengths + j + 1`` for live slots, untouched for dead
+    ones."""
+    b = drafts.shape[0]
+    dev = drafts.device
+    ok = torch.isfinite(logits).all(dim=-1).all(dim=-1)       # [B]
+    emitted, cur, j, emit = _verify_and_emit(
+        logits, drafts, torch.zeros((b,), dtype=torch.int32, device=dev),
+        torch.zeros((b, spec_k + 1), dtype=torch.int32, device=dev),
+        spec_k + 1, spec_k)
+    step = torch.where(active, j + 1, torch.zeros_like(j))
+    return emitted, j, cur, dev_lengths + step, ok, emit, step
+
+
+def serving_spec_step(params, cfg, cur, caches, dev_lengths, hist, hist_len,
+                      active, spec_k=4, chunk_size=None, block_tables=None,
+                      program_key=None):
+    """One prompt-lookup speculative round per slot: draft ``spec_k``
+    tokens from the history (``_ngram_draft``), verify them in one ``[B,
+    k+1]`` target forward, accept the longest matched prefix
+    (``_verify_and_emit``).  Emission is exactly the verify forward's own
+    greedy picks; agreement with the 1-token step holds up to
+    floating-point near-ties between the two forward shapes.  The
+    history (``hist [B, lmax]``, ``hist_len [B]``, int32) takes the
+    accepted tokens in place; dead slots (``active`` False, parked at
+    ``lmax``) drop their cache AND history writes.  Returns ``(emitted
+    [B, k+1], j [B], cur' [B], new_len [B] — dev_lengths + j + 1 for live
+    slots, the carry a pipelined engine feeds into the next dispatch
+    without a host sync —, ok [B] — the verify logits finite)``, all left
+    on the device."""
+    lmax = hist.shape[1]
+    cur = cur.to(torch.int32)
+    dev_lengths = dev_lengths.to(torch.int32)
+    drafts = _ngram_draft(hist, hist_len, cur, spec_k)
+    toks = torch.cat([cur[:, None], drafts], dim=1)           # [B, k+1]
+    logits, caches, _ = _forward_step_all(
+        params, cfg, toks, caches, dev_lengths, chunk_size=chunk_size,
+        block_tables=block_tables,
+        attn_impl=_pk_axis(program_key, "attn_impl"))
+    emitted, j, cur2, new_len, ok, emit, step = _spec_round_out(
+        logits, drafts, dev_lengths, active, spec_k)
+    ar = torch.arange(spec_k + 1, dtype=torch.int32, device=cur.device)
+    hcols = hist_len[:, None] + ar[None, :]
+    hvalid = (ar[None, :] <= j[:, None]) & (hcols < lmax) & active[:, None]
+    _set_cols(hist, hcols, emit, hvalid)
+    hist_len += step
+    return emitted, j, cur2, new_len, ok
+
+
+def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
+                            dev_lengths, active, spec_k=4, chunk_size=None,
+                            block_tables=None, draft_tables=None,
+                            program_key=None):
+    """One DRAFT-MODEL speculative round per slot (linear chain): the
+    draft model runs ``spec_k + 1`` one-token steps (the last only fills
+    its cache for the full-acceptance case), the target verifies the
+    ``spec_k`` candidates in one ``[B, k+1]`` forward, and the longest
+    matched prefix is accepted — emission is always the verify forward's
+    own greedy picks.
+
+    ``dcaches=None`` is the PAGED layout: draft layer ``l`` reads and
+    writes target layer ``l``'s pool arrays through ``draft_tables [B,
+    W]`` (the manager hands the draft chain its own blocks).  A list is
+    the DENSE layout: separate per-draft-layer ``[B, Lmax]`` caches.
+    Both models append from the same ``dev_lengths``, so one rewind
+    ``new_len = dev_lengths + j + 1`` serves both.  Returns the same
+    5-tuple as ``serving_spec_step``."""
+    if _pk_axis(program_key, "spec_tree") == "top2":
+        raise NotImplementedError(
+            "serving_spec_draft_step: spec_tree='top2' is not ported to "
+            "the PyTorch/CUDA engine yet — it arrives with the top-2 tree "
+            "verification slice (K8 with the branch row's hidden range)")
+    paged = dcaches is None
+    dc = caches if paged else dcaches
+    cur = cur.to(torch.int32)
+    dlen = dev_lengths.to(torch.int32)
+    attn_impl = _pk_axis(program_key, "attn_impl")
+    tok, dl, seq = cur, dlen, []
+    for _ in range(int(spec_k) + 1):
+        dlg, _, dl = _forward_step(
+            dparams, dcfg, tok[:, None], dc, dl, chunk_size=chunk_size,
+            block_tables=draft_tables if paged else None,
+            attn_impl=attn_impl)
+        tok = torch.argmax(dlg, dim=-1).to(torch.int32)
+        seq.append(tok)
+    drafts = torch.stack(seq[:spec_k], dim=1)                 # [B, k]
+    toks = torch.cat([cur[:, None], drafts], dim=1)           # [B, k+1]
+    logits, caches, _ = _forward_step_all(
+        params, cfg, toks, caches, dlen, chunk_size=chunk_size,
+        block_tables=block_tables, attn_impl=attn_impl)
+    emitted, j, cur2, new_len, ok, _, _ = _spec_round_out(
+        logits, drafts, dlen, active, spec_k)
+    return emitted, j, cur2, new_len, ok
 
 
 def _decode_params_of(model, lmax):
@@ -343,3 +542,106 @@ def decode_greedy(model, input_ids, max_new_tokens=32, max_len=None,
             chunk_size=chunk_size, attn_impl=impl)
         out.append(torch.argmax(logits, dim=-1).to(torch.int32))
     return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def decode_speculative(model, draft_model=None, input_ids=None,
+                       max_new_tokens=32, max_len=None, spec_k=4,
+                       chunk_size=None, impl=None):
+    """Lossless speculative greedy decoding of a batch of equal-length
+    prompts ``input_ids [B, prompt_len]``; returns ``[B, max_new_tokens]``
+    int32.  ``draft_model`` (same vocabulary, any smaller config)
+    proposes ``spec_k`` tokens a round; ``draft_model=None`` drafts by
+    prompt lookup (the tokens that followed the most recent earlier
+    occurrence of the current token in the prompt + generated history).
+    The target verifies a round's drafts in one forward and keeps the
+    longest matching prefix plus its own next pick, so every emitted
+    token is the argmax of a target logit vector: the output equals
+    ``decode_greedy``'s up to near-ties between the 1-token and
+    (k+1)-token forwards.  A bad draft only costs speed.
+
+    Where the reference runs the rounds in one ``lax.while_loop``, this
+    is a Python loop that reads one flag per round from the device (are
+    all rows done).  ``chunk_size`` / ``impl`` are ``decode_greedy``'s:
+    on the card the attention read is K8, which needs ``chunk_size``
+    dividing ``max_len``."""
+    if draft_model is not None and not hasattr(draft_model, "config"):
+        raise TypeError(
+            "decode_speculative: draft_model must be a LlamaForCausalLM "
+            f"or None (got {type(draft_model).__name__}) — did you mean "
+            "decode_speculative(model, None, input_ids)?")
+    if input_ids is None:
+        raise ValueError(
+            "decode_speculative: input_ids is required — note the "
+            "signature is (model, draft_model, input_ids, ...); pass "
+            "draft_model=None for model-free prompt-lookup drafting")
+    if draft_model is not None and \
+            model.config.vocab_size != draft_model.config.vocab_size:
+        raise ValueError("speculative decoding requires a shared vocabulary")
+    dev = model.llama.embed_tokens.weight.device
+    ids = torch.as_tensor(input_ids, device=dev).to(torch.int32)
+    b, prompt_len = ids.shape
+    k, max_new = int(spec_k), int(max_new_tokens)
+    need = prompt_len + max_new + k + 1
+    if max_len is not None and int(max_len) < need:
+        # the verify forward writes k+1 cache rows before the rewind; an
+        # undersized cache would drop writes and break losslessness
+        raise ValueError(
+            f"decode_speculative: max_len={max_len} < {need} "
+            f"(prompt + max_new_tokens + spec_k + 1); the verification "
+            "forward needs spec_k+1 rows of headroom past the last token")
+    lmax = int(max_len if max_len is not None else need + 1)
+    params, cfg = _decode_params_of(model, lmax)
+
+    def new_caches(p, c):
+        return [init_kv_cache(b, lmax, c[1], c[2], p["embed"].dtype, dev)
+                for _ in p["layers"]]
+
+    fwd = dict(chunk_size=chunk_size, attn_impl=impl)
+    caches = new_caches(params, cfg)
+    lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
+    logits, caches, lengths = _forward_step(params, cfg, ids, caches,
+                                            lengths, **fwd)
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    if draft_model is not None:
+        dparams, dcfg = _decode_params_of(draft_model, lmax)
+        dcaches = new_caches(dparams, dcfg)
+        _, dcaches, dlengths = _forward_step(
+            dparams, dcfg, ids, dcaches,
+            torch.zeros((b,), dtype=torch.int32, device=dev), **fwd)
+    else:
+        hist = torch.zeros((b, lmax), dtype=torch.int32, device=dev)
+        hist[:, :prompt_len] = ids
+        hist[:, prompt_len] = cur
+        hist_len = torch.full((b,), prompt_len + 1, dtype=torch.int32,
+                              device=dev)
+    out = torch.zeros((b, max_new), dtype=torch.int32, device=dev)
+    out[:, 0] = cur
+    n_out = torch.ones((b,), dtype=torch.int32, device=dev)
+    ar = torch.arange(k + 1, dtype=torch.int32, device=dev)[None, :]
+    while bool((n_out < max_new).any()):      # one host read a round
+        if draft_model is not None:
+            tok, seq = cur, []
+            for _ in range(k + 1):
+                dl, dcaches, dlengths = _forward_step(
+                    dparams, dcfg, tok[:, None], dcaches, dlengths, **fwd)
+                tok = torch.argmax(dl, dim=-1).to(torch.int32)
+                seq.append(tok)
+            drafts = torch.stack(seq[:k], dim=1)
+        else:
+            drafts = _ngram_draft(hist, hist_len, cur, k)
+        toks = torch.cat([cur[:, None], drafts], dim=1)
+        logits, caches, lengths = _forward_step_all(
+            params, cfg, toks, caches, lengths, **fwd)
+        out, cur, j, emit = _verify_and_emit(logits, drafts, n_out, out,
+                                             max_new, k)
+        if draft_model is not None:
+            dlengths = dlengths + j - k
+        else:
+            hcols = hist_len[:, None] + ar
+            _set_cols(hist, hcols, emit, (ar <= j[:, None]) & (hcols < lmax))
+            hist_len = hist_len + j + 1
+        # rewind to the accepted prefix: -(k+1) + (j+1)
+        lengths = lengths + j - k
+        n_out = n_out + j + 1
+    return out

@@ -16,9 +16,13 @@ merge's tickets live in a buffer cached per device and size
 ``paged_decode_attention`` is the one entry: on CPU tensors it runs the
 plain version (``ops/decode_attention._attend_read``, the reference's
 chunked online softmax), on CUDA tensors it launches the kernel or
-raises — there is no fallback.  ``launches`` counts kernel launches and
-``plain_runs`` counts plain-version runs, so a run can show which path
-it went through.
+raises — there is no fallback.  ``launches`` counts kernel launches
+(``launches_t`` the same launches by ``T``, the query rows a slot: 1
+for a decode step, ``k+1`` for a speculative verify) and ``plain_runs``
+counts plain-version runs, so a run can show which path it went
+through.  The kernel takes any ``T``: the ``G*T`` query rows of a kv
+head go ``_ROWS`` to a CTA, each row masked causally at ``lengths +
+t``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ __all__ = ["fused_decode_supported", "paged_decode_attention",
 #: kernel launches made by ``paged_decode_attention`` (a plain integer;
 #: callers may reset it to 0)
 launches = 0
+#: the same launches by T, the query rows a slot (callers may clear it)
+launches_t = {}
 #: runs of the plain version
 plain_runs = 0
 
@@ -237,4 +243,5 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
             f"paged_decode_attention: kernel launch failed with CUDA error "
             f"{rc}")
     launches += 1
+    launches_t[t] = launches_t.get(t, 0) + 1
     return out

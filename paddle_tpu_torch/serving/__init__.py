@@ -1,6 +1,7 @@
 """The port's serving engine (one replica)."""
 from paddle_tpu_torch.serving.engine import (
-    KVPoolExhausted, Request, ServingEngine,
+    AcceptWindow, KVPoolExhausted, Request, ServingEngine, SpecConfig,
 )
 
-__all__ = ["KVPoolExhausted", "Request", "ServingEngine"]
+__all__ = ["AcceptWindow", "KVPoolExhausted", "Request", "ServingEngine",
+           "SpecConfig"]

@@ -46,18 +46,36 @@ nothing falls back.
   (``quantize_decode_weights``), dequantized in the matmul.  Both are
   axes of the ``ProgramKey``.
 
+* **Speculative decoding** (``mode="spec"``, ``spec=SpecConfig(...)``):
+  each round drafts ``k`` tokens a slot — by prompt lookup in the slot's
+  token history (``serving_spec_step``) or with a resident draft model
+  (``serving_spec_draft_step``, linear chain) — and verifies them in one
+  ``[B, k+1]`` target forward (K8 with ``T = k+1`` query rows a slot on
+  the card), emitting the longest matched prefix plus the target's own
+  next pick: exactly the verify forward's greedy picks.  The accepted
+  length is known only on the device, so a pipelined engine feeds the
+  previous round's device lengths straight into the next dispatch and
+  its host mirror catches up at the drain.  The adaptive policy
+  (``adaptive_window``) moves the batch depth along a ladder of rungs
+  ``k_min .. spec_k`` (powers of two), one ``ProgramKey`` per rung.  A
+  draft model's KV lives in separate dense caches or, paged, as a second
+  tenant of the same block pool (``serving/kv_cache.py``).
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-speculative decoding, tensor parallelism, the
-reliability layer (deadlines, load shedding, retries, fault injection,
-preemption), the request-scoped observability layer (flight recorder,
-SLO tracker, watchdog), the host KV tier, prefill/decode disaggregation
-and the monolithic (``prefill_chunk=None``) prefill.
+top-2 tree verification (``SpecConfig(tree="top2")``), tensor
+parallelism, the reliability layer (deadlines, load shedding, retries,
+fault injection, preemption), the request-scoped observability layer
+(flight recorder, SLO tracker, watchdog), the host KV tier,
+prefill/decode disaggregation and the monolithic
+(``prefill_chunk=None``) prefill.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import logging
 import time
+import warnings
 from collections import deque
 
 import numpy as np
@@ -67,7 +85,9 @@ from paddle_tpu_torch.core.device import h2d, resolve_impl
 from paddle_tpu_torch.models.llama_decode import (
     QUANT_WEIGHTS, _decode_params_of, canon_weight_dtype,
     quantize_decode_weights, serving_decode_steps, serving_prefill_chunk,
+    serving_spec_draft_step, serving_spec_step,
 )
+from paddle_tpu_torch.ops.decode_attention import init_kv_cache
 from paddle_tpu_torch.ops.decode_attention import kv_dtype as _kv_dtype
 from paddle_tpu_torch.ops.paged_attention_cuda import fused_decode_supported
 from paddle_tpu_torch.ops.prefill_attention_cuda import (
@@ -79,7 +99,8 @@ from paddle_tpu_torch.serving.kv_cache import (
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.program_key import ProgramKey
 
-__all__ = ["KVPoolExhausted", "Request", "ServingEngine"]
+__all__ = ["AcceptWindow", "KVPoolExhausted", "Request", "ServingEngine",
+           "SpecConfig"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -88,6 +109,122 @@ def _not_ported(where, knob, slice_name):
     raise NotImplementedError(
         f"{where}: {knob} is not ported to the PyTorch/CUDA engine yet — it "
         f"arrives with the {slice_name} slice")
+
+
+#: warn-once latch for SpecConfig's draft-model fallback (a fleet of
+#: engines constructed in a loop must not spam the log)
+_SPEC_FALLBACK_WARNED = False
+
+
+def _warn_spec_fallback():
+    global _SPEC_FALLBACK_WARNED
+    if _SPEC_FALLBACK_WARNED:
+        return
+    _SPEC_FALLBACK_WARNED = True
+    warnings.warn(
+        "SpecConfig(source='draft_model') with no draft_model supplied — "
+        "falling back to prompt-lookup drafting (this warning fires once "
+        "per process)", RuntimeWarning, stacklevel=3)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """The validated speculative-decoding config, checked at
+    construction.
+
+    ``source``: ``"prompt_lookup"`` (drafts mined from the slot's token
+    history) or ``"draft_model"`` (a resident draft ``LlamaForCausalLM``
+    decoding ``spec_k`` candidates).  ``draft_model``: that model —
+    ``source="draft_model"`` without one falls back to prompt lookup
+    with a once-per-process RuntimeWarning (the reference's rule: an
+    engine keeps serving when a deployment forgets the draft weights).
+    ``spec_k``: draft tokens a round (``None`` inherits the engine's
+    ``spec_k``); under the adaptive policy, the depth ceiling.
+    ``adaptive_window``: ``None`` = fixed depth; an int >= 1 sizes each
+    slot's sliding window of rounds whose accept rate moves the depth
+    ladder.  ``k_min``: the ladder's floor.  ``tree``: ``None`` or
+    ``"top2"`` (validated; the engine raises ``NotImplementedError`` for
+    it — not ported yet)."""
+
+    source: str = "prompt_lookup"
+    draft_model: object = None
+    spec_k: object = None
+    adaptive_window: object = None
+    k_min: int = 1
+    tree: object = None
+
+    def __post_init__(self):
+        if self.source not in ("prompt_lookup", "draft_model"):
+            raise ValueError(
+                f"SpecConfig: unknown source {self.source!r} — expected "
+                "'prompt_lookup' or 'draft_model'")
+        if self.spec_k is not None and (
+                isinstance(self.spec_k, bool)
+                or not isinstance(self.spec_k, int) or self.spec_k < 1):
+            raise ValueError(
+                f"SpecConfig: spec_k must be None (inherit the engine "
+                f"knob) or an int >= 1, got {self.spec_k!r}")
+        if self.adaptive_window is not None and (
+                isinstance(self.adaptive_window, bool)
+                or not isinstance(self.adaptive_window, int)
+                or self.adaptive_window < 1):
+            raise ValueError(
+                f"SpecConfig: adaptive_window must be None (fixed k) or "
+                f"an int >= 1 (verify rounds in the accept-rate window), "
+                f"got {self.adaptive_window!r}")
+        if isinstance(self.k_min, bool) or not isinstance(self.k_min, int) \
+                or self.k_min < 1:
+            raise ValueError(
+                f"SpecConfig: k_min must be an int >= 1, got "
+                f"{self.k_min!r}")
+        if self.spec_k is not None and self.k_min > self.spec_k:
+            raise ValueError(
+                f"SpecConfig: k_min ({self.k_min}) exceeds spec_k "
+                f"({self.spec_k})")
+        if self.tree not in (None, "top2"):
+            raise ValueError(
+                f"SpecConfig: unknown tree {self.tree!r} — expected None "
+                "(linear chain) or 'top2'")
+        if self.tree is not None and self.source != "draft_model":
+            raise ValueError(
+                "SpecConfig: tree='top2' branches on the draft model's "
+                "top-2 — it requires source='draft_model'")
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+class AcceptWindow:
+    """Sliding window of (drafted, accepted) verify rounds — the accept
+    rate that moves one slot's adaptive depth.  ``rate()`` is
+    ``sum(accepted) / sum(drafted)`` over the last ``window`` rounds, or
+    ``None`` while empty.  Host arithmetic; one instance a slot."""
+
+    def __init__(self, window):
+        self.window = int(window)
+        if self.window < 1:
+            raise ValueError(
+                f"AcceptWindow: window must be >= 1, got {window!r}")
+        self._q = deque(maxlen=self.window)
+
+    def push(self, drafted, accepted):
+        if drafted < 0 or accepted < 0 or accepted > drafted:
+            raise ValueError(
+                f"AcceptWindow: need 0 <= accepted <= drafted, got "
+                f"accepted={accepted} drafted={drafted}")
+        self._q.append((int(drafted), int(accepted)))
+
+    def rate(self):
+        drafted = sum(d for d, _ in self._q)
+        if not drafted:
+            return None
+        return sum(a for _, a in self._q) / drafted
+
+    def reset(self):
+        self._q.clear()
+
+    def __len__(self):
+        return len(self._q)
 
 
 class _Fetch:
@@ -204,9 +341,11 @@ class ServingEngine:
     ``"int8"`` quantizes the decode projections.  ``attn_impl`` /
     ``prefill_impl``:
     ``None`` (by device), ``"cuda"`` (kernels; the only choice on the
-    card) or ``"reference"`` (plain versions; CPU only).  ``registry`` /
-    ``instrument``: metrics.  ``recorder`` defaults to ``False`` here —
-    the flight recorder is not ported yet."""
+    card) or ``"reference"`` (plain versions; CPU only).  ``mode``:
+    ``"greedy"`` or ``"spec"`` (speculative decoding; ``spec`` a
+    ``SpecConfig`` or its kwargs dict, ``spec_k`` the default depth).
+    ``registry`` / ``instrument``: metrics.  ``recorder`` defaults to
+    ``False`` here — the flight recorder is not ported yet."""
 
     def __init__(self, model, batch_size=8, max_len=2048, mode="greedy",
                  sync_every=1, policy="continuous", prompt_buckets=None,
@@ -214,7 +353,7 @@ class ServingEngine:
                  pipeline=True, decode_chunk=256, prefill_chunk=256,
                  prefill_budget=2, kv_block=None, max_live_tokens=None,
                  kv_dtype=None, attn_impl=None, prefill_impl=None,
-                 spec_k=None, spec=None, weight_dtype=None, mesh=None,
+                 spec_k=8, spec=None, weight_dtype=None, mesh=None,
                  tp_axis=None, tp_overlap=None, max_pending=None,
                  retry_attempts=None, retry_backoff=None, faults=None,
                  recorder=False, slo=None, watchdog=None,
@@ -222,13 +361,46 @@ class ServingEngine:
                  host_tier_min_blocks=None, prefill_only=False,
                  on_prefilled=None):
         where = "ServingEngine"
-        if mode == "spec" or spec is not None or spec_k is not None:
-            _not_ported(where, "speculative decoding (mode='spec', spec=, "
-                        "spec_k=)", "speculative decoding")
-        if mode != "greedy":
+        if mode not in ("greedy", "spec"):
             raise ValueError(f"unknown mode {mode!r}")
         if policy not in ("continuous", "gang"):
             raise ValueError(f"unknown policy {policy!r}")
+        # one validated config for every drafting knob; the engine's
+        # spec_k survives as the default depth
+        if spec is not None and mode != "spec":
+            raise ValueError(
+                "spec= carries speculative-drafting knobs — construct "
+                f"the engine with mode='spec' (got mode={mode!r})")
+        if mode == "spec":
+            if spec is None:
+                spec = SpecConfig()
+            elif isinstance(spec, dict):
+                spec = SpecConfig(**spec)
+            elif not isinstance(spec, SpecConfig):
+                raise ValueError(
+                    f"spec= must be a SpecConfig or a kwargs dict, got "
+                    f"{type(spec).__name__}")
+            if spec.spec_k is None:
+                spec = spec.replace(spec_k=int(spec_k))
+            if spec.source == "draft_model" and spec.draft_model is None:
+                _warn_spec_fallback()
+                spec = spec.replace(source="prompt_lookup", tree=None)
+            if spec.tree is not None and kv_block is not None:
+                raise ValueError(
+                    "spec tree='top2' requires dense caches (kv_block="
+                    "None): the accepted-branch row repair scatters into "
+                    "dense per-slot cache rows")
+            if spec.tree is not None:
+                _not_ported(where, "SpecConfig(tree='top2')",
+                            "top-2 tree verification (K8 with the branch "
+                            "row's hidden range)")
+            spec_k = spec.spec_k
+        else:
+            spec = None
+        self._spec = spec
+        self._dspec = spec is not None and spec.source == "draft_model"
+        self._mode = mode
+        self._spec_k = int(spec_k)
         if mesh is not None or tp_axis is not None or tp_overlap is not None:
             _not_ported(where, "tensor parallelism (mesh=, tp_axis=, "
                         "tp_overlap=)", "tensor-parallel serving")
@@ -286,40 +458,90 @@ class ServingEngine:
             # a fresh dict: the model's cached params (views of its
             # parameters) are never replaced or mutated
             self._params = quantize_decode_weights(self._params, "int8")
+        self._dparams = self._dcfg = self._dcaches = None
+        if self._dspec:
+            self._init_draft(spec.draft_model, nkv, hd)
         self._attn_impl = _resolve_engine_impl("attn_impl", attn_impl,
                                                self._device)
         self._prefill_impl = _resolve_engine_impl(
             "prefill_impl", prefill_impl, self._device)
-        if self._attn_impl == "cuda":
-            reason = fused_decode_supported(self._chunk, self._lmax, hd)
-            if reason is not None:
-                raise ValueError(f"{where}: the decode kernel (K8) does not "
-                                 f"cover this geometry — {reason}")
-        if self._prefill_impl == "cuda":
-            reason = fused_prefill_supported(self._chunk, self._lmax,
-                                             self._pchunk, self._paged, hd)
-            if reason is not None:
-                raise ValueError(f"{where}: the prefill kernel (K9) does "
-                                 f"not cover this geometry — {reason}")
+        # the kernels cover every verify width (T = k+1 rows a slot):
+        # the gates depend on the cache geometry and head_dim only
+        for hdim in (hd, self._dcfg[2]) if self._dspec else (hd,):
+            if self._attn_impl == "cuda":
+                reason = fused_decode_supported(self._chunk, self._lmax,
+                                                hdim)
+                if reason is not None:
+                    raise ValueError(f"{where}: the decode kernel (K8) does "
+                                     f"not cover this geometry — {reason}")
+            if self._prefill_impl == "cuda":
+                reason = fused_prefill_supported(
+                    self._chunk, self._lmax, self._pchunk, self._paged, hdim)
+                if reason is not None:
+                    raise ValueError(f"{where}: the prefill kernel (K9) "
+                                     f"does not cover this geometry — "
+                                     f"{reason}")
         self._pk = ProgramKey(attn_impl=self._attn_impl,
                               prefill_impl=self._prefill_impl,
                               kv_dtype="int8" if self._q8 else None,
-                              weight_dtype="int8" if self._w8 else None)
+                              weight_dtype="int8" if self._w8 else None,
+                              draft_source=spec.source if spec else None,
+                              spec_depth=self._spec_k if spec else None,
+                              spec_tree=spec.tree if spec else None)
+        # adaptive depth: per-slot AcceptWindows pick a rung on a ladder
+        # [k_min .. spec_k] (powers of two between); the batch runs ONE
+        # depth a round, the most conservative live slot's, approached
+        # one rung a round.  Each rung is its own ProgramKey, made here
+        # once.
+        if spec is not None and spec.adaptive_window is not None:
+            rungs = {spec.k_min, self._spec_k}
+            r = 1
+            while r < self._spec_k:
+                if r > spec.k_min:
+                    rungs.add(r)
+                r *= 2
+            self._k_rungs = sorted(rungs)
+            self._awin = [AcceptWindow(spec.adaptive_window)
+                          for _ in range(self._B)]
+        else:
+            self._k_rungs = [self._spec_k]
+            self._awin = None
+        self._k_cur = self._k_rungs[-1]
+        self._k_want = [len(self._k_rungs) - 1] * self._B
+        self._spec_pks = {k: self._pk.replace(spec_depth=k)
+                          for k in self._k_rungs} if spec else {}
         if self._paged:
+            # a draft model is a second pool tenant whose chains grow in
+            # lockstep with the target's, so the default pool doubles (an
+            # explicit max_live_tokens is respected as given)
             self._kv = PagedKVCacheManager(
                 len(self._params["layers"]), self._B, self._lmax, nkv, hd,
                 dtype, block=kv_block,
                 max_live_tokens=(int(max_live_tokens) if max_live_tokens
-                                 else self._B * self._lmax),
+                                 else (2 if self._dspec else 1)
+                                 * self._B * self._lmax),
                 device=self._device, on_event=self._kv_event)
         else:
             self._kv = KVCacheManager(len(self._params["layers"]), self._B,
                                       self._lmax, nkv, hd, dtype,
                                       device=self._device)
+            if self._dspec:
+                # dense draft tenancy: separate per-draft-layer caches
+                # (dense rows are slot-indexed; sharing would clobber)
+                _, dnkv, dhd, _ = self._dcfg
+                ddtype = dtype if kv_dtype is not None else \
+                    self._dparams["embed"].dtype
+                self._dcaches = [
+                    init_kv_cache(self._B, self._lmax, dnkv, dhd, ddtype,
+                                  self._device)
+                    for _ in self._dparams["layers"]]
         if self._m is not None:
             self._m.set_kernels(self._attn_impl, self._prefill_impl)
             self._m.set_kv_quant("int8" if self._q8 else "off")
             self._m.set_weight_quant("int8" if self._w8 else "off")
+            if spec is not None:
+                self._m.set_spec_source(spec.source)
+                self._m.spec_draft_k.set(self._spec_k)
             n_layers = len(self._params["layers"])
             if self._q8:
                 # per context token: 1 byte per (head, dim) element plus a
@@ -351,6 +573,14 @@ class ServingEngine:
                 "prompt_buckets must be sorted strictly ascending (submit "
                 f"bisects over them), got {self._buckets}")
         self._cur = np.zeros((self._B,), np.int32)   # host next-token mirror
+        # the prompt-lookup history, on the device (a draft model needs
+        # none)
+        self._hist = self._hist_len = None
+        if spec is not None and not self._dspec:
+            self._hist = torch.zeros((self._B, self._lmax),
+                                     dtype=torch.int32, device=self._device)
+            self._hist_len = torch.zeros((self._B,), dtype=torch.int32,
+                                         device=self._device)
         self._queue = deque()
         self._finished = []
         self._next_rid = 0
@@ -359,6 +589,7 @@ class ServingEngine:
         # drained) step and the device-resident carried tokens
         self._inflight = None
         self._dev_cur = None
+        self._dev_len = None     # spec: the device-known accepted lengths
         # chunked-prefill state: per-slot progress (insertion order =
         # admission order), the device-resident first tokens of slots whose
         # final chunk went out, and the (slot, request, first, ok) records
@@ -381,10 +612,53 @@ class ServingEngine:
     def kv_manager(self):
         return self._kv
 
+    def _init_draft(self, draft_model, nkv, hd):
+        """The resident draft model's decode params, checked against the
+        target: the same vocabulary and device; on a paged pool (shared
+        blocks) the same KV row geometry and dtype, and at most as many
+        layers (draft layer ``l`` rides target layer ``l``'s pool)."""
+        where = "ServingEngine"
+        dev = draft_model.llama.embed_tokens.weight.device
+        if dev != self._device:
+            raise ValueError(f"{where}: the draft model is on {dev}, the "
+                             f"target on {self._device}")
+        self._dparams, self._dcfg = _decode_params_of(draft_model,
+                                                      self._lmax)
+        _, dnkv, dhd, _ = self._dcfg
+        dv, tv = (int(self._dparams["embed"].shape[0]),
+                  int(self._params["embed"].shape[0]))
+        if dv != tv:
+            raise ValueError(
+                f"draft model vocab {dv} != target vocab {tv} — the verify "
+                "forward compares token ids, so the vocabs must match")
+        if self._paged:
+            nd, nt = len(self._dparams["layers"]), len(self._params["layers"])
+            if nd > nt:
+                raise ValueError(
+                    f"paged draft sharing: draft layer count {nd} exceeds "
+                    f"target {nt} (draft layer l rides target layer l's "
+                    "pool array)")
+            if (dnkv, dhd) != (nkv, hd):
+                raise ValueError(
+                    f"paged draft sharing: draft KV geometry (kv_heads="
+                    f"{dnkv}, head_dim={dhd}) != target ({nkv}, {hd}) — "
+                    "blocks are model-agnostic bytes only when the "
+                    "per-row shapes match; use a dense engine for "
+                    "mismatched drafters")
+            if self._dparams["embed"].dtype != self._params["embed"].dtype:
+                raise ValueError(
+                    f"paged draft sharing: draft dtype "
+                    f"{self._dparams['embed'].dtype} != target "
+                    f"{self._params['embed'].dtype}")
+        if self._w8:
+            self._dparams = quantize_decode_weights(self._dparams, "int8")
+
     def _headroom(self):
-        # greedy may overshoot a retiring slot by < sync_every cache rows;
-        # a pipelined engine discovers retirement one drain late
-        return 2 * self._sync if self._pipeline else self._sync
+        # greedy may overshoot a retiring slot by < sync_every cache rows,
+        # spec's verify forward writes spec_k+1 rows before the rewind; a
+        # pipelined engine discovers retirement one drain late
+        per = self._spec_k + 1 if self._mode == "spec" else self._sync
+        return 2 * per if self._pipeline else per
 
     def submit(self, request):
         p = int(request.prompt_ids.size)
@@ -444,8 +718,9 @@ class ServingEngine:
     # --------------------------------------------------- program dispatch
     def _kv_event(self, kind, **info):
         if self._m is not None:
-            self._m.set_kv_blocks(self._kv.blocks_used(),
-                                  self._kv.free_count())
+            draft_used = self._kv.draft_blocks_used()
+            self._m.set_kv_blocks(self._kv.blocks_used() - draft_used,
+                                  draft_used, self._kv.free_count())
 
     def _tables(self):
         return self._kv.device_tables() if self._paged else None
@@ -457,12 +732,83 @@ class ServingEngine:
             block_tables=self._tables(), program_key=self._pk)
         return toks, ok
 
+    def _call_spec(self, cur, dev_len, active, k):
+        """One speculative round at draft depth ``k`` (a ladder rung):
+        ``(emitted, j, cur', new_len, ok)``, all on the device."""
+        pk = self._spec_pks[k]
+        if self._dspec:
+            return serving_spec_draft_step(
+                self._params, self._dparams, self._cfg, self._dcfg, cur,
+                self._kv.caches, None if self._paged else self._dcaches,
+                dev_len, active, spec_k=k, chunk_size=self._chunk,
+                block_tables=self._tables(),
+                draft_tables=(self._kv.device_draft_tables()
+                              if self._paged else None),
+                program_key=pk)
+        return serving_spec_step(
+            self._params, self._cfg, cur, self._kv.caches, dev_len,
+            self._hist, self._hist_len, active, spec_k=k,
+            chunk_size=self._chunk, block_tables=self._tables(),
+            program_key=pk)
+
     def _call_prefill_chunk(self, chunk, offset, prompt_len, slot):
         first, ok, _ = serving_prefill_chunk(
             self._params, self._cfg, h2d(chunk, self._device), offset,
             prompt_len, self._kv.caches, slot, chunk_size=self._chunk,
-            block_tables=self._tables(), program_key=self._pk)
+            block_tables=self._tables(), program_key=self._pk,
+            hist=self._hist, hist_len=self._hist_len)
         return first, ok
+
+    def _call_draft_prefill_chunk(self, chunk, offset, prompt_len, slot):
+        """One DRAFT-model prefill chunk: fills the draft tenant's rows
+        (paged: the first ``d`` pool layers through the draft tables;
+        dense: the separate draft caches).  Its first token and finite
+        flag are dropped — draft KV only moves the accept rate."""
+        serving_prefill_chunk(
+            self._dparams, self._dcfg, h2d(chunk, self._device), offset,
+            prompt_len, self._kv.caches if self._paged else self._dcaches,
+            slot, chunk_size=self._chunk,
+            block_tables=(self._kv.device_draft_tables() if self._paged
+                          else None), program_key=self._pk)
+
+    # ------------------------------------------------ adaptive draft depth
+    def _reset_spec_slot(self, slot):
+        """A fresh request in ``slot``: restart its accept window at the
+        ladder's top (its draftability is unknown)."""
+        if self._awin is not None:
+            self._awin[slot].reset()
+            self._k_want[slot] = len(self._k_rungs) - 1
+
+    def _adapt_k(self, rounds, k):
+        """Feed drained rounds ``[(slot, j)]`` at depth ``k`` into each
+        slot's window; with a full window, >= 80% accepted moves the
+        slot's wanted rung up one, <= 40% down one.  The batch depth is
+        chosen at the NEXT dispatch."""
+        if self._awin is None:
+            return
+        for slot, j in rounds:
+            w = self._awin[slot]
+            w.push(k, j)
+            r = w.rate()
+            if r is None or len(w) < w.window:
+                continue
+            if r >= 0.8 and self._k_want[slot] < len(self._k_rungs) - 1:
+                self._k_want[slot] += 1
+            elif r <= 0.4 and self._k_want[slot] > 0:
+                self._k_want[slot] -= 1
+
+    def _next_k(self, live):
+        """The batch depth for the next dispatch: the most conservative
+        live slot's wanted rung, approached one rung a round."""
+        if self._awin is None or not live:
+            return self._k_cur
+        want = min(self._k_want[i] for i in live)
+        cur = self._k_rungs.index(self._k_cur)
+        nxt = cur + (1 if want > cur else -1 if want < cur else 0)
+        self._k_cur = self._k_rungs[nxt]
+        if self._m is not None:
+            self._m.spec_draft_k.set(self._k_cur)
+        return self._k_cur
 
     def _admit(self):
         free = self._kv.free_slots()
@@ -477,6 +823,7 @@ class ServingEngine:
             tok = r.prompt_ids
             p = int(tok.size)
             off0, shared, budget, need = 0, [], 0, 0
+            doff0, dshared, dbudget = 0, [], 0
             if self._paged:
                 # token-budget admission: reserve the request's worst-case
                 # block count minus its radix-matched prefix; the match is
@@ -491,21 +838,41 @@ class ServingEngine:
                     off0 = (off0 // P) * P
                     shared = shared[:off0 // C]
                 budget = -(-need // C) - len(shared)
-                if not self._kv.can_reserve(budget):
+                if self._dspec:
+                    # the draft chain needs the same block count (its
+                    # own namespace), reserved up front so a slot is
+                    # never stranded with target KV and no draft KV
+                    doff0, dshared = self._kv.match_draft_prefix(tok)
+                    if P > C:
+                        doff0 = (doff0 // P) * P
+                        dshared = dshared[:doff0 // C]
+                    dbudget = -(-need // C) - len(dshared)
+                if not self._kv.can_reserve(budget + dbudget):
                     break
             self._queue.popleft()
             slot = free.pop(0)
             self._kv.assign(slot, r)
+            self._reset_spec_slot(slot)
             if self._paged:
                 self._kv.adopt_prefix(slot, shared)
-                self._kv.reserve(slot, budget)
+                if self._dspec:
+                    self._kv.adopt_draft_prefix(slot, dshared)
+                self._kv.reserve(slot, budget + dbudget)
                 self._need_rows[slot] = need
                 self._n_prompt_tokens += p
                 self._n_reuse_tokens += off0
             padded = np.zeros((-(-p // P) * P,), np.int32)
             padded[:p] = tok
+            if off0 and self._hist is not None:
+                # the skipped chunks would have written history columns
+                # [0, off0): rebuild the slot's whole prompt row (draft
+                # quality only — emission never depends on it)
+                row = np.zeros((self._lmax,), np.int32)
+                w = min(padded.size, self._lmax)
+                row[:w] = padded[:w]
+                self._hist[slot] = h2d(row, self._device)
             self._pf[slot] = {"req": r, "tok": padded, "p": p, "off": off0,
-                              "first": None, "okf": None}
+                              "doff": doff0, "first": None, "okf": None}
             if m is not None:
                 m.admitted.inc()
                 m.prefill(r._bucket)
@@ -552,9 +919,22 @@ class ServingEngine:
                         m.prefill_chunks.inc()
                     if st["off"] >= st["p"]:
                         st["first"], st["okf"] = first, okf
+                if self._dspec and st["doff"] < st["p"]:
+                    # the draft's prompt KV rides the same budget unit:
+                    # one target chunk + one draft chunk a spend, with its
+                    # own cursor (a target radix hit skips chunks the
+                    # draft may still need)
+                    if self._paged:
+                        self._kv.ensure_draft_rows(
+                            slot, min(st["doff"] + P, st["p"]))
+                    self._call_draft_prefill_chunk(
+                        st["tok"][st["doff"]:st["doff"] + P][None, :],
+                        st["doff"], st["p"], slot)
+                    st["doff"] += P
                 budget -= 1
                 spent += 1
-                if st["off"] >= st["p"]:
+                if st["off"] >= st["p"] and (
+                        not self._dspec or st["doff"] >= st["p"]):
                     del self._pf[slot]
                     self._kv.lengths[slot] = st["p"]
                     self._dev_first[slot] = st["first"]
@@ -577,6 +957,8 @@ class ServingEngine:
             return 0
         if self._paged:
             self._kv.register_prefix(slot, r.prompt_ids)
+            if self._dspec:
+                self._kv.register_draft_prefix(slot, r.prompt_ids)
         self._cur[slot] = int(fv[0])
         return self._emit(slot, [int(fv[0])])
 
@@ -683,6 +1065,10 @@ class ServingEngine:
             upto = min(int(self._need_rows[i]),
                        int(self._kv.lengths[i]) + self._headroom())
             self._kv.ensure_rows(i, upto)
+            if self._dspec:
+                # the draft chain writes the same rows this round (its
+                # appends ride the same lengths)
+                self._kv.ensure_draft_rows(i, upto)
 
     def _step_sync(self, adm_active=False):
         """``pipeline=False``: dispatch one step and wait for its tokens
@@ -693,8 +1079,25 @@ class ServingEngine:
             return emitted
         self._ensure_decode_rows(live)
         active = np.array([self._decodable(i) for i in range(self._B)])
-        toks, okd = self._call_decode(h2d(self._cur, self._device),
-                                      self._kv.device_lengths(active))
+        cur = h2d(self._cur, self._device)
+        dev_len = self._kv.device_lengths(active)
+        if self._mode == "spec":
+            k = self._next_k(live)
+            blk, j, cur2, _, oks = self._call_spec(
+                cur, dev_len, h2d(active, self._device), k)
+            blk, j, cur2, oks = _host_fetch(_Fetch([blk, j, cur2, oks]))
+            rounds = []
+            for i in live:
+                if not bool(oks[i]):
+                    self._retire(i, "poisoned")
+                    continue
+                emitted += self._emit(i, blk[i, :int(j[i]) + 1].tolist())
+                self._kv.lengths[i] += int(j[i]) + 1
+                self._cur[i] = cur2[i]
+                rounds.append((i, int(j[i])))
+            self._spec_drained(rounds, k, adm_active)
+            return emitted
+        toks, okd = self._call_decode(cur, dev_len)
         toks, okd = _host_fetch(_Fetch([toks, okd]))
         self._observe_interference(adm_active, self._sync)
         for i in live:
@@ -705,6 +1108,17 @@ class ServingEngine:
             self._kv.lengths[i] += self._sync
             self._cur[i] = toks[i, -1]
         return emitted
+
+    def _spec_drained(self, rounds, k, adm_active):
+        """Book one drained verify round: ``rounds`` ``[(slot, j)]`` of
+        the slots that emitted, each of which drafted ``k`` and accepted
+        ``j`` (the +1 bonus token is the verify forward's own pick)."""
+        accepted = sum(j for _, j in rounds)
+        self._adapt_k(rounds, k)
+        self._observe_interference(
+            adm_active, 1.0 + accepted / max(1, len(rounds)))
+        if self._m is not None and rounds:
+            self._m.spec_round(k * len(rounds), accepted)
 
     def _dispatch(self, adm_active=False):
         """Issue the next decode step without waiting for the previous
@@ -725,18 +1139,38 @@ class ServingEngine:
         else:
             cur = torch.where(h2d(~active, self._device), host_cur,
                               self._dev_cur)
+        fresh = list(self._dev_first)
         for s, f in self._dev_first.items():
             cur[s] = f[0]
         self._dev_first.clear()
         firsts, self._pending_firsts = self._pending_firsts, []
+        fo = [x for _, _, f, o in firsts for x in (f, o)]
+        if self._mode == "spec":
+            # spec lengths advance by the DEVICE-known j+1: the previous
+            # round's new_len is the carry; the host mirror is right only
+            # for dead slots (masked to lmax) and slots whose final
+            # prefill chunk just went out (the prompt length)
+            use_host = ~active
+            use_host[fresh] = True
+            dev_len = host_len if self._dev_len is None else torch.where(
+                h2d(use_host, self._device), host_len, self._dev_len)
+            k = self._next_k(live)
+            blk, j, cur2, new_len, oks = self._call_spec(
+                cur, dev_len, h2d(active, self._device), k)
+            self._dev_cur, self._dev_len = cur2, new_len
+            self._inflight = {"fetch": _Fetch([blk, j, oks] + fo), "k": k,
+                              "reqs": list(self._kv.reqs), "live": live,
+                              "firsts": firsts, "adm": adm_active}
+            if self._m is not None:
+                self._m.inflight.set(1)
+            return
         toks, okd = self._call_decode(cur, host_len)
         self._dev_cur = toks[:, -1]
         # greedy lengths are host-derivable: every live slot advances
         # exactly sync_every per dispatch
         for i in live:
             self._kv.lengths[i] += self._sync
-        fetch = _Fetch([toks, okd] + [x for _, _, f, o in firsts
-                                      for x in (f, o)])
+        fetch = _Fetch([toks, okd] + fo)
         self._inflight = {"fetch": fetch, "reqs": list(self._kv.reqs),
                           "live": live, "firsts": firsts, "adm": adm_active}
         if self._m is not None:
@@ -752,11 +1186,14 @@ class ServingEngine:
         still_inflight = 1 if self._inflight is not None else 0
         t0 = time.perf_counter()
         vals = _host_fetch(rec["fetch"])
-        toks, okd, fvals = vals[0], vals[1], vals[2:]
+        spec = "k" in rec
+        nout = 3 if spec else 2
+        fvals = vals[nout:]
         if m is not None:
             m.pipeline_stall.observe(time.perf_counter() - t0)
             m.inflight.set(still_inflight)
-        self._observe_interference(rec["adm"], self._sync)
+        if not spec:
+            self._observe_interference(rec["adm"], self._sync)
         emitted = 0
         # first tokens were dispatched before this decode step (stream
         # order): emit them ahead of the slot's decode block
@@ -765,6 +1202,21 @@ class ServingEngine:
                 continue
             emitted += self._emit_first(slot, r, fvals[2 * n],
                                         fvals[2 * n + 1])
+        if spec:
+            blk, j, oks = vals[:3]
+            rounds = []
+            for i in rec["live"]:
+                if self._kv.reqs[i] is not rec["reqs"][i]:
+                    continue
+                if not bool(oks[i]):
+                    self._retire(i, "poisoned")
+                    continue
+                emitted += self._emit(i, blk[i, :int(j[i]) + 1].tolist())
+                self._kv.lengths[i] += int(j[i]) + 1
+                rounds.append((i, int(j[i])))
+            self._spec_drained(rounds, rec["k"], rec["adm"])
+            return emitted
+        toks, okd = vals[:2]
         for i in rec["live"]:
             if self._kv.reqs[i] is not rec["reqs"][i]:
                 continue

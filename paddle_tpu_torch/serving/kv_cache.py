@@ -1,8 +1,8 @@
 """KV cache + slot state machine for the serving engine.
 
 Counterpart of ``paddle_tpu/serving/kv_cache.py`` (``KVCacheManager`` and
-``PagedKVCacheManager``; the host-RAM tier, the draft-model tenant and
-block-chain export/import are not ported yet).  The manager owns the
+``PagedKVCacheManager`` with the draft-model tenant; the host-RAM tier
+and block-chain export/import are not ported yet).  The manager owns the
 per-slot facts the scheduler reads and the device steps consume:
 
 * ``caches`` — the per-layer ``(k, v)`` tensors (for an int8 cache, each
@@ -20,6 +20,16 @@ map keyed on token-id chunks for prefix reuse, and LRU eviction of
 refcount-0 cached prefixes.  Its host bookkeeping is a line-for-line
 port, so for the same call sequence it hands out the same block ids as
 the reference.
+
+A resident draft model (speculative decoding) is a second TENANT of the
+same pool: a second chain per slot (``draft_tables``) drawing the same
+free list, refcounts and admission reservation, with its own radix
+namespace (a salted root chunk).  Draft blocks free outright at
+refcount 0 — never parked evictable — so the draft tenant's accounting
+(``draft_blocks_used``) returns to 0 once every spec request drains.
+The rows a speculative rewind leaves mapped past a slot's accepted
+length stay in its chains (capped by the admission budget) and are
+released with them, both chains together, when the slot retires.
 """
 from __future__ import annotations
 
@@ -143,6 +153,11 @@ class PagedKVCacheManager(KVCacheManager):
         self._free = list(range(self.num_blocks - 1, -1, -1))  # pop() -> 0
         self._mapped = [0] * self.batch_size
         self._resv_left = [0] * self.batch_size
+        # draft tenancy: a second chain per slot for the draft model's KV
+        self.draft_tables = np.full((self.batch_size, self.width),
+                                    self.num_blocks, np.int32)
+        self._dmapped = [0] * self.batch_size      # draft chunks per slot
+        self._draft_blocks = set()                 # live draft block ids
         # radix prefix map (root parent id = -1)
         self._node = {}     # (parent_block, chunk tokens) -> block id
         self._key_of = {}   # registered block id -> its key
@@ -170,6 +185,11 @@ class PagedKVCacheManager(KVCacheManager):
     def blocks_used(self):
         """Blocks that are live OR holding an evictable cached prefix."""
         return self.num_blocks - len(self._free)
+
+    def draft_blocks_used(self):
+        """LIVE draft-chain blocks (0 once every spec request drained:
+        draft blocks free outright at refcount 0)."""
+        return len(self._draft_blocks)
 
     def outstanding(self):
         """Blocks promised to admitted slots but not yet allocated."""
@@ -234,7 +254,17 @@ class PagedKVCacheManager(KVCacheManager):
                 "(double-free corrupts the pool)")
         self.refcnt[b] -= 1
         if self.refcnt[b] == 0:
-            if b in self._key_of:
+            if b in self._draft_blocks:
+                # draft policy: leave the draft radix namespace and free
+                # outright — never LRU-park
+                key = self._key_of.pop(b, None)
+                if key is not None:
+                    self._node.pop(key, None)
+                    self._kids.get(key[0], set()).discard(b)
+                    self._kids.pop(b, None)
+                self._draft_blocks.discard(b)
+                self._free.append(b)
+            elif b in self._key_of:
                 self._tick += 1
                 self._lru[b] = self._tick
             else:
@@ -252,6 +282,19 @@ class PagedKVCacheManager(KVCacheManager):
             if self._resv_left[slot] > 0:
                 self._resv_left[slot] -= 1
         return self._mapped[slot]
+
+    def ensure_draft_rows(self, slot, upto):
+        """``ensure_rows`` for ``slot``'s DRAFT chain: the same free list
+        and the same admission reservation."""
+        need = min(-(-int(upto) // self.block), self.width)
+        while self._dmapped[slot] < need:
+            b = self.alloc_block()
+            self._draft_blocks.add(b)
+            self.draft_tables[slot, self._dmapped[slot]] = b
+            self._dmapped[slot] += 1
+            if self._resv_left[slot] > 0:
+                self._resv_left[slot] -= 1
+        return self._dmapped[slot]
 
     # ------------------------------------------------------- prefix reuse
     def match_prefix(self, tokens, touch=True):
@@ -314,19 +357,85 @@ class PagedKVCacheManager(KVCacheManager):
             else:
                 break
 
+    # ------------------------------------------------ draft radix namespace
+    # The draft chains live in the same radix maps under a salted root
+    # chunk, so identical prompts share one draft chain while a draft
+    # chunk can never be matched as a target chunk.  A draft chunk stays
+    # matchable only while some slot references it.
+    _DRAFT_SALT = "__draft__"
+
+    def _draft_chunk(self, tokens, k):
+        chunk = tuple(int(t) for t in
+                      tokens[k * self.block:(k + 1) * self.block])
+        return ((self._DRAFT_SALT,) + chunk) if k == 0 else chunk
+
+    def match_draft_prefix(self, tokens):
+        """``match_prefix`` over the draft namespace (draft blocks are
+        never in the LRU, so a match touches nothing)."""
+        cap = max(0, (len(tokens) - 1) // self.block)
+        parent, out = -1, []
+        for k in range(cap):
+            b = self._node.get((parent, self._draft_chunk(tokens, k)))
+            if b is None:
+                break
+            out.append(b)
+            parent = b
+        return len(out) * self.block, out
+
+    def register_draft_prefix(self, slot, tokens):
+        """``register_prefix`` for ``slot``'s draft chain."""
+        parent = -1
+        n_full = min(len(tokens) // self.block, self._dmapped[slot])
+        for k in range(n_full):
+            key = (parent, self._draft_chunk(tokens, k))
+            b = int(self.draft_tables[slot, k])
+            cur = self._node.get(key)
+            if cur is None:
+                self._node[key] = b
+                self._key_of[b] = key
+                self._kids.setdefault(parent, set()).add(b)
+                parent = b
+            elif cur == b:
+                parent = b
+            else:
+                break
+
+    def adopt_draft_prefix(self, slot, blocks):
+        """``adopt_prefix`` for ``slot``'s fresh draft chain."""
+        if self._dmapped[slot]:
+            raise ValueError(
+                f"adopt_draft_prefix: slot {slot} already maps "
+                f"{self._dmapped[slot]} draft blocks")
+        for w, b in enumerate(blocks):
+            b = int(b)
+            self._check_block(b)
+            self.refcnt[b] += 1
+            self.draft_tables[slot, w] = b
+        self._dmapped[slot] = len(blocks)
+
     # -------------------------------------------------------------- slots
     def release(self, slot):
         """Retire ``slot``: unreference its chain (shared or registered
         blocks may stay EVICTABLE), reset its table row to the sentinel,
-        clear its reservation."""
+        clear its reservation.  The draft chain goes LEAF-FIRST, so a
+        shared draft parent stays registered until its registered
+        children are gone."""
         super().release(slot)
         for w in range(self._mapped[slot]):
             self.free_block(int(self.block_tables[slot, w]))
         self.block_tables[slot, :] = self.num_blocks
         self._mapped[slot] = 0
+        for w in range(self._dmapped[slot] - 1, -1, -1):
+            self.free_block(int(self.draft_tables[slot, w]))
+        self.draft_tables[slot, :] = self.num_blocks
+        self._dmapped[slot] = 0
         self._resv_left[slot] = 0
 
     # -------------------------------------------------------------- device
     def device_tables(self):
         """The ``[B, W]`` int32 block-table operand for one dispatch."""
         return h2d(self.block_tables, self.device)
+
+    def device_draft_tables(self):
+        """The ``[B, W]`` int32 DRAFT block-table operand."""
+        return h2d(self.draft_tables, self.device)

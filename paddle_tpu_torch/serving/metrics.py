@@ -3,10 +3,14 @@
 Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``,
 trimmed to the families this slice's engine posts: request and token
 counters, TTFT / TPOT / end-to-end latency, queue wait, chunked-prefill
-progress, the pipelined-dispatch stall, paged-pool occupancy, prefix
-reuse, the decode / prefill implementation info gauges, and the int8
-KV / weight quantization info gauges with their analytic bytes per
-token (``paddle_tpu/serving/metrics.py:279-290, 323-335``).  The series
+progress, the pipelined-dispatch stall, paged-pool occupancy by tenant
+(target / draft), prefix reuse, the speculative-decoding series
+(drafted / accepted counters, the accept rate and draft-source info
+gauge by source, the depth in effect; ``paddle_tpu/serving/
+metrics.py:135-167``), the decode / prefill implementation info
+gauges, and the int8 KV / weight quantization info gauges with their
+analytic bytes per token (``paddle_tpu/serving/metrics.py:279-290,
+323-335``).  The series
 live in ``registry`` (default: the process-wide one) under a ``policy``
 label; every touch is host-side bookkeeping.
 """
@@ -18,6 +22,7 @@ __all__ = ["EngineMetrics"]
 
 _IMPLS = ("reference", "cuda")
 _QUANT_MODES = ("off", "int8")
+_SPEC_SOURCES = ("prompt_lookup", "draft_model")
 
 
 class EngineMetrics:
@@ -86,10 +91,42 @@ class EngineMetrics:
         self.inflight = reg.gauge(
             "serving_inflight_steps",
             "device steps dispatched but not yet drained", L).labels(**lbl)
+        self.spec_drafted = reg.counter(
+            "serving_spec_drafted_total",
+            "draft tokens proposed per speculative round", L).labels(**lbl)
+        self.spec_accepted = reg.counter(
+            "serving_spec_accepted_total",
+            "draft tokens accepted by the verify forward", L).labels(**lbl)
+        # by draft source, both children pre-registered; the engine
+        # points set_spec_source at its own
+        self.spec_accept_rate = reg.gauge(
+            "serving_spec_accept_rate",
+            "cumulative accepted/drafted ratio, by draft source",
+            ("policy", "source"))
+        self._spec_draft_source = reg.gauge(
+            "serving_spec_draft_source",
+            "draft-source info gauge: the child whose source label names "
+            "the engine's drafting policy reads 1, the other "
+            "pre-registered child 0", ("policy", "source"))
+        for source in _SPEC_SOURCES:
+            self.spec_accept_rate.labels(policy=policy, source=source)
+            self._spec_draft_source.labels(policy=policy,
+                                           source=source).set(0)
+        self._spec_source = "prompt_lookup"
+        self.spec_draft_k = reg.gauge(
+            "serving_spec_draft_k",
+            "draft tokens per speculative round currently in effect "
+            "(moves under the adaptive-k policy; fixed-k engines hold "
+            "the constructor knob)", L).labels(**lbl)
+        # pool occupancy by tenant: target = the served model's chains
+        # plus evictable cached prefixes, draft = the draft model's live
+        # chains (0 again after drain)
         self.kv_blocks_used = reg.gauge(
             "serving_kv_blocks_used",
-            "KV pool blocks live or holding an evictable cached prefix",
-            L).labels(**lbl)
+            "KV pool blocks live or holding an evictable cached prefix, "
+            "by tenant model", ("policy", "model"))
+        for model in ("target", "draft"):
+            self.kv_blocks_used.labels(policy=policy, model=model)
         self.kv_blocks_free = reg.gauge(
             "serving_kv_blocks_free",
             "KV pool blocks on the free list", L).labels(**lbl)
@@ -177,6 +214,27 @@ class EngineMetrics:
             self._weight_quant_mode.labels(policy=self._policy, mode=m).set(
                 1 if m == mode else 0)
 
-    def set_kv_blocks(self, used, free):
-        self.kv_blocks_used.set(used)
+    def set_kv_blocks(self, target_used, draft_used, free):
+        """The tenant-split pool occupancy in one call."""
+        self.kv_blocks_used.labels(
+            policy=self._policy, model="target").set(target_used)
+        self.kv_blocks_used.labels(
+            policy=self._policy, model="draft").set(draft_used)
         self.kv_blocks_free.set(free)
+
+    def set_spec_source(self, source):
+        """Point the draft-source info gauge at ``source`` and route
+        later ``spec_round`` accept-rate updates to that child."""
+        self._spec_source = source
+        for s in _SPEC_SOURCES:
+            self._spec_draft_source.labels(
+                policy=self._policy, source=s).set(1 if s == source else 0)
+
+    def spec_round(self, drafted, accepted):
+        self.spec_drafted.inc(drafted)
+        self.spec_accepted.inc(accepted)
+        total = self.spec_drafted.value
+        if total:
+            self.spec_accept_rate.labels(
+                policy=self._policy, source=self._spec_source).set(
+                self.spec_accepted.value / total)

@@ -6,6 +6,7 @@
     python3 serving_probe.py host [TREE]   # host µs a K8 wrapper call
     python3 serving_probe.py serve [TREE]  # chip_smoke's bf16 serving run
     python3 serving_probe.py ab TREE_A TREE_B   # host and serve: A, B, B, A
+    python3 serving_probe.py selfdraft     # where self-draft spec rejects
 
 TREE is a checkout of this repository (another commit unpacked with
 ``git archive``, say); the default is the directory of this script.  ``ab``
@@ -166,6 +167,65 @@ def serve(torch, dev):
           f"{out['tpot_p50_s'] * 1e3:.2f} ms", flush=True)
 
 
+def selfdraft(torch, dev, k=8, new=256):
+    """Where speculation with the serving model drafting for itself
+    rejects: ``decode_speculative(model, model, ...)`` over 8 of
+    ``chip_smoke`` phase 3b's prompts cut to 256 tokens (spec_k 8, 256
+    new tokens, K8 reads of 256 keys), bf16 and then f32 weights.  At
+    each first mismatch of a round: the verify logits' top-2 margin, and
+    whether the rejected draft was the verify's second choice.  Also
+    whether the output equals ``decode_greedy``'s."""
+    import json
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from paddle_tpu_torch.models import llama_decode as ld
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    prompts, _ = cs.spec_workload()
+    ids = np.stack([p[:256] for p in prompts if len(p) >= 256][:8])
+    inner = ld._verify_and_emit
+    for dtype in ("bfloat16", "float32"):
+        model = LlamaForCausalLM(
+            LlamaConfig(**{**cs.SERVE_CFG, "dtype": dtype}), device=dev,
+            seed=0)
+        rec = dict(drafted=0, accepted=0, margins=[], second=0)
+
+        def spy(logits, drafts, n_out, out, max_new, kk):
+            res = inner(logits, drafts, n_out, out, max_new, kk)
+            j, live = res[2], n_out < max_new
+            rec["drafted"] += int(live.sum()) * kk
+            rec["accepted"] += int(j[live].sum())
+            for b in torch.nonzero(live & (j < kk)).flatten().tolist():
+                top = torch.topk(logits[b, int(j[b])].float(), 2)
+                rec["margins"].append(float(top.values[0]
+                                            - top.values[1]))
+                rec["second"] += int(int(top.indices[1])
+                                     == int(drafts[b, int(j[b])]))
+            return res
+        ld._verify_and_emit = spy
+        try:
+            out = ld.decode_speculative(model, model, ids,
+                                        max_new_tokens=new, max_len=2048,
+                                        spec_k=k, chunk_size=256)
+        finally:
+            ld._verify_and_emit = inner
+        greedy = ld.decode_greedy(model, ids, max_new_tokens=new,
+                                  max_len=2048, chunk_size=256)
+        m = np.array(rec["margins"])
+        print(f"selfdraft {dtype} " + json.dumps(dict(
+            accept_rate=rec["accepted"] / rec["drafted"],
+            drafted=rec["drafted"], rejections=len(m),
+            rejected_draft_is_verify_second=rec["second"],
+            margin_min_median_max=([float(m.min()), float(np.median(m)),
+                                    float(m.max())] if len(m) else None),
+            spec_equals_greedy=bool((out == greedy).all()),
+            tokens_differing=int((out != greedy).sum()))), flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
 def ab(tree_a, tree_b):
     """``host`` then ``serve`` for A, B, B, A, each in its own process;
     prints the lines that carry the numbers."""
@@ -187,7 +247,7 @@ def ab(tree_a, tree_b):
 
 def main(argv):
     if not argv or argv[0] not in ("spans", "accuracy", "host", "serve",
-                                   "ab"):
+                                   "ab", "selfdraft"):
         print(__doc__, file=sys.stderr)
         return 2
     if argv[0] == "ab":
@@ -200,8 +260,8 @@ def main(argv):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    {"spans": spans, "accuracy": accuracy, "host": host,
-     "serve": serve}[argv[0]](torch, dev)
+    {"spans": spans, "accuracy": accuracy, "host": host, "serve": serve,
+     "selfdraft": selfdraft}[argv[0]](torch, dev)
     return 0
 
 

@@ -36,7 +36,10 @@ the plain version.  The wgmma instances of the forward, dK/dV and dQ at
 the edges of their tiles (G 1-8, Lq and Lk not multiples of 128, causal
 with q_offset > 0, segments with a dead row, rope), through their
 ``*_wgmma`` counters and bitwise run to run; K6's vector and scalar
-instances bitwise equal to the plain version in every dtype.
+instances bitwise equal to the plain version in every dtype.  The
+speculative serving engine (prompt lookup and a draft model, dense and
+paged) on the card: K8 at the verify width, streams equal to greedy and
+pipeline on == off.
 """
 import pytest
 import torch
@@ -989,3 +992,54 @@ def test_rope_instances_match_plain_bitwise(dtype, neg, case):
     vec = int(case == "vector")
     assert (k6.launches, k6.launches_vec) == (before[0] + 1, before[1] + vec)
     assert torch.equal(oq, rq) and torch.equal(ok, rk)
+
+
+from paddle_tpu_torch.models.llama import (  # noqa: E402
+    LlamaConfig, LlamaForCausalLM,
+)
+from paddle_tpu_torch.serving import (  # noqa: E402
+    Request, ServingEngine, SpecConfig,
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["prompt_lookup", "draft_model"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_serving_on_the_card_equals_greedy(source, paged):
+    """Speculative serving on the card (the tiny f32 Llama, 32-key
+    chunks, spec_k 4): the verify forward runs K8 at T = 5 (counted by
+    width), no plain version runs, the streams equal the greedy engine's
+    on the card and pipelined == synchronous; a paged draft leaves no
+    block behind."""
+    dev = _card()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device=dev,
+                             seed=0)
+    draft = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32",
+                                              num_hidden_layers=1),
+                             device=dev, seed=1)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 200, (6,), generator=gen).repeat(4),
+               torch.randint(1, 200, (19,), generator=gen),
+               torch.randint(1, 200, (40,), generator=gen)]
+    geom = dict(batch_size=2, max_len=128, decode_chunk=32,
+                prefill_chunk=32, instrument=False)
+    if paged:
+        geom["kv_block"] = 32
+    spec = SpecConfig(source=source, spec_k=4,
+                      draft_model=draft if source == "draft_model" else None)
+
+    def serve(**kw):
+        eng = ServingEngine(model, **geom, **kw)
+        reqs = [eng.submit(Request(p.numpy(), 16)) for p in prompts]
+        eng.run()
+        if paged:
+            assert eng.kv_manager.draft_blocks_used() == 0
+        return [r.output_ids for r in reqs]
+    greedy = serve()
+    before = (k8.launches_t.get(5, 0), k8.plain_runs, k9.plain_runs)
+    out = serve(mode="spec", spec=spec)
+    torch.cuda.synchronize()
+    assert k8.launches_t.get(5, 0) > before[0]
+    assert (k8.plain_runs, k9.plain_runs) == before[1:]
+    assert out == greedy
+    assert serve(mode="spec", spec=spec, pipeline=False) == out

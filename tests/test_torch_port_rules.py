@@ -144,15 +144,34 @@ def tiny():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mode="spec"), dict(spec={"source": "prompt_lookup"}),
-    dict(spec_k=4), dict(mesh=object()), dict(tp_overlap=2), dict(faults=object()),
+    dict(spec={"source": "draft_model", "tree": "top2"}),
+    dict(mesh=object()), dict(tp_overlap=2), dict(faults=object()),
     dict(max_pending=4), dict(retry_attempts=3), dict(recorder=True),
     dict(slo=()), dict(watchdog=5.0), dict(host_tier_bytes=1 << 20),
     dict(prefill_only=True), dict(prefill_chunk=None),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_knobs_raise(tiny, knob):
+    if "spec" in knob:
+        # top-2 tree verification (a draft model is needed for it to
+        # reach the engine: without one the config falls back)
+        knob = dict(mode="spec", spec=dict(knob["spec"], draft_model=tiny))
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mode="spec"), dict(spec={"source": "prompt_lookup"}),
+    dict(spec_k=4)], ids=lambda kw: next(iter(kw)))
+def test_spec_knobs_are_accepted(tiny, knob):
+    """Speculative decoding is ported: ``mode="spec"`` and ``spec=``
+    build a spec engine; ``spec_k`` alone is the reference's default
+    depth, which a greedy engine ignores."""
+    if "spec" in knob:
+        knob = dict(knob, mode="spec")
+    eng = ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+    spec = knob.get("mode") == "spec"
+    assert eng._pk.draft_source == ("prompt_lookup" if spec else None)
+    assert eng._pk.spec_depth == (8 if spec else None)
 
 
 @pytest.mark.parametrize("kw", [dict(deadline_ms=10), dict(slo_class="x"),
