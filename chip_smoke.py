@@ -22,7 +22,11 @@ Phases (any failure exits non-zero before the result line):
    warm-up, rotating over four layers' caches so the 50 MB L2 does not
    hold them), its device time per launch (the profiler), its plain
    version's, one PyTorch library call's (scaled_dot_product_attention on
-   a dense cache, a yardstick the port never calls) and its bound.
+   a dense cache, a yardstick the port never calls) and its bound.  K8
+   with hidden key ranges (the tree verify's branch row at T 3, 6, 10,
+   and two whole 64-key spans hidden at T 4), dense and paged, bf16 and
+   int8, bitwise run to run; its time at T 10 with and without the
+   ranges, and SDPA with the same boolean mask.
 3. Serving at full width: the serving bench model (vocab 32000, hidden
    2048, 16 layers, 16 heads, 4 KV heads, bf16, random weights from a
    seed) behind ``ServingEngine(batch_size=8, max_len=2048,
@@ -44,15 +48,26 @@ Phases (any failure exits non-zero before the result line):
    target's widths, seed 1; dense); the target drafting for itself on the
    paged pool (blocks of 256, ``max_live_tokens`` 2·8·2048); prompt
    lookup with the adaptive ladder (window 8, k_min 1: T 2, 3, 5, 9) and
-   int8 KV, paged.  Counters set to 0 just before each arm and read just
-   after: every request finishes with its token count, K8 and K9 launch
-   and no plain version runs, K8's launches by width are exactly the
-   verify widths dispatched (and the drafts' one-row steps); prompt
-   lookup pipelined == not, bit for bit; the self-draft arm leaks no
-   draft block and accepts >= 0.9 of its drafts (in bf16 the one-row
-   draft steps and the nine-row verify round near-ties differently).
+   int8 KV, paged; then the top-2 tree arm (self-draft, dense, its verify
+   [B, 10]: K8 with the branch row's hidden range) beside its linear twin
+   on the same requests.  Counters set to 0 just before each arm and
+   read just after: every request finishes with its token count, K8 and
+   K9 launch and no plain version runs, K8's launches by width are
+   exactly the verify widths dispatched (and the drafts' one-row steps;
+   the tree's every verify launch carries its range); prompt lookup
+   pipelined == not, bit for bit; the self-draft arm leaks no draft block
+   and accepts >= 0.9 of its drafts (in bf16 the one-row draft steps and
+   the nine-row verify round near-ties differently); the tree arm takes
+   at least one branch (a device count read once, after the run).
    Prints tok/s, TTFT and TPOT p50/p95, the accept rate and the drift
    of each spec arm against the greedy streams.
+3c. Reliability at full width: the serving model on three short
+   requests (two slots): injected dispatch and drain errors on three
+   steps (streams bit-equal to a clean run in the same call), a poisoned
+   request (status ``poisoned``, the others bit-equal), a cancel in
+   flight, a queued deadline forced by a slow step with ``max_pending``
+   shedding, and a priority preemption on a small paged pool (the
+   resumed stream's drift against its unpreempted run printed).
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions), with float KV,
    int8 KV, int8 weights, and both: the streams match token for token
@@ -253,6 +268,119 @@ def bf16_ulps(a, b):
 K8_WIDTHS = (1, 2, 3, 4, 5, 9)
 #: the verify widths timed
 VERIFY_TIMED = (5, 9)
+#: the top-2 tree verify widths, k+2 rows a slot for k = 1, 4, 8: K8 with
+#: the last row's hidden key range; the last one timed
+K8_TREE_WIDTHS = (3, 6, 10)
+
+
+def tree_hidden(torch, lengths, t):
+    """The tree verify's ranges at ``t = k+2`` rows a slot: the branch
+    row (the last) hides the linear chain, keys ``[L+1, L+k+1)``; the
+    other rows hide nothing."""
+    h = torch.zeros((lengths.shape[0], t, 2), dtype=torch.int32,
+                    device=lengths.device)
+    h[:, t - 1, 0] = lengths + 1
+    h[:, t - 1, 1] = lengths + (t - 1)
+    return h
+
+
+def k8_range_checks(torch, dev, gen, tag, pools, denses, lengths):
+    """K8 with hidden key ranges against its plain version at the serving
+    widths (Hkv 4, G 4, D 128, C 256, lmax 2048; ``pools`` carry
+    ``(k, v, table)``): the tree verify widths (``K8_TREE_WIDTHS``),
+    dense and paged, and one op-level case that hides keys [128, 256) —
+    two whole 64-key spans — from every query of every row, T 4.  Live
+    rows within atol=rtol=1e-4, one ``launches_hidden`` a call, two
+    launches bitwise equal, and the whole-span ranges change the rows
+    that see those keys.  Returns the largest absolute error."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+
+    HKV, G, D, C = 4, 4, 128, 256
+    B = lengths.shape[0]
+    live = slice(0, B - 1)                   # the last row is parked
+    err = 0.0
+    cases = [(t, tree_hidden(torch, lengths, t), "tree")
+             for t in K8_TREE_WIDTHS]
+    span = torch.zeros((B, 4, 2), dtype=torch.int32, device=dev)
+    span[..., 0], span[..., 1] = 2 * k8._SPLIT, 4 * k8._SPLIT
+    cases.append((4, span, "whole spans [128, 256)"))
+    for paged in (False, True):
+        kc, vc, tb = pools if paged else denses
+        for t, hid, what in cases:
+            qg = torch.randn(B, HKV, G, t, D, generator=gen, device=dev)
+            n0 = k8.launches_hidden
+            out = k8.paged_decode_attention(qg, kc, vc, lengths, D ** -0.5,
+                                            C, tb, impl="cuda", hidden=hid)
+            again = k8.paged_decode_attention(
+                qg, kc, vc, lengths, D ** -0.5, C, tb, impl="cuda",
+                hidden=hid)
+            ref = k8.paged_decode_attention_reference(
+                qg, kc, vc, lengths, D ** -0.5, C, tb, hidden=hid)
+            torch.cuda.synchronize()
+            check(k8.launches_hidden == n0 + 2,
+                  f"{tag}: a range launch was not counted")
+            check(bool(torch.isfinite(out).all()), f"{tag} range output "
+                  "not finite")
+            check(torch.equal(out, again), f"{tag} range differs from "
+                  "itself run to run")
+            err = max(err, check_f32(
+                f"{tag} range {'paged' if paged else 'dense'} T={t} "
+                f"({what}; bitwise run to run)", out[live], ref[live],
+                1e-4, 1e-4))
+            if what != "tree":
+                plain = k8.paged_decode_attention(
+                    qg, kc, vc, lengths, D ** -0.5, C, tb, impl="cuda")
+                sees = lengths[live] > 2 * k8._SPLIT
+                check(bool((plain[live][sees] != out[live][sees]).any()),
+                      f"{tag}: hiding two whole spans changed nothing")
+    return err
+
+
+def k8_range_times(torch, dev, gen, pools, lengths, tbl, lens):
+    """K8 at the last tree width with and without the ranges on the paged
+    serving pools: times by events and by the profiler, the plain
+    version's, the bound (the hidden keys are read all the same — other
+    rows see them — and only their products are skipped), and SDPA with
+    the same boolean mask as the library yardstick."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+
+    B, HKV, G, D, C = len(lens), 4, 4, 128, 256
+    t = K8_TREE_WIDTHS[-1]
+    qg = torch.randn(B, HKV, G, t, D, generator=gen, device=dev)
+    hid = tree_hidden(torch, lengths, t)
+    out = {}
+    for tag, h in (("range", hid), ("no_range", None)):
+        def run(i, h=h):
+            return k8.paged_decode_attention(qg, *pools[i % len(pools)],
+                                             lengths, D ** -0.5, C, tbl,
+                                             impl="cuda", hidden=h)
+        out[tag] = (time_ms(torch, run, 200),
+                    device_ms(torch, run, "paged_decode_kernel"))
+    plain = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
+        qg, *pools[i % len(pools)], lengths, D ** -0.5, C, tbl, hidden=hid),
+        10, warm=1)
+    LMAX = C * tbl.shape[1]
+    pos = (lengths[:, None] + torch.arange(t, device=dev)[None, :]) \
+        .clamp(max=LMAX - 1)
+    keys = torch.arange(LMAX, device=dev)[None, None, :]
+    mask = (keys <= pos[:, :, None]) & ~(
+        (keys >= hid[..., :1]) & (keys < hid[..., 1:]))
+    q_t = torch.randn(B, HKV * G, t, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kd = [(torch.randn(B, HKV, LMAX, D, generator=gen, device=dev).to(
+        torch.bfloat16), torch.randn(B, HKV, LMAX, D, generator=gen,
+                                     device=dev).to(torch.bfloat16))
+          for _ in range(2)]
+    lib = time_ms(torch, lambda i: sdpa(torch, q_t, kd[i % 2][0],
+                                        kd[i % 2][1], mask[:, None]), 200)
+    live = [int(x) for x in lens[:-1]]
+    b_ms, b_by = k8_bound(lens, tbl, t, HKV * D * 2,
+                          hidden_keys=sum(t - 2 for _ in live))
+    del kd
+    return dict(ms=out["range"][0], device_ms=out["range"][1],
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, width=t, ms_no_range=out["no_range"][0],
+                device_ms_no_range=out["no_range"][1])
 
 
 def phase_kernels(torch, dev):
@@ -322,6 +450,8 @@ def phase_kernels(torch, dev):
           flush=True)
     err8 = max(err8, k8_edges(torch, dev, gen, "K8", lambda shape: rnd(
         *shape, dtype=torch.bfloat16)))
+    err_range = k8_range_checks(torch, dev, gen, "K8", (*pools[0], tbl),
+                                (*denses[0], None), lengths)
     ms8 = time_ms(torch, lambda i: k8.paged_decode_attention(
         qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"), 200)
     dev8 = device_ms(torch, lambda i: k8.paged_decode_attention(
@@ -355,6 +485,9 @@ def phase_kernels(torch, dev):
                                         tbl, lens, t, HKV * D * 2,
                                         lib8_t[t])
                        for t in VERIFY_TIMED})
+    res["paged_decode_attention_range"] = dict(
+        max_abs_err=err_range,
+        **k8_range_times(torch, dev, gen, pools, lengths, tbl, lens))
 
     # ---- K9: offsets 0/256/768/1792, dense and paged, a sentinel dest
     T = 256
@@ -443,19 +576,20 @@ def phase_kernels(torch, dev):
     return res
 
 
-def k8_bound(lens, tbl, t, row_bytes):
+def k8_bound(lens, tbl, t, row_bytes, hidden_keys=0):
     """K8's least time at the serving shape (B 8, Hkv 4, G 4, D 128) for
     ``t`` query rows a slot: each live row reads its (length + t) keys of
     K and V once (``row_bytes`` a token: Hkv·D·2 in bf16, Hkv·(D + 2) in
     int8), q and out once in f32, the table and lengths; query row i
-    sees length + i + 1 keys, 4·D operations each per query head."""
+    sees length + i + 1 keys, 4·D operations each per query head, less
+    ``hidden_keys`` (query, key) pairs that hidden ranges skip."""
     HKV, G, D = 4, 4, 128
     live = [int(x) for x in lens[:-1]]               # the last row parked
     kv_bytes = sum(n + t for n in live) * row_bytes * 2
     io_bytes = 2 * len(lens) * HKV * G * t * D * 4 + tbl.numel() * 4 \
         + len(lens) * 4
     flops = sum(4 * HKV * G * D * (t * n + t * (t + 1) // 2) for n in live)
-    return bound(kv_bytes + io_bytes, flops)
+    return bound(kv_bytes + io_bytes, flops - 4 * HKV * G * D * hidden_keys)
 
 
 def k8_width(torch, dev, gen, pools, lengths, tbl, lens, t, row_bytes,
@@ -589,6 +723,9 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9, lib8_t):
                 ref[live], 1e-4, 1e-4))
     err8 = max(err8, k8_edges(torch, dev, gen, "K8-int8", lambda shape: q8(
         *shape)))
+    err8_range = k8_range_checks(torch, dev, gen, "K8-int8",
+                                 (*pools[0], tbl), (*denses[0], None),
+                                 lengths)
     qg = rnd(B, HKV, G, 1, D)
     ms8 = time_ms(torch, lambda i: k8.paged_decode_attention(
         qg, *pools[i % ROT], lengths, scale, C, tbl, impl="cuda"), 200)
@@ -599,7 +736,7 @@ def phase_kernels_int8(torch, dev, gen, lib8, lib9, lib8_t):
         qg, *pools[i % ROT], lengths, scale, C, tbl), 10, warm=1)
     b_ms, b_by = k8_bound(lens, tbl, 1, HKV * (D + 2))
     res["paged_decode_attention_int8"] = dict(
-        max_abs_err=err8, ms=ms8, device_ms=dev8, plain_ms=plain8,
+        max_abs_err=err8, max_abs_err_range=err8_range, ms=ms8, device_ms=dev8, plain_ms=plain8,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib8,
         verify_widths={str(t): k8_width(torch, dev, gen, pools, lengths,
                                         tbl, lens, t, HKV * (D + 2),
@@ -906,6 +1043,19 @@ SPEC_ARMS = (
 )
 
 
+#: the top-2 tree arm and its linear twin: the target drafting for itself
+#: (the drafter whose rejections are mostly the verify's second choice),
+#: dense bf16 caches, on the first ``TREE_REQUESTS`` requests: all 16 —
+#: on the first 8 the tree's verify rejected 9 drafted tokens of 2104 and
+#: took no branch
+TREE_ARMS = (
+    ("dm_self_tree", {}, dict(source="draft_model", draft_model="self",
+                              tree="top2")),
+    ("dm_self_linear", {}, dict(source="draft_model", draft_model="self")),
+)
+TREE_REQUESTS = 16
+
+
 def spec_workload(seed=0, n=16):
     """bench_serving's workload at 16 requests (it serves 64): prompts
     uniform 64-1024 tokens, tiled from one 32-token segment each (the
@@ -941,8 +1091,9 @@ def phase_spec(torch, dev):
         device=dev, seed=1)
     drafters = {"quarter": quarter, "self": model}
     # warm-up (cuBLAS at the verify and draft shapes) on its own registry
-    for tag, ekw, skw in SPEC_ARMS:
-        if tag not in ("dm_quarter", "pl_adaptive_kv8_paged"):
+    for tag, ekw, skw in SPEC_ARMS + TREE_ARMS[:1]:
+        if tag not in ("dm_quarter", "pl_adaptive_kv8_paged",
+                       "dm_self_tree"):
             continue
         warm = ServingEngine(model, **SPEC_ENGINE, **ekw, mode="spec",
                              spec=spec_config(SpecConfig, skw, drafters),
@@ -969,6 +1120,25 @@ def phase_spec(torch, dev):
     check(runs["dm_self_paged"]["accept_rate"] >= 0.9,
           f"spec: the self-draft arm accepted "
           f"{runs['dm_self_paged']['accept_rate']:.4f} < 0.9 of its drafts")
+    n = TREE_REQUESTS
+    for tag, ekw, skw in TREE_ARMS:
+        runs[tag], streams[tag] = spec_run(
+            torch, model, drafters, prompts[:n], olens[:n], tag, ekw, skw)
+        runs[tag]["drift"], runs[tag]["flip_per_tok"] = drift(
+            streams["greedy"][:n], streams[tag])
+    tree, lin = runs["dm_self_tree"], runs["dm_self_linear"]
+    tree["drift_vs_linear"], _ = drift(streams["dm_self_linear"],
+                                       streams["dm_self_tree"])
+    print(f"spec tree: accept rate {tree['accept_rate']:.4f} (linear "
+          f"{lin['accept_rate']:.4f}), branches taken "
+          f"{tree['branches_taken']} in {tree['slot_rounds']} slot-rounds, "
+          f"tok/s {tree['tok_per_s']:.1f} (linear {lin['tok_per_s']:.1f}, "
+          f"greedy {runs['greedy']['tok_per_s']:.1f} on "
+          f"{len(prompts)} requests), drift vs greedy "
+          f"{tree['drift']:.4f} (linear {lin['drift']:.4f}), vs linear "
+          f"{tree['drift_vs_linear']:.4f}", flush=True)
+    check(tree["branches_taken"] > 0,
+          "spec: the tree arm took no branch")
     del model, quarter, drafters
     torch.cuda.empty_cache()
     return runs
@@ -996,16 +1166,17 @@ def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
     eng = ServingEngine(model, **SPEC_ENGINE, **ekw, registry=reg,
                         mode="greedy" if spec is None else "spec",
                         spec=spec)
-    rounds = {}
+    rounds, slot_rounds = {}, [0]
     call_spec = eng._call_spec
 
     def counted(cur, dev_len, active, k):       # verify rounds by depth
         rounds[k] = rounds.get(k, 0) + 1
+        slot_rounds[0] += sum(map(eng._decodable, range(eng._B)))
         return call_spec(cur, dev_len, active, k)
     eng._call_spec = counted
     torch.cuda.synchronize()
     k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
-    k9.launches_mma = 0
+    k9.launches_mma = k8.launches_hidden = 0
     k8.launches_t.clear()
     t0 = time.perf_counter()
     reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts, olens)]
@@ -1014,11 +1185,13 @@ def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
     wall = time.perf_counter() - t0
     counts = dict(k8=k8.launches, k9=k9.launches, k9_mma=k9.launches_mma,
                   k8_plain=k8.plain_runs, k9_plain=k9.plain_runs,
+                  k8_hidden=k8.launches_hidden,
                   k8_by_t=dict(sorted(k8.launches_t.items())))
     for r, o in zip(reqs, olens):
         check(r.status == "done" and len(r.output_ids) == o,
               f"spec {tag}: request {r.rid} finished {r.status} with "
               f"{len(r.output_ids)}/{o} tokens")
+    tree = spec is not None and spec.tree == "top2"
     check(counts["k8"] > 0 and counts["k9"] > 0,
           f"spec {tag}: a kernel did not run on the main path: {counts}")
     check(counts["k8_plain"] == 0 and counts["k9_plain"] == 0,
@@ -1031,17 +1204,23 @@ def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
               f"spec {tag}: greedy K8 launches at widths other than 1: "
               f"{counts}")
     else:
-        # every verify round: k+1 rows a slot through every target layer;
-        # a draft model adds k+1 one-row steps through its layers
+        # every verify round: k+1 rows a slot (k+2 with the tree's branch
+        # row, every launch with its hidden range) through every target
+        # layer; a draft model adds k+1 one-row steps through its layers
         d_layers = (len(eng._dparams["layers"]) if eng._dspec else 0)
         want = {}
         for k, n in rounds.items():
-            want[k + 1] = want.get(k + 1, 0) + n * n_layers
+            w = k + (2 if tree else 1)
+            want[w] = want.get(w, 0) + n * n_layers
             if d_layers:
                 want[1] = want.get(1, 0) + n * (k + 1) * d_layers
         check(counts["k8_by_t"] == dict(sorted(want.items())),
               f"spec {tag}: K8 launches by width {counts['k8_by_t']}, the "
               f"rounds dispatched {rounds} need {want}")
+        n_hidden = sum(rounds.values()) * n_layers if tree else 0
+        check(counts["k8_hidden"] == n_hidden,
+              f"spec {tag}: {counts['k8_hidden']} K8 launches with a "
+              f"hidden range, the rounds need {n_hidden}")
     lbl = dict(policy="continuous")
     n_tok = sum(olens)
     out = dict(run=tag, knobs={**ekw, **{k: v for k, v in (skw or {}).items()
@@ -1061,6 +1240,10 @@ def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
                    accept_rate=accepted / drafted if drafted else None,
                    draft_k_final=reg.get("serving_spec_draft_k").labels(
                        **lbl).value)
+        if tree:
+            # one device counter, read once, after the run
+            out.update(branches_taken=eng.tree_branches_taken(),
+                       slot_rounds=slot_rounds[0])
         gauge = reg.get("serving_spec_accept_rate").labels(
             source=spec.source, **lbl).value
         check(drafted > 0 and abs(gauge - out["accept_rate"]) <= 1e-9,
@@ -1078,6 +1261,233 @@ def spec_run(torch, model, drafters, prompts, olens, tag, ekw, skw):
     del eng
     torch.cuda.empty_cache()
     return out, toks
+
+
+# ---------------------------------------------------------------- phase 3c
+#: the reliability phase's engine: the serving model, two slots, dense
+#: caches; the preemption case's paged pool holds two slots' worst case
+REL_ENGINE = dict(batch_size=2, max_len=1024, decode_chunk=256,
+                  prefill_chunk=256)
+REL_PAGED = dict(REL_ENGINE, kv_block=256, max_live_tokens=2 * 1024)
+REL_NEW = 24
+
+
+def rel_workload(seed=3, n=3, lo=64, hi=300):
+    rng = np.random.default_rng(seed)
+    vocab = SERVE_CFG["vocab_size"]
+    return [rng.integers(0, vocab, int(p)) for p in rng.integers(lo, hi, n)]
+
+
+def fill_card(torch):
+    """Allocate the card's free memory until an allocation of every size
+    down to 512 bytes fails, so the next allocation raises
+    ``torch.cuda.OutOfMemoryError``; returns the tensors that hold it."""
+    torch.cuda.empty_cache()
+    held = []
+    for shift in range(34, 8, -1):
+        while True:
+            try:
+                held.append(torch.empty(1 << shift, dtype=torch.uint8,
+                                        device="cuda"))
+            except torch.cuda.OutOfMemoryError:
+                break
+    return held
+
+
+def oom_retry(torch, run):
+    """A dispatch meets a full card: at step 5 every free byte is taken
+    just before the decode dispatch, which raises
+    ``torch.cuda.OutOfMemoryError`` wherever it first allocates (before
+    its first launch or between launches); the engine's backoff — here
+    the moment the memory is given back — precedes a retry that
+    re-issues the same kernels.  Returns the streams and the retry
+    count."""
+    import paddle_tpu_torch.serving.engine as engine_mod
+
+    held, calls = [], []
+    sleep = engine_mod._backoff_sleep
+
+    def free_then_sleep(seconds):
+        held.clear()
+        torch.cuda.empty_cache()
+        sleep(seconds)
+
+    def hook(eng):
+        real = eng._call_decode
+
+        def filled(cur, dev_len):
+            if eng._step_idx == 5 and not calls:
+                calls.append(1)
+                held.extend(fill_card(torch))
+            return real(cur, dev_len)
+        eng._call_decode = filled
+    engine_mod._backoff_sleep = free_then_sleep
+    try:
+        eng, reg, reqs, st = run(retry_backoff=1e-3, hook=hook)
+    finally:
+        engine_mod._backoff_sleep = sleep
+        held.clear()
+    return [list(r.output_ids) for r in reqs], int(reg.get(
+        "serving_dispatch_retries_total").labels(policy="continuous").value)
+
+
+def phase_reliability(torch, dev):
+    """The reliability layer on the card, with the serving model at full
+    width on three short requests (two slots, dense bf16): a clean run,
+    then injected dispatch and drain errors on three steps (streams equal
+    the clean run bit for bit), one poisoned request (status
+    ``poisoned``, the others bit-equal), a cancel in flight, a queued
+    deadline forced by a slow step with ``max_pending`` shedding, and a
+    priority preemption on a small paged pool (the resumed stream's
+    drift against its unpreempted run is printed: bf16 on the card).
+    The kernels' counters are set to 0 before the first run and read
+    after the last: K8 and K9 launch, no plain version runs."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+    from paddle_tpu_torch.ops import prefill_attention_cuda as k9
+    from paddle_tpu_torch.serving import (
+        EngineOverloaded, FaultPlan, Request, ServingEngine,
+    )
+
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CFG), device=dev, seed=0)
+    prompts = rel_workload()
+    lbl = dict(policy="continuous")
+
+    def run(faults=None, cancel_after=None, hook=None, **kw):
+        reg = MetricsRegistry()
+        eng = ServingEngine(model, **REL_ENGINE, registry=reg,
+                            faults=faults, **kw)
+        if hook is not None:
+            hook(eng)
+        reqs = [eng.submit(Request(p, REL_NEW)) for p in prompts]
+        if cancel_after is not None:
+            for _ in range(cancel_after):
+                eng.step()
+            check(eng.cancel(0), "reliability: request 0 was not live")
+        return eng, reg, reqs, eng.drain()
+
+    torch.cuda.synchronize()
+    k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
+    t0 = time.perf_counter()
+    clean_eng, _, clean_reqs, st = run()
+    clean = [list(r.output_ids) for r in clean_reqs]
+    check(set(st.values()) == {"done"}, f"reliability: clean run {st}")
+    res = dict(clean_steps=clean_eng._step_idx + 1,
+               clean_s=time.perf_counter() - t0)
+
+    # errors at the dispatch seam (steps 1, 4) and the drain seam (the
+    # last step, which only drains) are retried
+    last = clean_eng._step_idx
+    plan = FaultPlan(dispatch_error_steps={1, 4, last})
+    _, reg, reqs, st = run(faults=plan, retry_backoff=1e-3)
+    retries = reg.get("serving_dispatch_retries_total").labels(**lbl).value
+    check([list(r.output_ids) for r in reqs] == clean
+          and plan.stats["dispatch_errors"] == 3 and retries == 3,
+          f"reliability: retried run differs from the clean one "
+          f"({plan.stats}, {retries} retries)")
+    print(f"reliability: 3 injected dispatch/drain errors retried "
+          f"({int(retries)} retries), streams bit-equal to the clean run",
+          flush=True)
+
+    outs, retried = oom_retry(torch, run)
+    check(outs == clean and retried == 1,
+          f"reliability: the out-of-memory retry gave {retried} retries "
+          "or streams that differ from the clean run")
+    print("reliability: a real torch.cuda.OutOfMemoryError inside a decode "
+          "dispatch was retried once, streams bit-equal to the clean run",
+          flush=True)
+
+    plan = FaultPlan(poison={1: 3})
+    _, reg, reqs, st = run(faults=plan)
+    outs = [list(r.output_ids) for r in reqs]
+    check(st == {0: "done", 1: "poisoned", 2: "done"}
+          and outs[0] == clean[0] and outs[2] == clean[2]
+          and outs[1] == clean[1][:len(outs[1])],
+          f"reliability: poison run {st}, {[len(o) for o in outs]}")
+    print(f"reliability: request 1 poisoned after {len(outs[1])} tokens, "
+          "cohabitants bit-equal to the clean run", flush=True)
+    res["poisoned_after_tokens"] = len(outs[1])
+
+    _, reg, reqs, st = run(cancel_after=4)
+    outs = [list(r.output_ids) for r in reqs]
+    check(st == {0: "cancelled", 1: "done", 2: "done"}
+          and outs[1:] == clean[1:] and outs[0] == clean[0][:len(outs[0])],
+          f"reliability: cancel run {st}")
+    print(f"reliability: request 0 cancelled in flight after "
+          f"{len(outs[0])} tokens, the others bit-equal", flush=True)
+    res["cancelled_after_tokens"] = len(outs[0])
+
+    # a queued deadline forced by a slow step, and shedding at the door
+    reg = MetricsRegistry()
+    eng = ServingEngine(model, **REL_ENGINE, registry=reg, max_pending=3,
+                        faults=FaultPlan(slow_steps={2: 0.6}))
+    reqs = [eng.submit(Request(p, REL_NEW, deadline_ms=500 if i == 2
+                               else None)) for i, p in enumerate(prompts)]
+    shed = Request(prompts[0], REL_NEW)
+    try:
+        eng.submit(shed)
+        check(False, "reliability: max_pending=3 took a fourth request")
+    except EngineOverloaded:
+        pass
+    st = eng.drain()
+    outs = [list(r.output_ids) for r in reqs]
+    check(st == {0: "done", 1: "done", 2: "timed_out"} and outs[2] == []
+          and outs[:2] == clean[:2] and shed.status == "shed"
+          and shed.rid is None and len(st) == 3
+          and reg.get("serving_requests_shed_total").labels(**lbl).value == 1
+          and reg.get("serving_requests_timed_out_total").labels(
+              **lbl).value == 1,
+          f"reliability: deadline/shed run {st}")
+    print("reliability: queued request timed out at the slow step, the "
+          "fourth submit was shed, the others bit-equal", flush=True)
+
+    # preemption on a small paged pool: two low-priority decodes, then a
+    # priority-5 request only a park can admit; prompts past one 256-row
+    # block, so the parked chain keeps a full block to re-adopt
+    wprompts = rel_workload(seed=5, lo=300, hi=400)
+
+    def wave(preempt):
+        eng = ServingEngine(model, **REL_PAGED, registry=MetricsRegistry())
+        lows = [eng.submit(Request(p, 64)) for p in wprompts[:2]]
+        hi = None
+        if preempt:
+            for _ in range(6):
+                eng.step()
+            hi = eng.submit(Request(wprompts[2], 16, priority=5))
+        eng.run()
+        return eng, lows, hi
+    peng, lows, hi = wave(True)
+    _, ref_lows, _ = wave(False)
+    s_ = peng.stats()
+    check([q.preempts for q in lows] == [0, 1] and hi.status == "done"
+          and len(hi.output_ids) == 16
+          and all(q.status == "done" and len(q.output_ids) == 64
+                  for q in lows)
+          and s_["preempted"] == 1
+          and 0 < s_["preempt_resume_suffix_tokens"]
+          < s_["preempt_resume_total_tokens"]
+          and peng.kv_manager.outstanding() == 0,
+          f"reliability: preemption {[q.preempts for q in lows]} {s_}")
+    res["preempt_drift"], res["preempt_flip_per_tok"] = drift(
+        [list(ref_lows[1].output_ids)], [list(lows[1].output_ids)])
+    res["preempt_resume"] = {k: s_[k] for k in (
+        "preempt_resume_suffix_tokens", "preempt_resume_total_tokens")}
+    print(f"reliability: preemption parked request 1 "
+          f"({res['preempt_resume']}); its resumed stream drifts "
+          f"{res['preempt_drift']:.4f} of positions from its unpreempted "
+          f"run (first-divergence rate {res['preempt_flip_per_tok']:.4f})",
+          flush=True)
+    torch.cuda.synchronize()
+    res["launches"] = dict(k8=k8.launches, k9=k9.launches,
+                           k8_plain=k8.plain_runs, k9_plain=k9.plain_runs)
+    check(k8.launches > 0 and k9.launches > 0 and k8.plain_runs == 0
+          and k9.plain_runs == 0,
+          f"reliability: kernels {res['launches']}")
+    print("reliability " + json.dumps(res), flush=True)
+    del model, clean_eng, peng, eng
+    torch.cuda.empty_cache()
+    return res
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2660,6 +3070,9 @@ def main():
     spec = phase_spec(torch, dev)
     print(f"phase spec: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
+    phase_reliability(torch, dev)
+    print(f"phase reliability: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
     phase_parity(torch, dev)
     print(f"phase parity: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
@@ -2700,6 +3113,12 @@ def main():
              launches=bf16["k8"], **kern["paged_decode_attention"],
              us_per_decode_step=serving["bf16"]["k8_us_per_decode_step"],
              spec_launches=spec_bf16),
+        dict(name="paged_decode_attention_range", route="cuda",
+             source=f"{csrc}/paged_decode_attention.cu",
+             replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
+             branch="hidden key range (the tree verify's branch row)",
+             launches=spec["dm_self_tree"]["launches"]["k8_hidden"],
+             **kern["paged_decode_attention_range"]),
         dict(name="prefill_attention", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",

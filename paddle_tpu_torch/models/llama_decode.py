@@ -168,21 +168,31 @@ def _pk_axis(program_key, name):
 
 
 def _layer_step(lp, cfg, h, k_cache, v_cache, lengths, cos_t, sin_t,
-                chunk_size=None, block_tables=None, attn_impl=None):
+                chunk_size=None, block_tables=None, attn_impl=None,
+                pos_offsets=None, hidden=None):
     """One decoder layer over T new tokens: h ``[B, T, hidden]`` -> h'
-    (the caches are appended in place)."""
+    (the caches are appended in place).
+
+    ``pos_offsets [T]`` (int32) rotates token ``i`` as if it sat at
+    ``lengths + pos_offsets[i]`` instead of ``lengths + i`` — the
+    tree-verify seam, where a branch token appended at row ``lengths + T
+    - 1`` stands at the branch point.  Cache append rows and the causal
+    window stay sequential; ``hidden [B, T, 2]`` carves a key range out
+    of that window per query (``decode_attention``).  Both default to
+    None, the linear path."""
     b, t, _ = h.shape
     nh, nkv, hd, eps = cfg
     x = _rmsnorm(h, lp["ln1"], eps)
     q = _mm(x, lp, "wq").reshape(b, t, nh, hd)
     k = _mm(x, lp, "wk").reshape(b, t, nkv, hd)
     v = _mm(x, lp, "wv").reshape(b, t, nkv, hd)
-    positions = lengths[:, None] + torch.arange(t, dtype=torch.int32,
-                                                device=h.device)[None, :]
+    offs = (torch.arange(t, dtype=torch.int32, device=h.device)
+            if pos_offsets is None else pos_offsets.to(torch.int32))
+    positions = lengths[:, None] + offs[None, :]
     q, k = _rope_at(q, k, cos_t, sin_t, positions)
     out, _, _, _ = decode_attention(
         q, k, v, k_cache, v_cache, lengths, chunk_size=chunk_size,
-        block_table=block_tables, impl=attn_impl)
+        block_table=block_tables, impl=attn_impl, hidden=hidden)
     h = h + _mm(out.reshape(b, t, nh * hd), lp, "wo")
     x2 = _rmsnorm(h, lp["ln2"], eps)
     return h + _mm(F.silu(_mm(x2, lp, "gate")) * _mm(x2, lp, "up"), lp,
@@ -196,18 +206,21 @@ def _lm_logits(params, h):
 
 
 def _forward(params, cfg, tokens, caches, lengths, last_only, last_idx=None,
-             chunk_size=None, block_tables=None, attn_impl=None):
+             chunk_size=None, block_tables=None, attn_impl=None,
+             pos_offsets=None, hidden=None):
     """tokens ``[B, T]`` -> (logits f32, caches, lengths + T): the last
     position's ``[B, V]`` with ``last_only``, one per-row position with
     ``last_idx [B]``, else every position ``[B, T, V]``.  One
-    ``block_tables`` operand serves every layer's pool."""
+    ``block_tables`` operand serves every layer's pool; ``pos_offsets``
+    and ``hidden`` reach every layer (``_layer_step``)."""
     h = params["embed"][tokens.long()]
     cos_t, sin_t = params["_rope"]
     lengths = lengths.to(torch.int32)
     for lp, (kc, vc) in zip(params["layers"], caches):
         h = _layer_step(lp, cfg, h, kc, vc, lengths, cos_t, sin_t,
                         chunk_size=chunk_size, block_tables=block_tables,
-                        attn_impl=attn_impl)
+                        attn_impl=attn_impl, pos_offsets=pos_offsets,
+                        hidden=hidden)
     h = _rmsnorm(h, params["norm"], cfg[3])
     if last_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
@@ -227,13 +240,16 @@ def _forward_step(params, cfg, tokens, caches, lengths, chunk_size=None,
 
 
 def _forward_step_all(params, cfg, tokens, caches, lengths, chunk_size=None,
-                      block_tables=None, attn_impl=None):
+                      block_tables=None, attn_impl=None, pos_offsets=None,
+                      hidden=None):
     """tokens ``[B, T]`` -> (logits f32 of EVERY position ``[B, T, V]``,
     caches, lengths + T): the verify pass of speculative decoding needs
-    the target's next-token choice after each drafted token."""
+    the target's next-token choice after each drafted token (the tree
+    verify passes ``pos_offsets`` and ``hidden``)."""
     return _forward(params, cfg, tokens, caches, lengths, last_only=False,
                     chunk_size=chunk_size, block_tables=block_tables,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, pos_offsets=pos_offsets,
+                    hidden=hidden)
 
 
 def _set_cols(buf, cols, values, valid):
@@ -446,49 +462,126 @@ def serving_spec_step(params, cfg, cur, caches, dev_lengths, hist, hist_len,
     return emitted, j, cur2, new_len, ok
 
 
+def _second_choice(logits, first):
+    """The index of each row's second-largest logit — ``jax.lax.top_k``'s
+    second index, ties to the lower index (``torch.topk`` promises no
+    order on ties): the argmax with the first pick masked out."""
+    masked = logits.scatter(1, first[:, None].long(), float("-inf"))
+    return torch.argmax(masked, dim=-1).to(torch.int32)
+
+
+def _tree_verify_operands(dlen, spec_k):
+    """``(pos_offsets [k+2], hidden [B, k+2, 2])`` of the top-2 tree
+    verify over ``(cur, d1..dk, alt1)`` at rows ``dlen .. dlen+k+1``: the
+    branch token (last row) is rotated for ``dlen + 1`` and does not see
+    the linear chain, rows ``[dlen+1, dlen+k+1)``; every other row hides
+    nothing."""
+    dev = dlen.device
+    pos = torch.cat([torch.arange(spec_k + 1, dtype=torch.int32, device=dev),
+                     torch.ones((1,), dtype=torch.int32, device=dev)])
+    hidden = torch.zeros((dlen.shape[0], spec_k + 2, 2), dtype=torch.int32,
+                         device=dev)
+    hidden[:, spec_k + 1, 0] = dlen + 1
+    hidden[:, spec_k + 1, 1] = dlen + (spec_k + 1)
+    return pos, hidden
+
+
+def _repair_branch_rows(caches, dlen, br, spec_k):
+    """Accepted branch: copy each dense cache's row ``dlen + k + 1`` (the
+    branch token's K/V, already rotated for ``dlen + 1``) into row ``dlen
+    + 1`` of the slots in ``br``, in place (an int8 cache: its codes and
+    its scales); the other slots' writes drop past capacity."""
+    from paddle_tpu_torch.ops.decode_attention import _write_rows, kv_data
+
+    lmax = kv_data(caches[0][0]).shape[1]
+    rows = torch.arange(dlen.shape[0], device=dlen.device)
+    src = (dlen + (spec_k + 1)).clamp(0, lmax - 1).long()
+    dst = torch.where(br, dlen + 1, torch.full_like(dlen, lmax))
+    leaves = [(leaf, leaf[rows, src][:, None])
+              for kc, vc in caches for c in (kc, vc)
+              for leaf in (c if isinstance(c, tuple) else (c,))]
+    _write_rows(leaves, dst)
+
+
 def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
                             dev_lengths, active, spec_k=4, chunk_size=None,
                             block_tables=None, draft_tables=None,
-                            program_key=None):
-    """One DRAFT-MODEL speculative round per slot (linear chain): the
-    draft model runs ``spec_k + 1`` one-token steps (the last only fills
-    its cache for the full-acceptance case), the target verifies the
-    ``spec_k`` candidates in one ``[B, k+1]`` forward, and the longest
-    matched prefix is accepted — emission is always the verify forward's
-    own greedy picks.
+                            program_key=None, branch_count=None):
+    """One DRAFT-MODEL speculative round per slot: the draft model runs
+    ``spec_k + 1`` one-token steps (the last only fills its cache for the
+    full-acceptance case), the target verifies the ``spec_k`` candidates
+    in one ``[B, k+1]`` forward, and the longest matched prefix is
+    accepted — emission is always the verify forward's own greedy picks.
 
     ``dcaches=None`` is the PAGED layout: draft layer ``l`` reads and
     writes target layer ``l``'s pool arrays through ``draft_tables [B,
     W]`` (the manager hands the draft chain its own blocks).  A list is
     the DENSE layout: separate per-draft-layer ``[B, Lmax]`` caches.
     Both models append from the same ``dev_lengths``, so one rewind
-    ``new_len = dev_lengths + j + 1`` serves both.  Returns the same
-    5-tuple as ``serving_spec_step``."""
-    if _pk_axis(program_key, "spec_tree") == "top2":
-        raise NotImplementedError(
-            "serving_spec_draft_step: spec_tree='top2' is not ported to "
-            "the PyTorch/CUDA engine yet — it arrives with the top-2 tree "
-            "verification slice (K8 with the branch row's hidden range)")
+    ``new_len = dev_lengths + j + 1`` serves both.
+
+    ``program_key.spec_tree == "top2"`` (dense caches only) verifies a
+    second branch in the same forward: the draft's second choice at the
+    first position, ``alt1``, rides as a last token at row ``L+k+1``,
+    rotated for ``L+1`` and hiding the linear chain ``L+1 .. L+k``
+    (``_tree_verify_operands``; on the card K8 with the hidden range), a
+    ``[B, k+2]`` verify.  When the chain rejects at once but the target's
+    pick is ``alt1``, the round emits ``(alt1, bonus)`` with ``j = 1`` and
+    the branch row's K/V moves to row ``L+1`` (``_repair_branch_rows``).
+    The draft cache keeps its rejected row (draft KV only moves the
+    accept rate).  ``branch_count`` (optional int64 ``[1]`` on the
+    device) adds up the slots whose branch was taken, in place, without
+    a host read.  Returns the same 5-tuple as ``serving_spec_step``."""
+    tree = _pk_axis(program_key, "spec_tree") == "top2"
     paged = dcaches is None
+    if tree and (paged or block_tables is not None):
+        raise ValueError(
+            "serving_spec_draft_step: spec_tree='top2' requires dense "
+            "caches — the branch-row repair copies dense cache rows")
     dc = caches if paged else dcaches
     cur = cur.to(torch.int32)
     dlen = dev_lengths.to(torch.int32)
     attn_impl = _pk_axis(program_key, "attn_impl")
-    tok, dl, seq = cur, dlen, []
-    for _ in range(int(spec_k) + 1):
+    tok, dl, seq, alt1 = cur, dlen, [], None
+    for i in range(int(spec_k) + 1):
         dlg, _, dl = _forward_step(
             dparams, dcfg, tok[:, None], dc, dl, chunk_size=chunk_size,
             block_tables=draft_tables if paged else None,
             attn_impl=attn_impl)
         tok = torch.argmax(dlg, dim=-1).to(torch.int32)
+        if tree and i == 0:
+            alt1 = _second_choice(dlg, tok)
         seq.append(tok)
     drafts = torch.stack(seq[:spec_k], dim=1)                 # [B, k]
-    toks = torch.cat([cur[:, None], drafts], dim=1)           # [B, k+1]
+    if not tree:
+        toks = torch.cat([cur[:, None], drafts], dim=1)       # [B, k+1]
+        logits, caches, _ = _forward_step_all(
+            params, cfg, toks, caches, dlen, chunk_size=chunk_size,
+            block_tables=block_tables, attn_impl=attn_impl)
+        emitted, j, cur2, new_len, ok, _, _ = _spec_round_out(
+            logits, drafts, dlen, active, spec_k)
+        return emitted, j, cur2, new_len, ok
+    toks = torch.cat([cur[:, None], drafts, alt1[:, None]], dim=1)  # k+2
+    pos, hidden = _tree_verify_operands(dlen, spec_k)
     logits, caches, _ = _forward_step_all(
         params, cfg, toks, caches, dlen, chunk_size=chunk_size,
-        block_tables=block_tables, attn_impl=attn_impl)
-    emitted, j, cur2, new_len, ok, _, _ = _spec_round_out(
-        logits, drafts, dlen, active, spec_k)
+        attn_impl=attn_impl, pos_offsets=pos, hidden=hidden)
+    emitted, j, cur2, _, _, _, _ = _spec_round_out(
+        logits[:, :spec_k + 1], drafts, dlen, active, spec_k)
+    ok = torch.isfinite(logits).all(dim=-1).all(dim=-1)       # [B]
+    picks0 = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+    bonus = torch.argmax(logits[:, spec_k + 1], dim=-1).to(torch.int32)
+    br = (j == 0) & (picks0 == alt1) & active
+    btok = torch.cat([alt1[:, None], bonus[:, None],
+                      torch.zeros((cur.shape[0], spec_k - 1),
+                                  dtype=torch.int32, device=cur.device)], 1)
+    emitted = torch.where(br[:, None], btok, emitted)
+    j = torch.where(br, torch.ones_like(j), j)
+    cur2 = torch.where(br, bonus, cur2)
+    _repair_branch_rows(caches, dlen, br, spec_k)
+    if branch_count is not None:
+        branch_count += br.sum()
+    new_len = dlen + torch.where(active, j + 1, torch.zeros_like(j))
     return emitted, j, cur2, new_len, ok
 
 

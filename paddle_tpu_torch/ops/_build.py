@@ -48,7 +48,7 @@ _FLASH_BWD = [_I, _P, _P, _P, _P, _P, _P]
 _PREFILL = [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]
 _SIGNATURES = {
     "paged_decode_attention": {
-        "paged_decode_attention": [_I] + [_P] * 11 + [_I] * 11 + [_F, _P]},
+        "paged_decode_attention": [_I] + [_P] * 12 + [_I] * 11 + [_F, _P]},
     "prefill_attention": {
         "prefill_attention": _PREFILL,
         "prefill_attention_mma": _PREFILL[:10] + [_P] * 3 + _PREFILL[10:]},

@@ -42,6 +42,13 @@
 //     and one launch does everything.  A span whose keys are all masked
 //     for a row (m = -1e30, l = 0) gets weight exactly 0.  A row group
 //     with one span writes its output directly (the same bits).
+// Top-2 tree verification hides keys per query row: with `hidden` (int32
+// [B, T, 2], half-open [lo, hi) per batch row and query token) a key in
+// its row's range gets no weight, exactly as a key past the causal limit
+// (the reference added a bias of -1e30 over those keys to the scores).  A
+// span wholly hidden for a row leaves (m = -1e30, l = 0) like an empty
+// one and merges with weight 0.  The range is a template flag, so the
+// instances without it are the kernels they were.
 // The page table is read in the kernel (physical block
 // clamp(table[b, i], 0, N-1), the reference's mode="clip" gather: a
 // sentinel reads a real block whose rows the mask discards); a row reads
@@ -131,13 +138,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 // T: the cache's element type (float, bf16, f16, or int8_t with the f16
 // scales ks/vs; null for float caches).  DV: the head_dim of a vector
 // instance (16-byte loads into the ring, D/32 adjacent dims a lane), or 0
-// for any head_dim (element-wise loads, dims lane + 32 j).
-template <typename T, int DV>
+// for any head_dim (element-wise loads, dims lane + 32 j).  HIDE: the
+// launch carries hidden key ranges.
+template <typename T, int DV, bool HIDE>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const float* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, const __half* __restrict__ ks,
     const __half* __restrict__ vs, const int* __restrict__ table,
-    const int* __restrict__ lengths, float* __restrict__ out,
+    const int* __restrict__ lengths, const int* __restrict__ hidden,
+    float* __restrict__ out,
     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
     int* __restrict__ tickets, int Hkv, int G, int Tq, int Drt, int C,
     int n_chunks, int lmax, int n_blocks, int split, float scale) {
@@ -233,12 +242,23 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
   float m[kRowsW], l[kRowsW], pr[kRowsW], acc[kRowsW][NJ];
+  int hlo[kRowsW], hhi[kRowsW];   // each row's hidden keys [lo, hi)
 #pragma unroll
   for (int i = 0; i < kRowsW; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+    hlo[i] = hhi[i] = 0;
+    if constexpr (HIDE) {
+      const int r = warp + kWarps * i;
+      if (r < R) {
+        const long long hr =
+            (static_cast<long long>(b) * Tq + (row0 + r) % Tq) * 2;
+        hlo[i] = hidden[hr];
+        hhi[i] = hidden[hr + 1];
+      }
+    }
   }
   auto dim = [&](int jj) { return DV > 0 ? lane * NJ + jj : lane + 32 * jj; };
 
@@ -298,9 +318,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const int r = warp + kWarps * i;
       pr[i] = 0.f;
       if (r < R) {
-        const bool ok = lane < nk &&
-                        static_cast<long long>(key0 + lane) <=
-                            static_cast<long long>(length) + (row0 + r) % Tq;
+        const int key = key0 + lane;
+        bool ok = lane < nk && static_cast<long long>(key) <=
+                                   static_cast<long long>(length) +
+                                       (row0 + r) % Tq;
+        if constexpr (HIDE) ok = ok && (key < hlo[i] || key >= hhi[i]);
         const float s = ok ? dot[i] * scale : kNegInf;
         const float m_new = fmaxf(m[i], warp_max(s));
         pr[i] = ok ? expf(s - m_new) : 0.f;
@@ -413,43 +435,61 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   if (tid == 0) tickets[tix] = 0;
 }
 
-template <typename T, int DV>
+template <typename T, int DV, bool HIDE>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* table, const void* lengths,
-             void* out, void* ws_acc, void* ws_ml, void* tickets, int B,
-             int Hkv, int G, int Tq, int D, int C, int n_chunks, int lmax,
-             int n_blocks, int split, float scale, cudaStream_t stream) {
+             const void* hidden, void* out, void* ws_acc, void* ws_ml,
+             void* tickets, int B, int Hkv, int G, int Tq, int D, int C,
+             int n_chunks, int lmax, int n_blocks, int split, float scale,
+             cudaStream_t stream) {
   const size_t smem = Layout<T>(D).bytes;
-  cudaError_t err = set_smem(paged_decode_kernel<T, DV>, smem);
+  cudaError_t err = set_smem(paged_decode_kernel<T, DV, HIDE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nz = (G * Tq + kRows - 1) / kRows;
   const dim3 grid((lmax + split - 1) / split, Hkv, B * nz);
-  paged_decode_kernel<T, DV><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<T, DV, HIDE><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const __half*>(ks),
       static_cast<const __half*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<float*>(out),
+      static_cast<const int*>(lengths), static_cast<const int*>(hidden),
+      static_cast<float*>(out),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
       static_cast<int*>(tickets), Hkv, G, Tq, D, C, n_chunks, lmax,
       n_blocks, split, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool HIDE>
+int launch_h(int vec, const void* q, const void* k, const void* v,
+             const void* ks, const void* vs, const void* table,
+             const void* lengths, const void* hidden, void* out,
+             void* ws_acc, void* ws_ml, void* tickets, int B, int Hkv, int G,
+             int Tq, int D, int C, int n_chunks, int lmax, int n_blocks,
+             int split, float scale, cudaStream_t s) {
+#define PTT_K8_ARGS                                                       \
+  q, k, v, ks, vs, table, lengths, hidden, out, ws_acc, ws_ml, tickets, B, \
+      Hkv, G, Tq, D, C, n_chunks, lmax, n_blocks, split, scale, s
+  if (vec && D == 64) return launch_d<T, 64, HIDE>(PTT_K8_ARGS);
+  if (vec && D == 128) return launch_d<T, 128, HIDE>(PTT_K8_ARGS);
+  if (vec && D == 256) return launch_d<T, 256, HIDE>(PTT_K8_ARGS);
+  return launch_d<T, 0, HIDE>(PTT_K8_ARGS);
+#undef PTT_K8_ARGS
+}
+
 template <typename T>
 int launch(int vec, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* table,
-           const void* lengths, void* out, void* ws_acc, void* ws_ml,
-           void* tickets, int B, int Hkv, int G, int Tq, int D, int C,
-           int n_chunks, int lmax, int n_blocks, int split, float scale,
-           cudaStream_t s) {
-#define PTT_K8_ARGS                                                        \
-  q, k, v, ks, vs, table, lengths, out, ws_acc, ws_ml, tickets, B, Hkv, G, \
-      Tq, D, C, n_chunks, lmax, n_blocks, split, scale, s
-  if (vec && D == 64) return launch_d<T, 64>(PTT_K8_ARGS);
-  if (vec && D == 128) return launch_d<T, 128>(PTT_K8_ARGS);
-  if (vec && D == 256) return launch_d<T, 256>(PTT_K8_ARGS);
-  return launch_d<T, 0>(PTT_K8_ARGS);
-#undef PTT_K8_ARGS
+           const void* lengths, const void* hidden, void* out, void* ws_acc,
+           void* ws_ml, void* tickets, int B, int Hkv, int G, int Tq, int D,
+           int C, int n_chunks, int lmax, int n_blocks, int split,
+           float scale, cudaStream_t s) {
+  if (hidden != nullptr)
+    return launch_h<T, true>(vec, q, k, v, ks, vs, table, lengths, hidden,
+                             out, ws_acc, ws_ml, tickets, B, Hkv, G, Tq, D,
+                             C, n_chunks, lmax, n_blocks, split, scale, s);
+  return launch_h<T, false>(vec, q, k, v, ks, vs, table, lengths, hidden,
+                            out, ws_acc, ws_ml, tickets, B, Hkv, G, Tq, D, C,
+                            n_chunks, lmax, n_blocks, split, scale, s);
 }
 
 }  // namespace splitk
@@ -459,18 +499,19 @@ int launch(int vec, const void* q, const void* k, const void* v,
 // caches pass their f16 scales [.., Hkv] in ks/vs, float caches null).
 // q and out are f32 [B, Hkv, G*T, D]; the cache is dense [B, lmax, Hkv, D]
 // (table null) or a pool [n_blocks, C, Hkv, D] read through table
-// [B, n_chunks].  ws_acc f32 [B, Hkv, ceil(lmax/split), G*T, D] and ws_ml
-// f32 [.., G*T, 2] hold the spans' partials, tickets int32
+// [B, n_chunks].  hidden: null, or int32 [B, T, 2], each query token's
+// hidden keys [lo, hi).  ws_acc f32 [B, Hkv, ceil(lmax/split), G*T, D] and
+// ws_ml f32 [.., G*T, 2] hold the spans' partials, tickets int32
 // [B, Hkv, ceil(G*T/16)] (zero, and left zero).  split: keys a span, a
 // multiple of 32 up to 256.  vec: every pointer is 16-byte aligned (the
 // 16-byte loads of the head_dim 64/128/256 instances).  Returns the
 // launch's cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(
     int dtype, const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* table, const void* lengths, void* out,
-    void* ws_acc, void* ws_ml, void* tickets, int B, int Hkv, int G, int Tq,
-    int D, int C, int n_chunks, int lmax, int n_blocks, int split, int vec,
-    float scale, void* stream) {
+    const void* vs, const void* table, const void* lengths,
+    const void* hidden, void* out, void* ws_acc, void* ws_ml, void* tickets,
+    int B, int Hkv, int G, int Tq, int D, int C, int n_chunks, int lmax,
+    int n_blocks, int split, int vec, float scale, void* stream) {
   using namespace ptt::splitk;
   if (D > ptt::kMaxD || C % kKeys != 0 || split % kKeys != 0 ||
       split < kKeys || split > kMaxSplit)
@@ -478,9 +519,9 @@ extern "C" int paged_decode_attention(
   if ((dtype == 3) != (ks != nullptr && vs != nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_K8_CALL(T)                                                      \
-  launch<T>(vec, q, k, v, ks, vs, table, lengths, out, ws_acc, ws_ml,       \
-            tickets, B, Hkv, G, Tq, D, C, n_chunks, lmax, n_blocks, split, \
-            scale, s)
+  launch<T>(vec, q, k, v, ks, vs, table, lengths, hidden, out, ws_acc,      \
+            ws_ml, tickets, B, Hkv, G, Tq, D, C, n_chunks, lmax, n_blocks, \
+            split, scale, s)
   switch (dtype) {
     case 0:
       return PTT_K8_CALL(float);

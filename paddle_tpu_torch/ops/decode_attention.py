@@ -220,11 +220,25 @@ def _append_kv(k_cache, v_cache, k_new, v_new, lengths, block_table=None):
                 block_table)
 
 
-def _attend_full(qg, k_cache, v_cache, q_pos, scale):
+def _hidden_bias(hidden, k_idx):
+    """The reference's tree bias for keys ``k_idx [n]`` (global positions):
+    ``-1e30`` where a key lies in its query row's hidden range ``hidden
+    [B, T, 2]`` (half-open ``[lo, hi)``), else 0 — ``[B, 1, 1, T, n]``
+    f32, added to the scores before the causal mask."""
+    lo = hidden[..., 0].to(torch.int32)[:, :, None]
+    hi = hidden[..., 1].to(torch.int32)[:, :, None]
+    k = k_idx[None, None, :]
+    bias = torch.where((k >= lo) & (k < hi), _NEG_INF, 0.0)
+    return bias.to(torch.float32)[:, None, None]
+
+
+def _attend_full(qg, k_cache, v_cache, q_pos, scale, hidden=None):
     """Single masked read over the whole dense ``[Lmax]`` cache."""
     lmax = kv_data(k_cache).shape[1]
     s = torch.einsum("bkgtd,blkd->bkgtl", qg, _as_f32(k_cache)) * scale
     k_idx = torch.arange(lmax, dtype=torch.int32, device=qg.device)
+    if hidden is not None:
+        s = s + _hidden_bias(hidden, k_idx)
     live = k_idx[None, None, :] <= q_pos[:, :, None]            # [B, T, L]
     s = torch.where(live[:, None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -232,7 +246,7 @@ def _attend_full(qg, k_cache, v_cache, q_pos, scale):
 
 
 def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
-                    block_table=None):
+                    block_table=None, hidden=None):
     """Online-softmax loop over ``[C]``-sized cache chunks (the
     reference's ``lax.while_loop``).  The trip count
     ``ceil((max live length + T) / C)`` is read on the host — this is the
@@ -281,6 +295,8 @@ def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
         vb = read(v_cache).transpose(1, 2)
         s = torch.einsum("bkgtd,bkcd->bkgtc", qg, kb) * scale
         k_idx = start + torch.arange(c, dtype=torch.int32, device=dev)
+        if hidden is not None:
+            s = s + _hidden_bias(hidden, k_idx)
         # causal AND not already folded (the clamped tail re-reads
         # [start, i*c), which belongs to the previous chunk)
         live = (k_idx[None, None, :] <= q_pos[:, :, None]) \
@@ -299,24 +315,29 @@ def _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale, chunk,
 
 
 def _attend_read(qg, k_cache, v_cache, lengths, scale, chunk_size,
-                 block_table=None):
+                 block_table=None, hidden=None):
     """The plain cache read for ``qg [B, Hkv, G, T, D]`` f32 at positions
     ``lengths + t``: the chunked online softmax when paged or when
     ``chunk_size`` is below the span, else the single full read.
-    Returns ``[B, Hkv, G, T, D]`` f32."""
+    ``hidden [B, T, 2]`` int32 (optional): a half-open key range
+    ``[lo, hi)`` per (row, query) that the query must not see — the
+    reference's ``attn_bias`` of -1e30 over those keys; an empty range
+    hides nothing.  Returns ``[B, Hkv, G, T, D]`` f32."""
     t = qg.shape[3]
     dev = qg.device
     lengths = lengths.to(device=dev, dtype=torch.int32)
     q_pos = lengths[:, None] + torch.arange(t, dtype=torch.int32,
                                             device=dev)[None, :]
+    if hidden is not None:
+        hidden = hidden.to(device=dev, dtype=torch.int32)
     if block_table is not None:
         return _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale,
-                               int(chunk_size), block_table)
+                               int(chunk_size), block_table, hidden)
     lmax = kv_data(k_cache).shape[1]
     if chunk_size is not None and int(chunk_size) < lmax:
         return _attend_chunked(qg, k_cache, v_cache, lengths, q_pos, scale,
-                               int(chunk_size))
-    return _attend_full(qg, k_cache, v_cache, q_pos, scale)
+                               int(chunk_size), hidden=hidden)
+    return _attend_full(qg, k_cache, v_cache, q_pos, scale, hidden)
 
 
 def _group_queries(q, hkv):
@@ -334,7 +355,8 @@ def _ungroup(out, dtype):
 
 
 def decode_attention(q, k_new, v_new, k_cache, v_cache, lengths, scale=None,
-                     chunk_size=None, block_table=None, impl=None):
+                     chunk_size=None, block_table=None, impl=None,
+                     hidden=None):
     """One decode step: append the new K/V (in place), attend causally
     over the cache.
 
@@ -346,8 +368,11 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, lengths, scale=None,
     step; query ``t`` sits at ``lengths + t`` and sees every position up
     to it.  ``impl`` selects the read: ``None`` by device, ``"reference"``
     the plain loop, ``"cuda"`` the K8 kernel (raising on a geometry it
-    does not cover).  Returns ``(out [B, T, H, D], k_cache, v_cache,
-    lengths + T)``."""
+    does not cover).  ``hidden [B, T, 2]`` int32 (optional) carves a
+    half-open key range ``[lo, hi)`` out of query ``t``'s causal window
+    (the tree-verify seam: the reference passed an ``attn_bias`` of
+    -1e30 over those keys; an empty range hides nothing).  Returns
+    ``(out [B, T, H, D], k_cache, v_cache, lengths + T)``."""
     b, t, h, d = q.shape
     hkv = k_new.shape[2]
     if block_table is not None:
@@ -365,7 +390,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, lengths, scale=None,
     _append_kv(k_cache, v_cache, k_new, v_new, lengths, block_table)
     qg = _group_queries(q, hkv)
     out = _k8.paged_decode_attention(qg, k_cache, v_cache, lengths, scale,
-                                     chunk_size, block_table, impl=impl)
+                                     chunk_size, block_table, impl=impl,
+                                     hidden=hidden)
     return _ungroup(out, q.dtype), k_cache, v_cache, lengths + t
 
 

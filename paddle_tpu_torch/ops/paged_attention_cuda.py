@@ -23,6 +23,17 @@ counts plain-version runs, so a run can show which path it went
 through.  The kernel takes any ``T``: the ``G*T`` query rows of a kv
 head go ``_ROWS`` to a CTA, each row masked causally at ``lengths +
 t``.
+
+``hidden [B, T, 2]`` (int32, optional) gives each (slot, query row) a
+half-open key range ``[lo, hi)`` it must not see — top-2 tree
+verification hides the linear chain from the branch row this way, where
+the reference passed an additive bias of -1e30 over those keys (and its
+fused kernel refused any bias, ``paged_attention_pallas.py:89-90``).
+The kernel gives a hidden key no weight, as a key past the causal
+limit; a span of keys wholly hidden for a row merges with weight 0.  A
+launch with a range is counted in ``launches_hidden`` as well (and under
+its ``T`` in ``launches_t``); without one the kernel is the same
+instance as before.
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ __all__ = ["fused_decode_supported", "paged_decode_attention",
 launches = 0
 #: the same launches by T, the query rows a slot (callers may clear it)
 launches_t = {}
+#: the launches that carried a hidden key range
+launches_hidden = 0
 #: runs of the plain version
 plain_runs = 0
 
@@ -146,40 +159,44 @@ def fused_decode_supported(chunk_size, lmax, head_dim):
 
 
 def paged_decode_attention_reference(qg, k_cache, v_cache, lengths, scale,
-                                     chunk_size, block_table=None):
+                                     chunk_size, block_table=None,
+                                     hidden=None):
     """The plain version: ``qg [B, Hkv, G, T, D]`` f32 against the dense
     ``[B, Lmax, Hkv, D]`` cache or the ``[N, C, Hkv, D]`` pool through
-    ``block_table [B, W]`` (float, or int8 ``(data, scale)`` pairs);
-    returns ``[B, Hkv, G, T, D]`` f32."""
+    ``block_table [B, W]`` (float, or int8 ``(data, scale)`` pairs), with
+    the optional hidden key ranges; returns ``[B, Hkv, G, T, D]`` f32."""
     global plain_runs
     from paddle_tpu_torch.ops.decode_attention import _attend_read
 
     plain_runs += 1
     return _attend_read(qg, k_cache, v_cache, lengths, scale, chunk_size,
-                        block_table)
+                        block_table, hidden)
 
 
 def paged_decode_attention(qg, k_cache, v_cache, lengths, scale, chunk_size,
-                           block_table=None, impl=None):
+                           block_table=None, impl=None, hidden=None):
     """Decode attention read for ``T`` query rows per batch row.
 
     ``qg [B, Hkv, G, T, D]`` f32 (queries at positions ``lengths + t``),
     caches dense ``[B, Lmax, Hkv, D]`` or paged ``[N, C, Hkv, D]`` with
     ``block_table [B, W]`` int32 — float tensors or int8 ``(data,
     scale)`` pairs —, ``lengths [B]`` int32 (pre-append;
-    parked slots at ``>= lmax`` return finite garbage).  ``impl``:
-    ``None`` by device, ``"reference"`` the plain version, ``"cuda"`` the
-    kernel.  Returns ``[B, Hkv, G, T, D]`` f32."""
+    parked slots at ``>= lmax`` return finite garbage), ``hidden [B, T,
+    2]`` int32 the optional hidden key ranges (module docstring).
+    ``impl``: ``None`` by device, ``"reference"`` the plain version,
+    ``"cuda"`` the kernel.  Returns ``[B, Hkv, G, T, D]`` f32."""
     impl = resolve_impl(impl, qg.device, "paged_decode_attention")
     if impl == "reference":
         return paged_decode_attention_reference(
-            qg, k_cache, v_cache, lengths, scale, chunk_size, block_table)
+            qg, k_cache, v_cache, lengths, scale, chunk_size, block_table,
+            hidden)
     return _launch(qg, k_cache, v_cache, lengths, scale, chunk_size,
-                   block_table)
+                   block_table, hidden)
 
 
-def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
-    global launches
+def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table,
+            hidden):
+    global launches, launches_hidden
     from paddle_tpu_torch.ops import _build
 
     if qg.dim() != 5 or qg.dtype != torch.float32 or not qg.is_contiguous():
@@ -199,6 +216,11 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
             f"does not match qg {tuple(qg.shape)}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError("paged_decode_attention: lengths must be int32 [B]")
+    if hidden is not None and (
+            hidden.dtype != torch.int32 or tuple(hidden.shape) != (b, t, 2)
+            or hidden.device != dev or not hidden.is_contiguous()):
+        raise ValueError("paged_decode_attention: hidden must be a "
+                         f"contiguous int32 [B, T, 2] tensor on {dev}")
     if block_table is not None:
         if block_table.dtype != torch.int32 or block_table.dim() != 2 \
                 or block_table.shape[0] != b or block_table.device != dev \
@@ -233,8 +255,8 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_decode_attention(
             code, qg.data_ptr(), kd.data_ptr(), vd.data_ptr(), _ptr(ks),
-            _ptr(vs), _ptr(block_table),
-            lengths.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
+            _ptr(vs), _ptr(block_table), lengths.data_ptr(), _ptr(hidden),
+            out.data_ptr(), ws_acc.data_ptr(),
             ws_ml.data_ptr(), tickets.data_ptr(), b, hkv, g, t, d, c,
             n_chunks, lmax, n_blocks, _SPLIT, int(vec), float(scale),
             stream)
@@ -244,4 +266,6 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table):
             f"{rc}")
     launches += 1
     launches_t[t] = launches_t.get(t, 0) + 1
+    if hidden is not None:
+        launches_hidden += 1
     return out

@@ -1,7 +1,12 @@
-"""The port's serving engine (one replica)."""
+"""The port's serving engine (one replica) and its fault-injection plan."""
 from paddle_tpu_torch.serving.engine import (
-    AcceptWindow, KVPoolExhausted, Request, ServingEngine, SpecConfig,
+    AcceptWindow, EngineOverloaded, KVPoolExhausted, Request, ServingEngine,
+    SpecConfig,
+)
+from paddle_tpu_torch.serving.faults import (
+    FaultPlan, InjectedDispatchError, InjectedStreamCbError,
 )
 
-__all__ = ["AcceptWindow", "KVPoolExhausted", "Request", "ServingEngine",
-           "SpecConfig"]
+__all__ = ["AcceptWindow", "EngineOverloaded", "FaultPlan",
+           "InjectedDispatchError", "InjectedStreamCbError",
+           "KVPoolExhausted", "Request", "ServingEngine", "SpecConfig"]

@@ -49,10 +49,13 @@ nothing falls back.
 * **Speculative decoding** (``mode="spec"``, ``spec=SpecConfig(...)``):
   each round drafts ``k`` tokens a slot — by prompt lookup in the slot's
   token history (``serving_spec_step``) or with a resident draft model
-  (``serving_spec_draft_step``, linear chain) — and verifies them in one
-  ``[B, k+1]`` target forward (K8 with ``T = k+1`` query rows a slot on
-  the card), emitting the longest matched prefix plus the target's own
-  next pick: exactly the verify forward's greedy picks.  The accepted
+  (``serving_spec_draft_step``) — and verifies them in one ``[B, k+1]``
+  target forward (K8 with ``T = k+1`` query rows a slot on the card),
+  emitting the longest matched prefix plus the target's own next pick:
+  exactly the verify forward's greedy picks.  ``SpecConfig(tree=
+  "top2")`` (draft model, dense caches) adds the draft's second choice at
+  the first position as a branch row, verified in the same ``[B, k+2]``
+  forward (K8 with a hidden key range for that row).  The accepted
   length is known only on the device, so a pipelined engine feeds the
   previous round's device lengths straight into the next dispatch and
   its host mirror catches up at the drain.  The adaptive policy
@@ -61,13 +64,26 @@ nothing falls back.
   draft model's KV lives in separate dense caches or, paged, as a second
   tenant of the same block pool (``serving/kv_cache.py``).
 
+* **Reliability** (a strict no-op on the clean path: with no deadlines,
+  no faults and ``max_pending=None`` the token streams and the dispatch
+  structure are unchanged).  ``max_pending`` bounds the admission queue
+  (``submit`` raises ``EngineOverloaded``, status ``"shed"``); every
+  dispatch and every host fetch runs behind a bounded retry with
+  exponential backoff (``retry_attempts``, ``retry_backoff``) against
+  ``_RETRYABLE``; ``cancel(rid)`` and ``Request(deadline_ms=)`` retire
+  work anywhere in its life through the same write-drop parking as
+  retirement; non-finite logits quarantine one slot (``"poisoned"``);
+  ``Request(priority=)`` parks the lowest-priority resident slot of a
+  paged continuous engine when a higher-priority request is blocked,
+  and its resume re-adopts its own cached chain (one suffix prefill).
+  ``faults`` takes a ``serving/faults.FaultPlan`` (dispatch errors, NaN
+  payloads, slow steps, ``stream_cb`` crashes) through test-only seams.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-top-2 tree verification (``SpecConfig(tree="top2")``), tensor
-parallelism, the reliability layer (deadlines, load shedding, retries,
-fault injection, preemption), the request-scoped observability layer
-(flight recorder, SLO tracker, watchdog), the host KV tier,
-prefill/decode disaggregation and the monolithic
-(``prefill_chunk=None``) prefill.
+tensor parallelism, the request-scoped observability layer (flight
+recorder, SLO tracker and classes, watchdog), the host KV tier,
+prefill/decode disaggregation and the monolithic (``prefill_chunk=None``)
+prefill.
 """
 from __future__ import annotations
 
@@ -93,16 +109,42 @@ from paddle_tpu_torch.ops.paged_attention_cuda import fused_decode_supported
 from paddle_tpu_torch.ops.prefill_attention_cuda import (
     fused_prefill_supported,
 )
+from paddle_tpu_torch.serving.faults import InjectedDispatchError
 from paddle_tpu_torch.serving.kv_cache import (
     KVCacheManager, KVPoolExhausted, PagedKVCacheManager,
 )
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.program_key import ProgramKey
 
-__all__ = ["AcceptWindow", "KVPoolExhausted", "Request", "ServingEngine",
-           "SpecConfig"]
+__all__ = ["AcceptWindow", "EngineOverloaded", "KVPoolExhausted", "Request",
+           "ServingEngine", "SpecConfig"]
 
 _LOG = logging.getLogger(__name__)
+
+#: the errors a dispatch or fetch retries.  ``torch.cuda.OutOfMemoryError``
+#: is the one CUDA error PyTorch raises on the host, from the caching
+#: allocator, before the operation that needed the memory is enqueued:
+#: the context stays usable, and a dispatch re-issued from the top
+#: rewrites the same cache rows with the same values (appends at the
+#: slot's unchanged offsets; the one in-place counter, the prompt-lookup
+#: ``hist_len``, is the last operation of its round and allocates
+#: nothing).  Every other CUDA error (an illegal address, a launch
+#: failure) leaves the context lost or is deterministic, and re-raises
+#: at once.  The injected twin rides the same path.
+_RETRYABLE = (InjectedDispatchError, torch.cuda.OutOfMemoryError)
+
+
+class EngineOverloaded(RuntimeError):
+    """``submit()`` rejected the request: the bounded admission queue
+    (``max_pending``) is full.  The caller owns the backoff or reroute;
+    resident work is never displaced."""
+
+
+def _backoff_sleep(seconds):
+    """The engine's one deliberate blocking wait: the backoff between
+    retry attempts."""
+    if seconds > 0:
+        time.sleep(seconds)
 
 
 def _not_ported(where, knob, slice_name):
@@ -272,21 +314,32 @@ class Request:
     ``prompt_ids``: 1-D int token ids.  ``eos_token_id`` retires the slot
     when emitted (the EOS is kept in ``output_ids``).  ``stream_cb``
     (optional ``cb(request, new_ids)``) fires per emission batch; a
-    raising callback is logged once per request and never kills the
-    scheduler.  Timing (perf_counter): ``t_submit`` / ``t_first`` /
-    ``t_done`` and the derived ``ttft`` / ``tpot`` / ``latency``.
-    ``status``: ``None`` while in flight, then ``"done"`` or
-    ``"poisoned"`` (non-finite logits quarantine)."""
+    raising callback is counted (``serving_stream_cb_errors_total``, by
+    exception type), logged once per request, and never kills the
+    scheduler.  ``deadline_ms`` bounds submit -> completion: past it the
+    request retires wherever it is (queued, mid-prefill, decoding) with
+    the tokens it has.  ``priority`` (int, higher wins) orders admission
+    and, on paged continuous engines, arms preemption (``preempts``
+    counts the parks).  Timing (perf_counter): ``t_submit`` /
+    ``t_first`` / ``t_done`` and the derived ``ttft`` / ``tpot`` /
+    ``latency``.  ``status``: ``None`` while in flight, then one of
+    ``"done"``, ``"timed_out"``, ``"cancelled"``, ``"poisoned"``
+    (non-finite logits quarantine) or ``"shed"`` (rejected at submit; the
+    only terminal status that leaves ``done`` False)."""
 
     def __init__(self, prompt_ids, max_new_tokens, eos_token_id=None,
                  stream_cb=None, rid=None, deadline_ms=None, slo_class=None,
                  priority=0):
-        if deadline_ms is not None:
-            _not_ported("Request", "deadline_ms", "reliability")
         if slo_class is not None:
             _not_ported("Request", "slo_class", "observability")
-        if priority != 0:
-            _not_ported("Request", "priority (preemption)", "reliability")
+        self.deadline_ms = (float(deadline_ms)
+                            if deadline_ms is not None else None)
+        if self.deadline_ms is not None and self.deadline_ms < 0:
+            raise ValueError("Request: deadline_ms must be >= 0")
+        self.priority = int(priority)
+        self.preempts = 0
+        self._adm_ids = None      # the tokens its last admission prefilled
+        self._t_deadline = None   # stamped at submit()
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if self.prompt_ids.size == 0:
             raise ValueError("Request: empty prompt")
@@ -344,8 +397,10 @@ class ServingEngine:
     card) or ``"reference"`` (plain versions; CPU only).  ``mode``:
     ``"greedy"`` or ``"spec"`` (speculative decoding; ``spec`` a
     ``SpecConfig`` or its kwargs dict, ``spec_k`` the default depth).
-    ``registry`` / ``instrument``: metrics.  ``recorder`` defaults to
-    ``False`` here — the flight recorder is not ported yet."""
+    ``max_pending`` / ``retry_attempts`` / ``retry_backoff`` / ``faults``:
+    the reliability layer (module docstring).  ``registry`` /
+    ``instrument``: metrics.  ``recorder`` defaults to ``False`` here —
+    the flight recorder is not ported yet."""
 
     def __init__(self, model, batch_size=8, max_len=2048, mode="greedy",
                  sync_every=1, policy="continuous", prompt_buckets=None,
@@ -355,7 +410,7 @@ class ServingEngine:
                  kv_dtype=None, attn_impl=None, prefill_impl=None,
                  spec_k=8, spec=None, weight_dtype=None, mesh=None,
                  tp_axis=None, tp_overlap=None, max_pending=None,
-                 retry_attempts=None, retry_backoff=None, faults=None,
+                 retry_attempts=3, retry_backoff=0.05, faults=None,
                  recorder=False, slo=None, watchdog=None,
                  host_tier_bytes=None, host_tier=None,
                  host_tier_min_blocks=None, prefill_only=False,
@@ -390,10 +445,6 @@ class ServingEngine:
                     "spec tree='top2' requires dense caches (kv_block="
                     "None): the accepted-branch row repair scatters into "
                     "dense per-slot cache rows")
-            if spec.tree is not None:
-                _not_ported(where, "SpecConfig(tree='top2')",
-                            "top-2 tree verification (K8 with the branch "
-                            "row's hidden range)")
             spec_k = spec.spec_k
         else:
             spec = None
@@ -404,11 +455,6 @@ class ServingEngine:
         if mesh is not None or tp_axis is not None or tp_overlap is not None:
             _not_ported(where, "tensor parallelism (mesh=, tp_axis=, "
                         "tp_overlap=)", "tensor-parallel serving")
-        if (max_pending is not None or retry_attempts is not None
-                or retry_backoff is not None or faults is not None):
-            _not_ported(where, "the reliability knobs (max_pending, "
-                        "retry_attempts, retry_backoff, faults)",
-                        "reliability")
         if recorder not in (False, None) or slo is not None \
                 or watchdog is not None:
             _not_ported(where, "recorder / slo / watchdog",
@@ -576,6 +622,11 @@ class ServingEngine:
         # the prompt-lookup history, on the device (a draft model needs
         # none)
         self._hist = self._hist_len = None
+        # tree verification: the rounds' taken branches, counted on the
+        # device (read only by ``tree_branches_taken``)
+        self._tree_taken = (
+            torch.zeros((1,), dtype=torch.int64, device=self._device)
+            if spec is not None and spec.tree else None)
         if spec is not None and not self._dspec:
             self._hist = torch.zeros((self._B, self._lmax),
                                      dtype=torch.int32, device=self._device)
@@ -601,6 +652,18 @@ class ServingEngine:
         self._step_idx = -1
         self._n_prompt_tokens = 0
         self._n_reuse_tokens = 0
+        # reliability: the bounded admission queue, the retry policy, the
+        # fault plan (None in production) and the preemption tallies
+        self._max_pending = (int(max_pending)
+                             if max_pending is not None else None)
+        if self._max_pending is not None and self._max_pending < 0:
+            raise ValueError("max_pending must be >= 0 or None")
+        self._retry_attempts = max(1, int(retry_attempts))
+        self._retry_backoff = float(retry_backoff)
+        self._faults = faults
+        self._n_preempted = 0
+        self._n_resume_suffix = 0
+        self._n_resume_total = 0
 
     # ------------------------------------------------------------- scheduling
     @property
@@ -655,9 +718,13 @@ class ServingEngine:
 
     def _headroom(self):
         # greedy may overshoot a retiring slot by < sync_every cache rows,
-        # spec's verify forward writes spec_k+1 rows before the rewind; a
-        # pipelined engine discovers retirement one drain late
-        per = self._spec_k + 1 if self._mode == "spec" else self._sync
+        # spec's verify forward writes spec_k+1 rows before the rewind
+        # (+1 for the tree's branch row at L+k+1); a pipelined engine
+        # discovers retirement one drain late
+        if self._mode == "spec":
+            per = self._spec_k + (2 if self._spec.tree else 1)
+        else:
+            per = self._sync
         return 2 * per if self._pipeline else per
 
     def submit(self, request):
@@ -674,6 +741,17 @@ class ServingEngine:
                 f"max_new {request.max_new_tokens} + headroom "
                 f"{self._headroom()}) > max_len {self._lmax}")
         request._bucket = self._buckets[i]
+        # shedding after validation (a malformed request stays a
+        # ValueError) and before the rid (a shed request consumes no
+        # engine state)
+        if self._max_pending is not None \
+                and len(self._queue) >= self._max_pending:
+            request.status = "shed"
+            if self._m is not None:
+                self._m.terminal("shed")
+            raise EngineOverloaded(
+                f"admission queue full ({len(self._queue)} pending >= "
+                f"max_pending={self._max_pending}); request shed")
         if request.rid is None:
             request.rid = self._next_rid
             self._next_rid += 1
@@ -686,6 +764,9 @@ class ServingEngine:
                 self._next_rid = max(self._next_rid, request.rid + 1)
         self._rids.add(request.rid)
         request.t_submit = time.perf_counter()
+        if request.deadline_ms is not None:
+            request._t_deadline = request.t_submit \
+                + request.deadline_ms / 1e3
         self._queue.append(request)
         if self._m is not None:
             self._m.queue_depth.set(len(self._queue))
@@ -695,6 +776,97 @@ class ServingEngine:
         """Slot ``i`` holds a live request that finished prefilling."""
         return self._kv.reqs[i] is not None and i not in self._pf
 
+    # --------------------------------------------------- priority preemption
+    @staticmethod
+    def _admission_ids(r):
+        """The tokens a (re-)admission prefills: the prompt, plus every
+        token a request resuming after preemption already emitted (the
+        last one's forward yields the next token, so the ordinary chunked
+        prefill continues the stream)."""
+        if not r.output_ids:
+            return r.prompt_ids
+        return np.concatenate(
+            [r.prompt_ids, np.asarray(r.output_ids, np.int32)])
+
+    def _preempt_slot(self, slot):
+        """Park ``slot``'s request mid-decode: register the rows known
+        written (prompt plus every emitted token but the last) as a radix
+        chain, so ``release`` parks it evictable and the resume re-adopts
+        it; the draft tenant's chain frees outright.  An inflight
+        pipelined dispatch for the slot writes only past that chain and
+        its tokens fail the drain's identity check."""
+        r = self._kv.reqs[slot]
+        cached = self._admission_ids(r)[:-1]
+        self._kv.register_prefix(slot, cached)
+        self._kv.release(slot)
+        self._forget_slot(slot)
+        r.preempts += 1
+        r._adm_ids = None
+        self._n_preempted += 1
+        self._queue.appendleft(r)
+        if self._m is not None:
+            self._m.preempted.inc()
+            self._m.queue_depth.set(len(self._queue))
+            self._m.slots_occupied.set(self._kv.occupied())
+            self._m.live_tokens.set(self._kv.live_tokens())
+
+    def _maybe_preempt(self):
+        """Park low-priority resident work while a strictly higher-priority
+        waiter is blocked (no free slot, or the pool cannot cover its
+        worst case): lowest priority first, the most recently submitted
+        within a class.  Paged continuous engines only; a no-op while no
+        queued priority exceeds a resident one."""
+        if not self._paged or self._policy != "continuous" \
+                or not self._queue:
+            return
+        top = max(self._queue, key=lambda q: q.priority)
+        for _ in range(self._B):
+            victims = [
+                (i, self._kv.reqs[i]) for i in range(self._B)
+                if self._kv.reqs[i] is not None and i not in self._pf
+                and self._kv.reqs[i].t_first is not None
+                and self._kv.reqs[i].priority < top.priority]
+            if not victims:
+                return
+            # is the head blocked?  the admission arithmetic
+            budget = self._admission_budget(top)[2]
+            if self._kv.free_slots() and self._kv.can_reserve(budget):
+                return
+            slot, _ = min(victims,
+                          key=lambda sr: (sr[1].priority, -sr[1].t_submit))
+            self._preempt_slot(slot)
+
+    def _admission_budget(self, r):
+        """Paged admission arithmetic for ``r``: ``(need rows, matched
+        prefix tokens, new blocks to reserve, matched blocks)`` — its
+        worst case (admission tokens + remaining tokens + headroom, capped
+        at max_len) minus the radix match, aligned down to a
+        prefill-chunk boundary so a hit runs the same chunks a miss
+        would."""
+        tok = self._admission_ids(r)
+        C, P = self._kv.block, self._pchunk
+        rem = max(1, r.max_new_tokens - len(r.output_ids))
+        need = min(self._lmax, int(tok.size) + rem + self._headroom())
+        off0, shared = self._kv.match_prefix(tok)
+        if P > C:
+            off0 = (off0 // P) * P
+            shared = shared[:off0 // C]
+        return need, off0, -(-need // C) - len(shared), shared
+
+    # -------------------------------------------------- request lifecycle
+    # every terminal path below retires through the write-drop parking the
+    # scheduler already uses: the freed slot is parked at lmax from the
+    # next dispatch on and its stale pipelined tokens fail the drain's
+    # identity check
+    def _terminal_queued(self, r, status):
+        """Retire a request that never reached a slot."""
+        r.status = status
+        r.done = True
+        r.t_done = time.perf_counter()
+        self._finished.append(r)
+        if self._m is not None:
+            self._m.terminal(status)
+
     def _forget_slot(self, slot):
         self._pf.pop(slot, None)
         self._dev_first.pop(slot, None)
@@ -702,8 +874,9 @@ class ServingEngine:
                                 if t[0] != slot]
 
     def _retire(self, slot, status):
-        """Retire ``slot``'s request with a non-``done`` status, keeping
-        the tokens it already emitted."""
+        """Retire ``slot``'s request with a non-``done`` status
+        (timed_out / cancelled / poisoned), keeping the tokens it already
+        emitted."""
         r = self._kv.reqs[slot]
         r.status = status
         r.done = True
@@ -712,8 +885,112 @@ class ServingEngine:
         self._forget_slot(slot)
         self._finished.append(r)
         if self._m is not None:
-            self._m.poisoned.inc()
+            self._m.terminal(status)
             self._m.slots_occupied.set(self._kv.occupied())
+
+    def cancel(self, rid):
+        """Retire ``rid`` wherever it is — queued, mid-prefill or decoding
+        (stale pipelined tokens are discarded at the drain) — with status
+        ``"cancelled"`` and its partial output.  Returns True if it was
+        live, False otherwise (finished, shed or unknown)."""
+        for r in self._queue:
+            if r.rid == rid:
+                self._queue.remove(r)
+                self._terminal_queued(r, "cancelled")
+                if self._m is not None:
+                    self._m.queue_depth.set(len(self._queue))
+                return True
+        for slot, r in enumerate(self._kv.reqs):
+            if r is not None and r.rid == rid:
+                self._retire(slot, "cancelled")
+                return True
+        return False
+
+    def _expire_deadlines(self):
+        """Retire every request past its ``deadline_ms``: queued ones
+        never reach a slot, resident ones free theirs this step."""
+        now = time.perf_counter()
+        expired = [r for r in self._queue
+                   if r._t_deadline is not None and now >= r._t_deadline]
+        for r in expired:
+            self._queue.remove(r)
+            self._terminal_queued(r, "timed_out")
+        if expired and self._m is not None:
+            self._m.queue_depth.set(len(self._queue))
+        for slot, r in enumerate(self._kv.reqs):
+            if r is not None and r._t_deadline is not None \
+                    and now >= r._t_deadline:
+                self._retire(slot, "timed_out")
+
+    # ------------------------------------------------- faults and retries
+    def _inject_nan(self, slot):
+        """Fault seam (``FaultPlan.poison``): NaN into the slot's first
+        cached key row (layer 0, position 0, which every later query of
+        the slot reads), in place between steps; a paged engine poisons
+        the slot's first mapped block instead.  An int8 cache cannot hold
+        a NaN in its codes: the poison lands in the scale leaf, which
+        dequantizes the row to NaN."""
+        k = self._kv.caches[0][0]
+        leaf = k[1] if isinstance(k, tuple) else k
+        if self._paged:
+            b = int(self._kv.block_tables[slot, 0])
+            if b >= self._kv.num_blocks:
+                return   # nothing mapped yet
+            leaf[b, 0].fill_(float("nan"))
+            return
+        leaf[slot, 0].fill_(float("nan"))
+
+    def _apply_poison(self):
+        """Inject every due NaN payload of the fault plan, once the slot
+        has a cache row written (a slot still at prefill offset 0 would
+        overwrite the poison with its first chunk)."""
+        f = self._faults
+        if f is None or not f.poison:
+            return
+        for slot, r in enumerate(self._kv.reqs):
+            if r is None or not f.poison_due(r.rid, self._step_idx):
+                continue
+            st = self._pf.get(slot)
+            if st is not None and st["off"] == 0:
+                continue
+            self._inject_nan(slot)
+            f.mark_poisoned(r.rid)
+
+    def _fault_point(self, kind, attempt):
+        if self._faults is not None:
+            self._faults.maybe_dispatch_error(kind, self._step_idx,
+                                              attempt)
+
+    def _retry(self, fn, what):
+        """Run ``fn(attempt)`` up to ``retry_attempts`` times against
+        ``_RETRYABLE`` errors, backing off exponentially; exhaustion
+        re-raises the last error.  A retried attempt re-issues the same
+        kernels (never a plain version); the fault points raise before
+        the dispatch launches anything."""
+        delay = self._retry_backoff
+        for attempt in range(self._retry_attempts):
+            try:
+                return fn(attempt)
+            except _RETRYABLE as e:
+                if attempt + 1 >= self._retry_attempts:
+                    raise
+                if self._m is not None:
+                    self._m.dispatch_retries.inc()
+                _LOG.warning(
+                    "serving %s failed (%s: %s) — retrying (attempt %d/%d) "
+                    "after %.3fs backoff", what, type(e).__name__, e,
+                    attempt + 1, self._retry_attempts - 1, delay)
+                _backoff_sleep(delay)
+                delay *= 2
+
+    def _fetch(self, kind, fetch):
+        """``_host_fetch`` behind the bounded retry and the fault seam:
+        waiting on the same event and reading the same pinned buffers
+        again is idempotent."""
+        def go(attempt):
+            self._fault_point(kind, attempt)
+            return _host_fetch(fetch)
+        return self._retry(go, kind)
 
     # --------------------------------------------------- program dispatch
     def _kv_event(self, kind, **info):
@@ -744,7 +1021,7 @@ class ServingEngine:
                 block_tables=self._tables(),
                 draft_tables=(self._kv.device_draft_tables()
                               if self._paged else None),
-                program_key=pk)
+                program_key=pk, branch_count=self._tree_taken)
         return serving_spec_step(
             self._params, self._cfg, cur, self._kv.caches, dev_len,
             self._hist, self._hist_len, active, spec_k=k,
@@ -819,25 +1096,22 @@ class ServingEngine:
         m = self._m
         P = self._pchunk
         while free and self._queue:
-            r = self._queue[0]
-            tok = r.prompt_ids
+            # the highest-priority waiter first; max() is stable, so
+            # all-default traffic admits in exact FIFO order.  ``tok`` is
+            # the (re-)admission sequence: a preemption resume includes
+            # its emitted tokens and re-adopts its parked chain
+            r = max(self._queue, key=lambda q: q.priority)
+            tok = self._admission_ids(r)
             p = int(tok.size)
             off0, shared, budget, need = 0, [], 0, 0
             doff0, dshared, dbudget = 0, [], 0
             if self._paged:
                 # token-budget admission: reserve the request's worst-case
-                # block count minus its radix-matched prefix; the match is
-                # aligned DOWN to a prefill-chunk boundary so the suffix
-                # runs the same chunks a miss would (byte-identity across
-                # hit and miss).  FIFO: a head the pool can't cover defers
+                # block count minus its radix-matched prefix (aligned down
+                # to a prefill-chunk boundary: byte-identity across hit
+                # and miss); a head the pool can't cover defers
                 C = self._kv.block
-                need = min(self._lmax,
-                           p + r.max_new_tokens + self._headroom())
-                off0, shared = self._kv.match_prefix(tok)
-                if P > C:
-                    off0 = (off0 // P) * P
-                    shared = shared[:off0 // C]
-                budget = -(-need // C) - len(shared)
+                need, off0, budget, shared = self._admission_budget(r)
                 if self._dspec:
                     # the draft chain needs the same block count (its
                     # own namespace), reserved up front so a slot is
@@ -849,7 +1123,7 @@ class ServingEngine:
                     dbudget = -(-need // C) - len(dshared)
                 if not self._kv.can_reserve(budget + dbudget):
                     break
-            self._queue.popleft()
+            self._queue.remove(r)
             slot = free.pop(0)
             self._kv.assign(slot, r)
             self._reset_spec_slot(slot)
@@ -861,6 +1135,14 @@ class ServingEngine:
                 self._need_rows[slot] = need
                 self._n_prompt_tokens += p
                 self._n_reuse_tokens += off0
+            r._adm_ids = tok
+            if r.preempts:
+                # a preemption resume: the adopted chain covers [0, off0),
+                # the suffix is the whole recompute cost
+                self._n_resume_suffix += p - off0
+                self._n_resume_total += p
+                if m is not None:
+                    m.preempt_resume_tokens.inc(p - off0)
             padded = np.zeros((-(-p // P) * P,), np.int32)
             padded[:p] = tok
             if off0 and self._hist is not None:
@@ -956,9 +1238,10 @@ class ServingEngine:
             self._retire(slot, "poisoned")
             return 0
         if self._paged:
-            self._kv.register_prefix(slot, r.prompt_ids)
+            # the admission ids: a resume's chain covers its emitted tokens
+            self._kv.register_prefix(slot, r._adm_ids)
             if self._dspec:
-                self._kv.register_draft_prefix(slot, r.prompt_ids)
+                self._kv.register_draft_prefix(slot, r._adm_ids)
         self._cur[slot] = int(fv[0])
         return self._emit(slot, [int(fv[0])])
 
@@ -968,8 +1251,8 @@ class ServingEngine:
         if not self._pending_firsts:
             return 0
         pend, self._pending_firsts = self._pending_firsts, []
-        vals = _host_fetch(_Fetch([x for _, _, f, o in pend
-                                   for x in (f, o)]))
+        vals = self._fetch("drain", _Fetch([x for _, _, f, o in pend
+                                            for x in (f, o)]))
         emitted = 0
         for n, (slot, r, _, _) in enumerate(pend):
             self._dev_first.pop(slot, None)
@@ -1006,14 +1289,19 @@ class ServingEngine:
                 r.text = self._detok(list(r.output_ids))
             if r.stream_cb is not None:
                 try:
+                    if self._faults is not None:
+                        self._faults.maybe_crash_stream_cb(self._step_idx)
                     r.stream_cb(r, r.output_ids[-took:])
                 except Exception as e:  # a user callback must not kill
-                    if not r._cb_err_logged:  # the scheduler mid-batch
+                    if m is not None:   # the scheduler mid-batch
+                        m.stream_cb_error(type(e).__name__)
+                    if not r._cb_err_logged:
                         r._cb_err_logged = True
                         _LOG.warning(
                             "stream_cb for request %r raised %s: %s — "
-                            "further errors from this request are not "
-                            "logged", r.rid, type(e).__name__, e)
+                            "further errors from this request are "
+                            "counted but not logged", r.rid,
+                            type(e).__name__, e)
         if r.done:
             r.status = "done"
             r.t_done = time.perf_counter()
@@ -1035,6 +1323,11 @@ class ServingEngine:
         if self._m is not None:
             self._m.steps.inc()
         self._step_idx += 1
+        if self._faults is not None:
+            self._faults.maybe_slow_step(self._step_idx)
+        self._expire_deadlines()
+        self._apply_poison()
+        self._maybe_preempt()
         self._admit()
         spent = self._spend_prefill()
         adm_active = spent > 0 or bool(self._pf)
@@ -1083,9 +1376,14 @@ class ServingEngine:
         dev_len = self._kv.device_lengths(active)
         if self._mode == "spec":
             k = self._next_k(live)
-            blk, j, cur2, _, oks = self._call_spec(
-                cur, dev_len, h2d(active, self._device), k)
-            blk, j, cur2, oks = _host_fetch(_Fetch([blk, j, cur2, oks]))
+            dev_active = h2d(active, self._device)
+
+            def go(attempt):
+                self._fault_point("dispatch", attempt)
+                return self._call_spec(cur, dev_len, dev_active, k)
+            blk, j, cur2, _, oks = self._retry(go, "spec dispatch")
+            blk, j, cur2, oks = self._fetch(
+                "drain", _Fetch([blk, j, cur2, oks]))
             rounds = []
             for i in live:
                 if not bool(oks[i]):
@@ -1097,8 +1395,11 @@ class ServingEngine:
                 rounds.append((i, int(j[i])))
             self._spec_drained(rounds, k, adm_active)
             return emitted
-        toks, okd = self._call_decode(cur, dev_len)
-        toks, okd = _host_fetch(_Fetch([toks, okd]))
+        def go(attempt):
+            self._fault_point("dispatch", attempt)
+            return self._call_decode(cur, dev_len)
+        toks, okd = self._retry(go, "decode dispatch")
+        toks, okd = self._fetch("drain", _Fetch([toks, okd]))
         self._observe_interference(adm_active, self._sync)
         for i in live:
             if not bool(okd[i]):
@@ -1155,8 +1456,12 @@ class ServingEngine:
             dev_len = host_len if self._dev_len is None else torch.where(
                 h2d(use_host, self._device), host_len, self._dev_len)
             k = self._next_k(live)
-            blk, j, cur2, new_len, oks = self._call_spec(
-                cur, dev_len, h2d(active, self._device), k)
+            dev_active = h2d(active, self._device)
+
+            def go(attempt):
+                self._fault_point("dispatch", attempt)
+                return self._call_spec(cur, dev_len, dev_active, k)
+            blk, j, cur2, new_len, oks = self._retry(go, "spec dispatch")
             self._dev_cur, self._dev_len = cur2, new_len
             self._inflight = {"fetch": _Fetch([blk, j, oks] + fo), "k": k,
                               "reqs": list(self._kv.reqs), "live": live,
@@ -1164,7 +1469,10 @@ class ServingEngine:
             if self._m is not None:
                 self._m.inflight.set(1)
             return
-        toks, okd = self._call_decode(cur, host_len)
+        def go(attempt):
+            self._fault_point("dispatch", attempt)
+            return self._call_decode(cur, host_len)
+        toks, okd = self._retry(go, "decode dispatch")
         self._dev_cur = toks[:, -1]
         # greedy lengths are host-derivable: every live slot advances
         # exactly sync_every per dispatch
@@ -1185,7 +1493,7 @@ class ServingEngine:
         m = self._m
         still_inflight = 1 if self._inflight is not None else 0
         t0 = time.perf_counter()
-        vals = _host_fetch(rec["fetch"])
+        vals = self._fetch("drain", rec["fetch"])
         spec = "k" in rec
         nout = 3 if spec else 2
         fvals = vals[nout:]
@@ -1235,14 +1543,43 @@ class ServingEngine:
         return self._finished
 
     def drain(self):
-        """Run to quiescence; ``{rid: terminal status}`` over every
-        request the engine finished."""
+        """Run to quiescence (deadlines and faults still apply);
+        ``{rid: terminal status}`` over every request the engine
+        finished."""
         self.run()
         return {r.rid: r.status for r in self._finished}
 
+    def close(self):
+        """Abort outstanding work: drain the inflight pipelined dispatch
+        first (its tokens still emit, so in-flight requests keep their
+        partial output), then retire every queued and resident request
+        as ``"cancelled"``.  Returns ``{rid: terminal status}`` over every
+        request the engine finished; a second call returns the same
+        map."""
+        if self._inflight is not None:
+            prev, self._inflight = self._inflight, None
+            self._drain(prev)
+        while self._queue:
+            self._terminal_queued(self._queue.popleft(), "cancelled")
+        for slot in range(self._B):
+            if self._kv.reqs[slot] is not None:
+                self._retire(slot, "cancelled")
+        if self._m is not None:
+            self._m.queue_depth.set(len(self._queue))
+        return {r.rid: r.status for r in self._finished}
+
+    def tree_branches_taken(self):
+        """Slot-rounds whose top-2 branch was taken so far (0 without a
+        tree); reads one device counter, so call it outside the step
+        loop."""
+        if self._tree_taken is None:
+            return 0
+        return int(_host_fetch(_Fetch([self._tree_taken]))[0][0])
+
     def stats(self):
-        """Scheduling snapshot: backlog, occupancy and the cumulative
-        paged prompt / prefix-reuse token tallies."""
+        """Scheduling snapshot: backlog, occupancy, the cumulative paged
+        prompt / prefix-reuse token tallies and the preemption
+        tallies."""
         return {
             "queue_depth": len(self._queue),
             "slots_occupied": self._kv.occupied(),
@@ -1252,4 +1589,7 @@ class ServingEngine:
             "live_tokens": int(self._kv.live_tokens()),
             "prompt_tokens": self._n_prompt_tokens,
             "prefix_reuse_tokens": self._n_reuse_tokens,
+            "preempted": self._n_preempted,
+            "preempt_resume_suffix_tokens": self._n_resume_suffix,
+            "preempt_resume_total_tokens": self._n_resume_total,
         }

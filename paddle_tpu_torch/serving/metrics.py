@@ -8,9 +8,13 @@ progress, the pipelined-dispatch stall, paged-pool occupancy by tenant
 (drafted / accepted counters, the accept rate and draft-source info
 gauge by source, the depth in effect; ``paddle_tpu/serving/
 metrics.py:135-167``), the decode / prefill implementation info
-gauges, and the int8 KV / weight quantization info gauges with their
+gauges, the int8 KV / weight quantization info gauges with their
 analytic bytes per token (``paddle_tpu/serving/metrics.py:279-290,
-323-335``).  The series
+323-335``), and the reliability series — requests retired by reason
+(shed / timed out / cancelled / poisoned), dispatch retries, priority
+preemptions and their resume cost, and ``stream_cb`` errors by
+exception type (``paddle_tpu/serving/metrics.py:93-135, 220-232,
+386-390``), every one registered at zero at construction.  The series
 live in ``registry`` (default: the process-wide one) under a ``policy``
 label; every touch is host-side bookkeeping.
 """
@@ -49,10 +53,43 @@ class EngineMetrics:
         self.retired = reg.counter(
             "serving_requests_retired_total",
             "requests completed (EOS or max_new_tokens)", L).labels(**lbl)
+        # the reliability series, pre-bound so a scrape sees them at 0
+        # before the first shed / timeout / cancel / poison / retry
+        self.shed = reg.counter(
+            "serving_requests_shed_total",
+            "requests rejected at submit() by the bounded admission "
+            "queue (load shedding)", L).labels(**lbl)
+        self.timed_out = reg.counter(
+            "serving_requests_timed_out_total",
+            "requests retired by deadline_ms expiry", L).labels(**lbl)
+        self.cancelled = reg.counter(
+            "serving_requests_cancelled_total",
+            "requests retired by host-side cancel()/close()",
+            L).labels(**lbl)
         self.poisoned = reg.counter(
             "serving_requests_poisoned_total",
             "requests quarantined after non-finite logits",
             L).labels(**lbl)
+        self.dispatch_retries = reg.counter(
+            "serving_dispatch_retries_total",
+            "transient dispatch/drain failures retried with backoff",
+            L).labels(**lbl)
+        self.preempted = reg.counter(
+            "serving_preempted_total",
+            "resident requests parked by priority preemption (blocks "
+            "released evictable, the radix chain kept for the resume)",
+            L).labels(**lbl)
+        self.preempt_resume_tokens = reg.counter(
+            "serving_preempt_resume_tokens_total",
+            "suffix tokens prefilled when preempted requests resumed "
+            "(the preemption recompute cost)", L).labels(**lbl)
+        # by exception type; the error="Exception" child is registered so
+        # the family exports before the first crash
+        self._stream_cb_errors = reg.counter(
+            "serving_stream_cb_errors_total",
+            "stream_cb exceptions swallowed by the scheduler, by "
+            "exception type", ("policy", "error"))
+        self._stream_cb_errors.labels(policy=policy, error="Exception")
         self.emitted = reg.counter(
             "serving_tokens_emitted_total",
             "tokens delivered to requests", L).labels(**lbl)
@@ -193,6 +230,19 @@ class EngineMetrics:
 
     def prefill(self, bucket):
         self._prefills.labels(policy=self._policy, bucket=bucket).inc()
+
+    def terminal(self, status):
+        """Count a non-``done`` terminal status (``done`` keeps its own
+        ``retired`` counter)."""
+        c = {"shed": self.shed, "timed_out": self.timed_out,
+             "cancelled": self.cancelled,
+             "poisoned": self.poisoned}.get(status)
+        if c is not None:
+            c.inc()
+
+    def stream_cb_error(self, etype):
+        self._stream_cb_errors.labels(policy=self._policy,
+                                      error=etype).inc()
 
     def set_kernels(self, decode_impl, prefill_impl):
         """Point the two info gauges at the active implementations."""

@@ -39,7 +39,11 @@ with q_offset > 0, segments with a dead row, rope), through their
 instances bitwise equal to the plain version in every dtype.  The
 speculative serving engine (prompt lookup and a draft model, dense and
 paged) on the card: K8 at the verify width, streams equal to greedy and
-pipeline on == off.
+pipeline on == off.  K8 with hidden key ranges (the top-2 tree verify's
+branch row, and ranges over whole 64-key spans) in every cache dtype and
+int8, dense and paged, against its plain version and bitwise run to
+run; the tree engine on the card (K8's range launches counted, streams
+equal to greedy) and the reliability layer's retries and poison there.
 """
 import pytest
 import torch
@@ -998,7 +1002,10 @@ from paddle_tpu_torch.models.llama import (  # noqa: E402
     LlamaConfig, LlamaForCausalLM,
 )
 from paddle_tpu_torch.serving import (  # noqa: E402
-    Request, ServingEngine, SpecConfig,
+    FaultPlan, Request, ServingEngine, SpecConfig,
+)
+from paddle_tpu_torch.ops.decode_attention import (  # noqa: E402
+    _q8_quantize,
 )
 
 
@@ -1043,3 +1050,123 @@ def test_spec_serving_on_the_card_equals_greedy(source, paged):
     assert (k8.plain_runs, k9.plain_runs) == before[1:]
     assert out == greedy
     assert serve(mode="spec", spec=spec, pipeline=False) == out
+
+
+def _ranges(lengths, t, kind):
+    """``tree``: the last of ``t`` rows hides keys [L+1, L+t-1); ``spans``:
+    every row hides [64, 192) — two whole 64-key spans of the split."""
+    h = torch.zeros((lengths.shape[0], t, 2), dtype=torch.int32,
+                    device=lengths.device)
+    if kind == "tree":
+        h[:, t - 1, 0] = lengths + 1
+        h[:, t - 1, 1] = lengths + (t - 1)
+    else:
+        h[..., 0], h[..., 1] = 64, 192
+    return h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES + ["int8"], ids=str)
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("t,kind", [(3, "tree"), (10, "tree"),
+                                    (4, "spans")])
+def test_decode_kernel_hidden_range_matches_plain(dtype, paged, t, kind):
+    dev = _card()
+    gen = torch.Generator().manual_seed(11)
+    Dh, Ch, W = 128, 256, 4                   # the split's 64-key spans
+    lmax = Ch * W
+    n = 12
+    shape = (n, Ch, HKV, Dh) if paged else (B, lmax, HKV, Dh)
+
+    def leaf():
+        x = torch.randn(shape, generator=gen).to(dev)
+        return _q8_quantize(x) if dtype == "int8" else x.to(dtype)
+    kc, vc = leaf(), leaf()
+    table = None
+    if paged:
+        table = torch.full((B, W), n, dtype=torch.int32)
+        table[:B - 1, :3] = torch.randperm(n, generator=gen)[:9].view(3, 3) \
+            .to(torch.int32)
+        table = table.to(dev)
+    lengths = torch.tensor([5, 200, 700, lmax], dtype=torch.int32,
+                           device=dev)             # the last row parked
+    hid = _ranges(lengths, t, kind)
+    qg = torch.randn(B, HKV, G, t, Dh, generator=gen).to(dev)
+    before = (k8.launches, k8.launches_hidden, k8.launches_t.get(t, 0))
+    out = k8.paged_decode_attention(qg, kc, vc, lengths, Dh ** -0.5, Ch,
+                                    table, impl="cuda", hidden=hid)
+    again = k8.paged_decode_attention(qg, kc, vc, lengths, Dh ** -0.5, Ch,
+                                      table, impl="cuda", hidden=hid)
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                              Dh ** -0.5, Ch, table,
+                                              hidden=hid)
+    plain = k8.paged_decode_attention(qg, kc, vc, lengths, Dh ** -0.5, Ch,
+                                      table, impl="cuda")
+    torch.cuda.synchronize()
+    assert (k8.launches, k8.launches_hidden, k8.launches_t[t]) == (
+        before[0] + 3, before[1] + 2, before[2] + 3)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out[:B - 1], ref[:B - 1], atol=1e-4,
+                               rtol=1e-4)
+    assert not torch.equal(out[1:B - 1], plain[1:B - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_tree_serving_on_the_card_equals_greedy(pipeline):
+    """Top-2 tree verification on the card (the tiny f32 Llama, 32-key
+    chunks, spec_k 4): every verify launches K8 at T = 6 with the branch
+    row's range, no plain version runs, and the streams equal the greedy
+    engine's."""
+    dev = _card()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device=dev,
+                             seed=0)
+    draft = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32",
+                                              num_hidden_layers=1),
+                             device=dev, seed=1)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 200, (n,), generator=gen) for n in (7, 19, 40)]
+    geom = dict(batch_size=2, max_len=128, decode_chunk=32,
+                prefill_chunk=32, instrument=False, pipeline=pipeline)
+
+    def serve(**kw):
+        eng = ServingEngine(model, **geom, **kw)
+        reqs = [eng.submit(Request(p.numpy(), 16)) for p in prompts]
+        eng.run()
+        return [r.output_ids for r in reqs]
+    greedy = serve()
+    before = (k8.launches_t.get(6, 0), k8.launches_hidden, k8.plain_runs)
+    out = serve(mode="spec", spec=SpecConfig(
+        source="draft_model", draft_model=draft, spec_k=4, tree="top2"))
+    torch.cuda.synchronize()
+    grew = (k8.launches_t.get(6, 0) - before[0],
+            k8.launches_hidden - before[1])
+    assert grew[0] > 0 and grew[0] == grew[1]
+    assert k8.plain_runs == before[2]
+    assert out == greedy
+
+
+@pytest.mark.cuda
+def test_reliability_on_the_card():
+    """Injected dispatch errors are retried with the kernels (the streams
+    equal a clean run bit for bit) and a poisoned request retires alone."""
+    dev = _card()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device=dev,
+                             seed=0)
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, 200, (n,), generator=gen) for n in (7, 19, 40)]
+    geom = dict(batch_size=2, max_len=128, decode_chunk=32,
+                prefill_chunk=32, instrument=False, retry_backoff=1e-4)
+
+    def serve(plan=None):
+        eng = ServingEngine(model, **geom, faults=plan)
+        reqs = [eng.submit(Request(p.numpy(), 16)) for p in prompts]
+        st = eng.drain()
+        return st, [r.output_ids for r in reqs]
+    _, clean = serve()
+    plan = FaultPlan(dispatch_error_steps={1, 3, 6})
+    st, out = serve(plan)
+    assert out == clean and plan.stats["dispatch_errors"] == 3
+    st, out = serve(FaultPlan(poison={1: 3}))
+    assert st == {0: "done", 1: "poisoned", 2: "done"}
+    assert out[0] == clean[0] and out[2] == clean[2]

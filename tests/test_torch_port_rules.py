@@ -144,19 +144,42 @@ def tiny():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec={"source": "draft_model", "tree": "top2"}),
-    dict(mesh=object()), dict(tp_overlap=2), dict(faults=object()),
-    dict(max_pending=4), dict(retry_attempts=3), dict(recorder=True),
+    dict(mesh=object()), dict(tp_overlap=2), dict(recorder=True),
     dict(slo=()), dict(watchdog=5.0), dict(host_tier_bytes=1 << 20),
     dict(prefill_only=True), dict(prefill_chunk=None),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_knobs_raise(tiny, knob):
-    if "spec" in knob:
-        # top-2 tree verification (a draft model is needed for it to
-        # reach the engine: without one the config falls back)
-        knob = dict(mode="spec", spec=dict(knob["spec"], draft_model=tiny))
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(spec={"source": "draft_model", "tree": "top2"}),
+    dict(faults="plan"), dict(max_pending=4), dict(retry_attempts=5),
+    dict(retry_backoff=0.5)], ids=lambda kw: next(iter(kw)))
+def test_tree_and_reliability_knobs_are_accepted(tiny, knob):
+    """Top-2 tree verification and the reliability knobs are ported: each
+    builds an engine that carries it and serves a request."""
+    from paddle_tpu_torch.serving import FaultPlan
+
+    if "spec" in knob:
+        # a draft model is needed for the tree to reach the engine:
+        # without one the config falls back to prompt lookup
+        knob = dict(mode="spec", spec=dict(knob["spec"], draft_model=tiny))
+    if knob.get("faults") == "plan":
+        knob = dict(faults=FaultPlan(dispatch_error_steps={1}))
+    eng = ServingEngine(tiny, batch_size=2, max_len=64,
+                        **{"retry_backoff": 1e-4, **knob})
+    if "spec" in knob:
+        assert eng._pk.spec_tree == "top2"
+    if "faults" in knob:
+        assert eng._faults is knob["faults"]
+    assert eng._max_pending == knob.get("max_pending")
+    assert eng._retry_attempts == knob.get("retry_attempts", 3)
+    r = eng.submit(Request(np.arange(1, 6), 4))
+    assert eng.drain() == {r.rid: "done"} and len(r.output_ids) == 4
+    if "faults" in knob:
+        assert knob["faults"].stats["dispatch_errors"] == 1
 
 
 @pytest.mark.parametrize("knob", [
@@ -174,11 +197,18 @@ def test_spec_knobs_are_accepted(tiny, knob):
     assert eng._pk.spec_depth == (8 if spec else None)
 
 
-@pytest.mark.parametrize("kw", [dict(deadline_ms=10), dict(slo_class="x"),
-                                dict(priority=1)], ids=str)
+@pytest.mark.parametrize("kw", [dict(slo_class="x")], ids=str)
 def test_unported_request_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         Request(np.arange(4), 2, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(deadline_ms=10), dict(priority=1)],
+                         ids=str)
+def test_reliability_request_knobs_are_accepted(kw):
+    r = Request(np.arange(4), 2, **kw)
+    assert r.deadline_ms == kw.get("deadline_ms")
+    assert r.priority == kw.get("priority", 0) and r.preempts == 0
 
 
 def test_reference_on_card_and_uncovered_geometry_raise(tiny):

@@ -229,10 +229,17 @@ class TestSpecConfig:
                 source="draft_model", draft_model=td, tree="top2"))
 
     def test_tree_is_not_ported(self, models):
+        """Top-2 tree verification is ported (the name is older than the
+        port of the tree): the engine accepts ``tree="top2"`` on dense
+        caches, keys its programs on it and serves the greedy stream."""
         tm, td = models["port"]
-        with pytest.raises(NotImplementedError, match="top-2 tree"):
-            ServingEngine(tm, mode="spec", **GEOM, spec=SpecConfig(
-                source="draft_model", draft_model=td, tree="top2"))
+        eng = ServingEngine(tm, mode="spec", **GEOM, spec=SpecConfig(
+            source="draft_model", draft_model=td, tree="top2"))
+        assert eng._pk.spec_tree == "top2"
+        assert all(pk.spec_tree == "top2" for pk in eng._spec_pks.values())
+        r = eng.submit(Request(PROMPTS[0], NEW[0]))
+        eng.run()
+        assert list(r.output_ids) == _greedy(models)[0][0]
 
     def test_paged_geometry_mismatch_is_loud(self, models):
         tm = models["port"][0]

@@ -254,11 +254,14 @@ def test_serving_spec_draft_step_matches_jax(models, paged):
 
 
 def test_serving_spec_draft_step_refuses_the_tree(models):
+    """The top-2 tree runs on dense caches only (its branch-row repair
+    copies dense rows): a paged draft layout is refused, as in the
+    reference."""
     jp, tp, cfg, jdp, tdp, dcfg = _params(models)
-    with pytest.raises(NotImplementedError, match="top-2"):
+    with pytest.raises(ValueError, match="dense caches"):
         tld.serving_spec_draft_step(
             tp, tdp, cfg, dcfg, torch.zeros(2, dtype=torch.int32), [],
-            [], torch.zeros(2, dtype=torch.int32),
+            None, torch.zeros(2, dtype=torch.int32),
             torch.ones(2, dtype=torch.bool), spec_k=2,
             program_key=ProgramKey(draft_source="draft_model",
                                    spec_depth=2, spec_tree="top2"))
