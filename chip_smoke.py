@@ -68,6 +68,25 @@ Phases (any failure exits non-zero before the result line):
    flight, a queued deadline forced by a slow step with ``max_pending``
    shedding, and a priority preemption on a small paged pool (the
    resumed stream's drift against its unpreempted run printed).
+3d. Tensor-parallel serving (``ServingEngine(mesh=DeviceMesh)``): K8 and
+   K9 at a TP-2 rank's heads (the serving model split two ways: Hkv 2,
+   G 4, D 128), bf16 and int8, dense and paged, against their plain
+   versions with phase 2's tolerances, and their times there; then the
+   first 8 requests of phase 3's mix (outputs capped at 64 tokens) at
+   full width: (a) TP 1 over NCCL (``init_device_mesh("cuda", (1,))``),
+   whose streams must be bitwise those of ``mesh=None``, and once with
+   ``tp_overlap=2`` (bitwise or not printed); (b) TP 2 as two processes
+   of this script on the one card over an explicit gloo group (NCCL
+   refuses two ranks on one device; gloo stages the all-reduces through
+   the host): bf16 greedy and prompt lookup on the paged pool with int8
+   KV, and an f32 greedy arm (phase 4's 2-layer model, 4 requests of 24
+   tokens).  Counters set to 0 just before each arm and read just after:
+   every K8/K9 launch on the kernels, none on a plain version; the two
+   ranks' streams bitwise equal; the f32 streams equal to the
+   single-device f32 run.  Printed: the bf16 arms' drift against the
+   single-device streams, and tok/s as a record only (the two ranks
+   time-share the card).  Both ranks are joined with a timeout and
+   stopped; a rank's failure fails the run.
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions), with float KV,
    int8 KV, int8 weights, and both: the streams match token for token
@@ -576,14 +595,15 @@ def phase_kernels(torch, dev):
     return res
 
 
-def k8_bound(lens, tbl, t, row_bytes, hidden_keys=0):
-    """K8's least time at the serving shape (B 8, Hkv 4, G 4, D 128) for
-    ``t`` query rows a slot: each live row reads its (length + t) keys of
-    K and V once (``row_bytes`` a token: Hkv·D·2 in bf16, Hkv·(D + 2) in
-    int8), q and out once in f32, the table and lengths; query row i
-    sees length + i + 1 keys, 4·D operations each per query head, less
-    ``hidden_keys`` (query, key) pairs that hidden ranges skip."""
-    HKV, G, D = 4, 4, 128
+def k8_bound(lens, tbl, t, row_bytes, hidden_keys=0, HKV=4):
+    """K8's least time at the serving shape (B 8, Hkv 4 — ``HKV`` 2 at a
+    TP-2 rank —, G 4, D 128) for ``t`` query rows a slot: each live row
+    reads its (length + t) keys of K and V once (``row_bytes`` a token:
+    Hkv·D·2 in bf16, Hkv·(D + 2) in int8), q and out once in f32, the
+    table and lengths; query row i sees length + i + 1 keys, 4·D
+    operations each per query head, less ``hidden_keys`` (query, key)
+    pairs that hidden ranges skip."""
+    G, D = 4, 128
     live = [int(x) for x in lens[:-1]]               # the last row parked
     kv_bytes = sum(n + t for n in live) * row_bytes * 2
     io_bytes = 2 * len(lens) * HKV * G * t * D * 4 + tbl.numel() * 4 \
@@ -1488,6 +1508,418 @@ def phase_reliability(torch, dev):
     del model, clean_eng, peng, eng
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------- phase 3d
+#: phase 3d's requests: the first 8 of phase 3's mix, outputs capped at 64
+#: tokens (two processes time-share the one card, their all-reduces go
+#: through the host)
+TP_REQUESTS, TP_NEW = 8, 64
+#: the TP-2 arms' knobs over ``ENGINE``: bf16 greedy, and prompt lookup
+#: on the paged pool with int8 KV
+TP_ARMS = (("greedy", {}),
+           ("lookup-kv8", dict(mode="spec", spec_k=8, kv_dtype="int8")))
+#: the f32 arm: phase 4's 2-layer full-width f32 model (seed 1), four
+#: requests of 24 tokens
+TP_F32_PROMPTS, TP_F32_NEW = (300, 520, 260, 130), 24
+#: the parent's wait for both TP-2 ranks
+TP_RANK_TIMEOUT_S = 480
+
+
+def tp_workload():
+    prompts, olens = serving_workload()
+    return (prompts[:TP_REQUESTS],
+            [min(o, TP_NEW) for o in olens[:TP_REQUESTS]])
+
+
+def tp_f32_model(torch, dev):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**{**SERVE_CFG, "num_hidden_layers": 2,
+                         "dtype": "float32"})
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in TP_F32_PROMPTS]
+    return (LlamaForCausalLM(cfg, device=dev, seed=1), prompts,
+            [TP_F32_NEW] * len(prompts))
+
+
+def tp_serve(torch, model, prompts, olens, tag, **knobs):
+    """One run of ``ServingEngine(model, **ENGINE, **knobs)`` with the
+    kernels' counters set to 0 just before and read just after: every
+    request must finish with its token count, K8 and K9 must launch and no
+    plain version may run.  Returns ``(streams, launches, wall seconds)``."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+    from paddle_tpu_torch.ops import prefill_attention_cuda as k9
+    from paddle_tpu_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(model, **ENGINE, **knobs, instrument=False)
+    torch.cuda.synchronize()
+    k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
+    k9.launches_mma = 0
+    k8.launches_t.clear()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts, olens)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(k8=k8.launches, k9=k9.launches, k9_mma=k9.launches_mma,
+                  k8_plain=k8.plain_runs, k9_plain=k9.plain_runs,
+                  k8_by_t={str(t): n for t, n in k8.launches_t.items()})
+    for r, o in zip(reqs, olens):
+        check(r.status == "done" and len(r.output_ids) == o,
+              f"{tag}: request {r.rid} finished {r.status} with "
+              f"{len(r.output_ids)}/{o} tokens")
+    check(counts["k8"] > 0 and counts["k9"] > 0
+          and counts["k8_plain"] == 0 and counts["k9_plain"] == 0,
+          f"{tag}: a kernel did not run, or a plain version did: {counts}")
+    return [list(map(int, r.output_ids)) for r in reqs], counts, wall
+
+
+def tp2_kernels(torch, dev):
+    """K8 and K9 at a TP-2 rank's heads — the serving model's 16/4 split
+    two ways: Hkv 2, G 4, D 128 — against their plain versions with
+    phase 2's tolerances, bf16 and int8 caches, dense and paged: K8 at T 1
+    and 9 (the spec_k 8 verify) within atol=rtol=1e-4 on the live rows,
+    bitwise run to run; K9 at offsets 0/256/768/1792, the caches bitwise
+    the plain append's, the bf16 output within 2 bf16 ulps or 1e-6.  Then
+    each one's time by events and by the profiler at the serving lengths
+    (bf16, paged), its plain version's, its bound and SDPA's over the
+    same heads."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+    from paddle_tpu_torch.ops import prefill_attention_cuda as k9
+    from paddle_tpu_torch.ops.decode_attention import _q8_quantize
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    B, HKV, G, D, C, W = 8, 2, 4, 128, 256, 8
+    LMAX, N, ROT = C * W, 64, 4
+    scale = D ** -0.5
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def cache(kv, *shape):
+        x = rnd(*shape, dtype=torch.bfloat16)
+        return _q8_quantize(x) if kv == "int8" else x
+
+    def clone(x):
+        return tuple(y.clone() for y in x) if isinstance(x, tuple) \
+            else x.clone()
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    lens = np.array([0, 255, 256, 700, 1023, 1500, 2040, LMAX], np.int32)
+    perm = torch.randperm(N, generator=gen, device=dev).cpu().numpy()
+    table = np.full((B, W), N, np.int32)
+    nxt = 0
+    for b in range(B - 1):                   # the last row is parked
+        for w in range(min(W, -(-(int(lens[b]) + 9) // C))):
+            table[b, w] = perm[nxt]
+            nxt += 1
+    tbl = torch.from_numpy(table).to(dev)
+    lengths = torch.from_numpy(lens).to(dev)
+    live = slice(0, B - 1)
+    trow = torch.from_numpy(perm[:W].astype(np.int32).reshape(1, W)).to(dev)
+    err8 = err9 = 0.0
+    pools = {}
+    for kv in ("bf16", "int8"):
+        pools[kv] = [(cache(kv, N, C, HKV, D), cache(kv, N, C, HKV, D))
+                     for _ in range(ROT if kv == "bf16" else 1)]
+        dense = (cache(kv, B, LMAX, HKV, D), cache(kv, B, LMAX, HKV, D))
+        for paged in (False, True):
+            kc, vc = pools[kv][0] if paged else dense
+            tb = tbl if paged else None
+            for t in (1, 9):
+                qg = rnd(B, HKV, G, t, D)
+                n0 = k8.launches
+                out = k8.paged_decode_attention(qg, kc, vc, lengths, scale,
+                                                C, tb, impl="cuda")
+                out2 = k8.paged_decode_attention(qg, kc, vc, lengths, scale,
+                                                 C, tb, impl="cuda")
+                ref = k8.paged_decode_attention_reference(
+                    qg, kc, vc, lengths, scale, C, tb)
+                torch.cuda.synchronize()
+                d = (out[live] - ref[live]).abs()
+                ok = bool((d <= 1e-4 + 1e-4 * ref[live].abs()).all()) \
+                    and k8.launches == n0 + 2 and torch.equal(out, out2) \
+                    and bool(torch.isfinite(out).all())
+                err8 = max(err8, float(d.max()))
+                print(f"K8 at Hkv 2 {kv} {'paged' if paged else 'dense'} "
+                      f"T={t}: max_abs_err {float(d.max()):.3e}, bitwise "
+                      f"run to run {'ok' if ok else 'MISMATCH'}", flush=True)
+                check(ok, f"K8 at Hkv 2 disagrees with its plain version "
+                          f"({kv}, paged={paged}, T={t})")
+            kc, vc = (clone(c) for c in (pools[kv][0] if paged else dense))
+            for off in (0, 256, 768, 1792):
+                q = rnd(1, 256, HKV * G, D, dtype=torch.bfloat16)
+                kn = rnd(1, 256, HKV, D, dtype=torch.bfloat16)
+                vn = rnd(1, 256, HKV, D, dtype=torch.bfloat16)
+                k2, v2 = clone(kc), clone(vc)
+                n_mma = k9.launches_mma
+                o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, 3, off,
+                                                scale, C,
+                                                trow if paged else None,
+                                                impl="cuda")
+                o2, _, _ = k9.prefill_attention_reference(
+                    q, kn, vn, k2, v2, 3, off, scale, C,
+                    trow if paged else None)
+                torch.cuda.synchronize()
+                dd = (o1.float() - o2.float()).abs()
+                ok = (k9.launches_mma == n_mma + 1 and equal(kc, k2)
+                      and equal(vc, v2)
+                      and bool(((bf16_ulps(o1, o2) <= 2)
+                                | (dd <= 1e-6)).all()))
+                err9 = max(err9, float(dd.max()))
+                print(f"K9 at Hkv 2 {kv} {'paged' if paged else 'dense'} "
+                      f"offset={off}: max_abs_err {float(dd.max()):.3e}, "
+                      f"cache bitwise {'ok' if ok else 'MISMATCH'}",
+                      flush=True)
+                check(ok, f"K9 at Hkv 2 disagrees with its plain version "
+                          f"({kv}, paged={paged}, offset={off})")
+    res = {}
+    bf = pools["bf16"]
+    kd = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+          for k, v in ((rnd(B, LMAX, HKV, D, dtype=torch.bfloat16),
+                        rnd(B, LMAX, HKV, D, dtype=torch.bfloat16))
+                       for _ in range(ROT))]
+    for t in (1, 9):
+        qg = rnd(B, HKV, G, t, D)
+
+        def run(i, qg=qg):
+            return k8.paged_decode_attention(qg, *bf[i % ROT], lengths,
+                                             scale, C, tbl, impl="cuda")
+        q_sd = rnd(B, HKV * G, t, D, dtype=torch.bfloat16)
+        pos = (lengths[:, None] + torch.arange(t, device=dev)[None, :]) \
+            .clamp(max=LMAX - 1)
+        mask = (torch.arange(LMAX, device=dev)[None, None, :]
+                <= pos[:, :, None])[:, None]
+        b_ms, b_by = k8_bound(lens, tbl, t, HKV * D * 2, HKV=HKV)
+        res[f"k8_t{t}"] = dict(
+            ms=time_ms(torch, run, 200),
+            device_ms=device_ms(torch, run, "paged_decode_kernel"),
+            plain_ms=time_ms(torch, lambda i, qg=qg:
+                             k8.paged_decode_attention_reference(
+                                 qg, *bf[i % ROT], lengths, scale, C, tbl),
+                             10, warm=1),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda i: sdpa(
+                torch, q_sd, kd[i % ROT][0], kd[i % ROT][1], mask), 200))
+    off, T = 768, 256
+    q = rnd(1, T, HKV * G, D, dtype=torch.bfloat16)
+    kn = rnd(1, T, HKV, D, dtype=torch.bfloat16)
+    vn = rnd(1, T, HKV, D, dtype=torch.bfloat16)
+
+    def run9(i):
+        return k9.prefill_attention(q, kn, vn, *bf[i % ROT], 3, off, scale,
+                                    C, trow, impl="cuda")
+    qs = q.transpose(1, 2)
+    ks = [(k[3, :off + T].transpose(0, 1)[None].contiguous(),
+           v[3, :off + T].transpose(0, 1)[None].contiguous())
+          for k, v in ((rnd(B, LMAX, HKV, D, dtype=torch.bfloat16),
+                        rnd(B, LMAX, HKV, D, dtype=torch.bfloat16))
+                       for _ in range(ROT))]
+    m9 = (torch.arange(off + T, device=dev)[None, :]
+          <= off + torch.arange(T, device=dev)[:, None])
+    io9 = (T * HKV * G * D * 2 * 2 + 2 * T * HKV * D * 2 * 2
+           + off * HKV * D * 2 * 2 + W * 4)
+    fl9 = 4 * HKV * G * D * (T * off + T * (T + 1) // 2)
+    b_ms, b_by = bound(io9, fl9)
+    res["k9"] = dict(
+        ms=time_ms(torch, run9, 200),
+        device_ms=device_ms(torch, run9, "prefill_mma_kernel"),
+        plain_ms=time_ms(torch, lambda i: k9.prefill_attention_reference(
+            q, kn, vn, *bf[i % ROT], 3, off, scale, C, trow), 10, warm=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda i: sdpa(
+            torch, qs, ks[i % ROT][0], ks[i % ROT][1], m9), 200))
+    for name, x in res.items():
+        dms = ("not measured" if x["device_ms"] is None
+               else f"{x['device_ms'] * 1e3:.1f} us")
+        print(f"{name} at Hkv 2: {x['ms'] * 1e3:.1f} us/launch (device "
+              f"{dms}), plain {x['plain_ms'] * 1e3:.1f} us, library "
+              f"{x['library_ms'] * 1e3:.1f} us, bound "
+              f"{x['bound_ms'] * 1e3:.2f} us ({x['bound_by']})", flush=True)
+    return dict(k8=dict(max_abs_err=err8, **{
+                    f"t{t}": res[f"k8_t{t}"] for t in (1, 9)}),
+                k9=dict(max_abs_err=err9, **res["k9"]))
+
+
+def phase_tp(torch, dev, card):
+    """Phase 3d, tensor-parallel serving (module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    res = dict(kernels=tp2_kernels(torch, dev))
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CFG), device=dev, seed=0)
+    prompts, olens = tp_workload()
+    single, single_tps = {}, {}
+    for tag, knobs in TP_ARMS:
+        single[tag], _, wall = tp_serve(torch, model, prompts, olens,
+                                        f"tp single {tag}", **knobs)
+        single_tps[tag] = sum(olens) / wall
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    # (a) TP 1 over NCCL: the all-reduce is the identity
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("mp",))
+        tp1, c1, w1 = tp_serve(torch, model, prompts, olens, "tp1 nccl",
+                               mesh=mesh)
+        check(tp1 == single["greedy"],
+              "TP 1 over NCCL differs from the single-device engine")
+        ov, _, w_ov = tp_serve(torch, model, prompts, olens,
+                               "tp1 nccl tp_overlap=2", mesh=mesh,
+                               tp_overlap=2)
+    finally:
+        dist.destroy_process_group()
+    res["tp1"] = dict(bitwise=True, launches=c1, tok_per_s=sum(olens) / w1,
+                      single_tok_per_s=single_tps["greedy"],
+                      overlap_bitwise=ov == single["greedy"],
+                      overlap_drift=drift(single["greedy"], ov)[0],
+                      overlap_tok_per_s=sum(olens) / w_ov)
+    print(f"tp 1 over NCCL: streams bitwise equal to mesh=None, ok; "
+          f"tp_overlap=2 {'bitwise equal' if ov == single['greedy'] else 'NOT bitwise equal'}"
+          f" (drift {res['tp1']['overlap_drift']:.4f}); tok/s "
+          f"{res['tp1']['tok_per_s']:.1f} / "
+          f"{res['tp1']['overlap_tok_per_s']:.1f}, one device "
+          f"{single_tps['greedy']:.1f} (record only)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    f32, fprompts, folens = tp_f32_model(torch, dev)
+    single["f32"], _, _ = tp_serve(torch, f32, fprompts, folens,
+                                   "tp single f32")
+    del f32
+    torch.cuda.empty_cache()
+    # (b) TP 2: two processes on the one card, an explicit gloo group
+    ranks = tp2_spawn(work)
+    for tag in [t for t, _ in TP_ARMS] + ["f32"]:
+        a, b = (r[tag] for r in ranks)
+        check(a["streams"] == b["streams"],
+              f"tp2 {tag}: the two ranks' streams differ")
+        for r in ranks:
+            c = r[tag]["launches"]
+            check(c["k8"] > 0 and c["k9"] > 0 and c["k8_plain"] == 0
+                  and c["k9_plain"] == 0,
+                  f"tp2 {tag}: a kernel did not run, or a plain version "
+                  f"did: {c}")
+        if tag == "f32":
+            check(a["streams"] == single["f32"],
+                  "tp2 f32: streams differ from the single-device f32 run")
+        dr, flip = drift(single[tag], a["streams"])
+        res[f"tp2_{tag}"] = dict(
+            launches=[r[tag]["launches"] for r in ranks], drift=dr,
+            flip_per_tok=flip, tok_per_s=[r[tag]["tok_per_s"]
+                                          for r in ranks],
+            single_tok_per_s=single_tps.get(tag))
+        print(f"tp 2 over gloo {tag}: ranks bitwise equal, ok; drift vs "
+              f"single device {dr:.4f} of positions (first-divergence "
+              f"{flip:.4f} per token); K8 {a['launches']['k8']} / K9 "
+              f"{a['launches']['k9']} launches a rank "
+              f"{json.dumps(a['launches']['k8_by_t'])}; tok/s "
+              + " / ".join(f"{r[tag]['tok_per_s']:.1f}" for r in ranks)
+              + (f", one device {single_tps[tag]:.1f}" if tag in single_tps
+                 else "")
+              + f" (record only: two processes share the card, the "
+              f"all-reduce goes through the host; {card})", flush=True)
+    print("tp " + json.dumps(res), flush=True)
+    return res
+
+
+def tp2_entry(tp, key):
+    """A kernel's TP-2 record for the ``kernels`` line: its check and
+    times at Hkv 2 (phase 3d) and each TP path's launches on rank 0."""
+    out = dict(tp["kernels"][key])
+    out["launches"] = {tag: tp[tag]["launches"][0][key] for tag in tp
+                       if tag.startswith("tp2_")}
+    out["launches"]["tp1"] = tp["tp1"]["launches"][key]
+    return out
+
+
+def tp2_spawn(work):
+    """Start the two TP-2 ranks (this script with ``--tp2-rank``), join
+    them with a timeout and return their results; a rank that fails or
+    hangs fails the phase, and every rank is stopped."""
+    procs = []
+    for r in range(2):
+        log = open(f"{work}/rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, "--tp2-rank", str(r), work],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    t0 = time.perf_counter()
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, TP_RANK_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    print(f"tp 2: ranks joined in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{work}/rank{r}.log") as f:
+                print(f"tp2 rank {r} log tail:\n{f.read()[-4000:]}",
+                      flush=True)
+        check(p.returncode == 0, f"tp2 rank {r} exited {p.returncode}")
+    out = []
+    for r in range(2):
+        with open(f"{work}/result_r{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def tp2_rank(torch, rank, work):
+    """One TP-2 rank: join the gloo group (a file store in ``work``), mesh
+    the card's two ranks, serve ``TP_ARMS`` and the f32 arm through
+    ``ServingEngine(mesh=)``, and write the streams, launches and tok/s to
+    ``work/result_r{rank}.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("mp",))
+    out = {}
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CFG), device=dev, seed=0)
+    prompts, olens = tp_workload()
+    for tag, knobs in TP_ARMS:
+        streams, counts, wall = tp_serve(torch, model, prompts, olens,
+                                         f"tp2 rank {rank} {tag}",
+                                         mesh=mesh, **knobs)
+        out[tag] = dict(streams=streams, launches=counts, wall_s=wall,
+                        tok_per_s=sum(olens) / wall)
+    del model
+    torch.cuda.empty_cache()
+    f32, fprompts, folens = tp_f32_model(torch, dev)
+    streams, counts, wall = tp_serve(torch, f32, fprompts, folens,
+                                     f"tp2 rank {rank} f32", mesh=mesh)
+    out["f32"] = dict(streams=streams, launches=counts, wall_s=wall,
+                      tok_per_s=sum(folens) / wall)
+    with open(f"{work}/result_r{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
 
 
 # ----------------------------------------------------------------- phase 4
@@ -3034,6 +3466,9 @@ def main():
         print("chip_smoke: no CUDA device — the port's smoke needs the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp2-rank"]:
+        # one rank of phase 3d's TP-2 arm, started by ``tp2_spawn``
+        return tp2_rank(torch, int(sys.argv[2]), sys.argv[3])
     from paddle_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3072,6 +3507,10 @@ def main():
     t = time.perf_counter()
     phase_reliability(torch, dev)
     print(f"phase reliability: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    tp = phase_tp(torch, dev, card)
+    print(f"phase tensor parallelism: {time.perf_counter() - t:.1f} s",
+          flush=True)
     t = time.perf_counter()
     phase_parity(torch, dev)
     print(f"phase parity: {time.perf_counter() - t:.1f} s", flush=True)
@@ -3112,7 +3551,7 @@ def main():
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
              launches=bf16["k8"], **kern["paged_decode_attention"],
              us_per_decode_step=serving["bf16"]["k8_us_per_decode_step"],
-             spec_launches=spec_bf16),
+             spec_launches=spec_bf16, tp2=tp2_entry(tp, "k8")),
         dict(name="paged_decode_attention_range", route="cuda",
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
@@ -3123,7 +3562,7 @@ def main():
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",
              launches=bf16["k9"], launches_mma=bf16["k9_mma"],
-             **kern["prefill_attention"]),
+             **kern["prefill_attention"], tp2=tp2_entry(tp, "k9")),
         dict(name="paged_decode_attention_int8", route="cuda",
              source=f"{csrc}/paged_decode_attention.cu",
              replaces="paddle_tpu/ops/paged_attention_pallas.py:259",

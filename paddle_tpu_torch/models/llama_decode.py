@@ -21,6 +21,16 @@ every emitted token is the verify forward's greedy pick.  A rejected
 draft costs nothing to undo: the lengths rewind to the accepted prefix
 and the stale cache rows past them are masked and later overwritten.
 
+Tensor parallelism (``tp_group=`` on every serving entry point): a rank
+runs the same functions on its shard of the weights and caches
+(``serving/sharding.py``: column-parallel q/k/v/gate/up, row-parallel
+wo/down, the rest replicated) with its local head counts in ``cfg``;
+``_mm_reduce`` all-reduces each row-parallel partial product over the
+group before the residual add (in ``tp_overlap`` segments, each reduced
+asynchronously behind the next segment's GEMM).  ``lm_head`` is
+replicated, so every rank computes the same logits and picks the same
+tokens.
+
 ``quantize_decode_weights`` makes the seven projections int8 with one
 f16 scale per output channel; ``_mm`` then dequantizes in the matmul,
 ``(x @ w.to(x.dtype)) * s.to(x.dtype)``: a plain ``torch.matmul``, as
@@ -36,6 +46,7 @@ where JAX's gather clamps and PyTorch's would fault).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from paddle_tpu_torch.ops.decode_attention import (
@@ -133,6 +144,42 @@ def _mm(x, lp, name):
     return (x @ w.to(x.dtype)) * s.to(x.dtype)
 
 
+def _mm_reduce(x, lp, name, tp=None):
+    """``_mm`` of a row-parallel projection (``wo``, ``down``).
+
+    ``tp`` is ``(group, segments)`` or None.  Under tensor parallelism
+    (``group`` a process group) each rank holds a block of the weight's
+    INPUT rows, so its product is a partial sum: it is all-reduced over
+    ``group`` before the int8 scale multiplies it and before the residual
+    add.  ``segments`` (the ``tp_overlap`` program axis, an int >= 2)
+    splits the product along the OUTPUT features, the reference's ``_mm``
+    decomposition; each segment's all-reduce is issued asynchronously
+    right after its GEMM, so segment ``i``'s reduction overlaps segment
+    ``i+1``'s GEMM.  A width that does not divide runs unsegmented.  At
+    one rank and no segments this is ``_mm`` exactly."""
+    group, segments = tp if tp is not None else (None, None)
+    w = lp[name]
+    s = lp.get(name + "_scale")
+    n = int(segments) if segments else 1
+    if n < 2 or w.shape[1] % n:
+        n = 1
+    seg = w.shape[1] // n
+    parts, works = [], []
+    for i in range(n):
+        wi = w if n == 1 else w[:, i * seg:(i + 1) * seg]
+        p = x @ (wi if s is None else wi.to(x.dtype))
+        if group is not None:
+            works.append(dist.all_reduce(p, group=group, async_op=n > 1))
+        parts.append(p)
+    for work in works:
+        if work is not None:
+            work.wait()
+    if s is not None:
+        parts = [p * (s if n == 1 else s[i * seg:(i + 1) * seg]).to(x.dtype)
+                 for i, p in enumerate(parts)]
+    return parts[0] if n == 1 else torch.cat(parts, dim=-1)
+
+
 def _rmsnorm(x, w, eps):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -167,9 +214,17 @@ def _pk_axis(program_key, name):
         else None
 
 
+def _tp_of(program_key, tp_group):
+    """One serving call's row-parallel setting for ``_mm_reduce``:
+    ``(tp_group, the program key's tp_overlap segments)``, or None when
+    neither is set."""
+    seg = _pk_axis(program_key, "tp_overlap")
+    return None if tp_group is None and seg is None else (tp_group, seg)
+
+
 def _layer_step(lp, cfg, h, k_cache, v_cache, lengths, cos_t, sin_t,
                 chunk_size=None, block_tables=None, attn_impl=None,
-                pos_offsets=None, hidden=None):
+                pos_offsets=None, hidden=None, tp=None):
     """One decoder layer over T new tokens: h ``[B, T, hidden]`` -> h'
     (the caches are appended in place).
 
@@ -179,7 +234,9 @@ def _layer_step(lp, cfg, h, k_cache, v_cache, lengths, cos_t, sin_t,
     - 1`` stands at the branch point.  Cache append rows and the causal
     window stay sequential; ``hidden [B, T, 2]`` carves a key range out
     of that window per query (``decode_attention``).  Both default to
-    None, the linear path."""
+    None, the linear path.  ``tp`` (``_mm_reduce``) all-reduces the
+    row-parallel products of a tensor-parallel rank, whose ``cfg`` then
+    counts its own heads."""
     b, t, _ = h.shape
     nh, nkv, hd, eps = cfg
     x = _rmsnorm(h, lp["ln1"], eps)
@@ -193,10 +250,10 @@ def _layer_step(lp, cfg, h, k_cache, v_cache, lengths, cos_t, sin_t,
     out, _, _, _ = decode_attention(
         q, k, v, k_cache, v_cache, lengths, chunk_size=chunk_size,
         block_table=block_tables, impl=attn_impl, hidden=hidden)
-    h = h + _mm(out.reshape(b, t, nh * hd), lp, "wo")
+    h = h + _mm_reduce(out.reshape(b, t, nh * hd), lp, "wo", tp)
     x2 = _rmsnorm(h, lp["ln2"], eps)
-    return h + _mm(F.silu(_mm(x2, lp, "gate")) * _mm(x2, lp, "up"), lp,
-                   "down")
+    return h + _mm_reduce(F.silu(_mm(x2, lp, "gate")) * _mm(x2, lp, "up"),
+                          lp, "down", tp)
 
 
 def _lm_logits(params, h):
@@ -207,12 +264,12 @@ def _lm_logits(params, h):
 
 def _forward(params, cfg, tokens, caches, lengths, last_only, last_idx=None,
              chunk_size=None, block_tables=None, attn_impl=None,
-             pos_offsets=None, hidden=None):
+             pos_offsets=None, hidden=None, tp=None):
     """tokens ``[B, T]`` -> (logits f32, caches, lengths + T): the last
     position's ``[B, V]`` with ``last_only``, one per-row position with
     ``last_idx [B]``, else every position ``[B, T, V]``.  One
-    ``block_tables`` operand serves every layer's pool; ``pos_offsets``
-    and ``hidden`` reach every layer (``_layer_step``)."""
+    ``block_tables`` operand serves every layer's pool; ``pos_offsets``,
+    ``hidden`` and ``tp`` reach every layer (``_layer_step``)."""
     h = params["embed"][tokens.long()]
     cos_t, sin_t = params["_rope"]
     lengths = lengths.to(torch.int32)
@@ -220,7 +277,7 @@ def _forward(params, cfg, tokens, caches, lengths, last_only, last_idx=None,
         h = _layer_step(lp, cfg, h, kc, vc, lengths, cos_t, sin_t,
                         chunk_size=chunk_size, block_tables=block_tables,
                         attn_impl=attn_impl, pos_offsets=pos_offsets,
-                        hidden=hidden)
+                        hidden=hidden, tp=tp)
     h = _rmsnorm(h, params["norm"], cfg[3])
     if last_idx is not None:
         rows = torch.arange(h.shape[0], device=h.device)
@@ -232,16 +289,16 @@ def _forward(params, cfg, tokens, caches, lengths, last_only, last_idx=None,
 
 
 def _forward_step(params, cfg, tokens, caches, lengths, chunk_size=None,
-                  block_tables=None, attn_impl=None):
+                  block_tables=None, attn_impl=None, tp=None):
     """tokens ``[B, T]`` -> (logits_last ``[B, V]``, caches, lengths + T)."""
     return _forward(params, cfg, tokens, caches, lengths, last_only=True,
                     chunk_size=chunk_size, block_tables=block_tables,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, tp=tp)
 
 
 def _forward_step_all(params, cfg, tokens, caches, lengths, chunk_size=None,
                       block_tables=None, attn_impl=None, pos_offsets=None,
-                      hidden=None):
+                      hidden=None, tp=None):
     """tokens ``[B, T]`` -> (logits f32 of EVERY position ``[B, T, V]``,
     caches, lengths + T): the verify pass of speculative decoding needs
     the target's next-token choice after each drafted token (the tree
@@ -249,7 +306,7 @@ def _forward_step_all(params, cfg, tokens, caches, lengths, chunk_size=None,
     return _forward(params, cfg, tokens, caches, lengths, last_only=False,
                     chunk_size=chunk_size, block_tables=block_tables,
                     attn_impl=attn_impl, pos_offsets=pos_offsets,
-                    hidden=hidden)
+                    hidden=hidden, tp=tp)
 
 
 def _set_cols(buf, cols, values, valid):
@@ -317,7 +374,7 @@ def _ngram_draft(hist, hist_len, cur, spec_k):
 
 def _layer_prefill_chunk(lp, cfg, h, k_cache, v_cache, slot, offset, cos_t,
                          sin_t, chunk_size=None, block_tables=None,
-                         prefill_impl=None):
+                         prefill_impl=None, tp=None):
     """One decoder layer over a ``[1, P]`` prompt chunk written to (and
     read from) the slot's rows of the batch cache."""
     b, t, _ = h.shape
@@ -332,15 +389,16 @@ def _layer_prefill_chunk(lp, cfg, h, k_cache, v_cache, slot, offset, cos_t,
     out, _, _ = slot_prefill_attention(
         q, k, v, k_cache, v_cache, slot, offset, chunk_size=chunk_size,
         block_table=block_tables, impl=prefill_impl)
-    h = h + _mm(out.reshape(b, t, nh * hd), lp, "wo")
+    h = h + _mm_reduce(out.reshape(b, t, nh * hd), lp, "wo", tp)
     x2 = _rmsnorm(h, lp["ln2"], eps)
-    return h + _mm(F.silu(_mm(x2, lp, "gate")) * _mm(x2, lp, "up"), lp,
-                   "down")
+    return h + _mm_reduce(F.silu(_mm(x2, lp, "gate")) * _mm(x2, lp, "up"),
+                          lp, "down", tp)
 
 
 def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
                           slot, chunk_size=None, block_tables=None,
-                          program_key=None, hist=None, hist_len=None):
+                          program_key=None, hist=None, hist_len=None,
+                          tp_group=None):
     """Process the next ``[1, P]`` chunk of an admitted prompt against
     slot ``slot``'s rows of the batch cache (appended in place).
 
@@ -361,17 +419,24 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
     ``prompt_len`` with ``hist_len[slot] = prompt_len + 1``.  Columns
     past ``hist_len`` may hold a prior occupant's tokens:
     ``_ngram_draft`` masks its scan by ``hist_len``, and a stale draft
-    only costs acceptance."""
+    only costs acceptance.
+
+    ``tp_group`` (every serving entry point takes it): the process group
+    of a tensor-parallel rank, whose ``params`` are its shard
+    (``serving/sharding.py``), ``cfg`` its local head counts and
+    ``caches`` its heads; the row-parallel products are all-reduced over
+    it (``_mm_reduce``), so every rank returns the same tokens."""
     t = tokens.shape[1]
     nh, nkv, hd, eps = cfg
     offset, slot = int(offset), int(slot)
     h = params["embed"][tokens.long()]                        # [1, P, hidden]
     cos_t, sin_t = params["_rope"]
+    tp = _tp_of(program_key, tp_group)
     for lp, (kc, vc) in zip(params["layers"], caches):
         h = _layer_prefill_chunk(
             lp, cfg, h, kc, vc, slot, offset, cos_t, sin_t,
             chunk_size=chunk_size, block_tables=block_tables,
-            prefill_impl=_pk_axis(program_key, "prefill_impl"))
+            prefill_impl=_pk_axis(program_key, "prefill_impl"), tp=tp)
     h = _rmsnorm(h, params["norm"], eps)
     last_rel = min(max(int(prompt_len) - 1 - offset, 0), t - 1)
     logits = _lm_logits(params, h[:, last_rel]).float()
@@ -390,7 +455,7 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
 
 def serving_decode_steps(params, cfg, cur, caches, dev_lengths, n_steps=1,
                          chunk_size=None, block_tables=None,
-                         program_key=None):
+                         program_key=None, tp_group=None):
     """``n_steps`` greedy tokens for every slot (a Python loop where the
     reference ran a ``lax.scan``).  Slots parked at offset ``lmax`` drop
     every cache write and read one chunk.  Returns ``(tokens [B,
@@ -400,11 +465,12 @@ def serving_decode_steps(params, cfg, cur, caches, dev_lengths, n_steps=1,
     lengths = dev_lengths.to(torch.int32)
     ok = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
     toks = []
+    tp = _tp_of(program_key, tp_group)
     for _ in range(int(n_steps)):
         logits, caches, lengths = _forward_step(
             params, cfg, tok[:, None], caches, lengths,
             chunk_size=chunk_size, block_tables=block_tables,
-            attn_impl=_pk_axis(program_key, "attn_impl"))
+            attn_impl=_pk_axis(program_key, "attn_impl"), tp=tp)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         ok = ok & torch.isfinite(logits).all(dim=-1)
         toks.append(tok)
@@ -429,7 +495,7 @@ def _spec_round_out(logits, drafts, dev_lengths, active, spec_k):
 
 def serving_spec_step(params, cfg, cur, caches, dev_lengths, hist, hist_len,
                       active, spec_k=4, chunk_size=None, block_tables=None,
-                      program_key=None):
+                      program_key=None, tp_group=None):
     """One prompt-lookup speculative round per slot: draft ``spec_k``
     tokens from the history (``_ngram_draft``), verify them in one ``[B,
     k+1]`` target forward, accept the longest matched prefix
@@ -451,7 +517,8 @@ def serving_spec_step(params, cfg, cur, caches, dev_lengths, hist, hist_len,
     logits, caches, _ = _forward_step_all(
         params, cfg, toks, caches, dev_lengths, chunk_size=chunk_size,
         block_tables=block_tables,
-        attn_impl=_pk_axis(program_key, "attn_impl"))
+        attn_impl=_pk_axis(program_key, "attn_impl"),
+        tp=_tp_of(program_key, tp_group))
     emitted, j, cur2, new_len, ok, emit, step = _spec_round_out(
         logits, drafts, dev_lengths, active, spec_k)
     ar = torch.arange(spec_k + 1, dtype=torch.int32, device=cur.device)
@@ -506,7 +573,8 @@ def _repair_branch_rows(caches, dlen, br, spec_k):
 def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
                             dev_lengths, active, spec_k=4, chunk_size=None,
                             block_tables=None, draft_tables=None,
-                            program_key=None, branch_count=None):
+                            program_key=None, branch_count=None,
+                            tp_group=None):
     """One DRAFT-MODEL speculative round per slot: the draft model runs
     ``spec_k + 1`` one-token steps (the last only fills its cache for the
     full-acceptance case), the target verifies the ``spec_k`` candidates
@@ -542,12 +610,13 @@ def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
     cur = cur.to(torch.int32)
     dlen = dev_lengths.to(torch.int32)
     attn_impl = _pk_axis(program_key, "attn_impl")
+    tp = _tp_of(program_key, tp_group)
     tok, dl, seq, alt1 = cur, dlen, [], None
     for i in range(int(spec_k) + 1):
         dlg, _, dl = _forward_step(
             dparams, dcfg, tok[:, None], dc, dl, chunk_size=chunk_size,
             block_tables=draft_tables if paged else None,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, tp=tp)
         tok = torch.argmax(dlg, dim=-1).to(torch.int32)
         if tree and i == 0:
             alt1 = _second_choice(dlg, tok)
@@ -557,7 +626,7 @@ def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
         toks = torch.cat([cur[:, None], drafts], dim=1)       # [B, k+1]
         logits, caches, _ = _forward_step_all(
             params, cfg, toks, caches, dlen, chunk_size=chunk_size,
-            block_tables=block_tables, attn_impl=attn_impl)
+            block_tables=block_tables, attn_impl=attn_impl, tp=tp)
         emitted, j, cur2, new_len, ok, _, _ = _spec_round_out(
             logits, drafts, dlen, active, spec_k)
         return emitted, j, cur2, new_len, ok
@@ -565,7 +634,7 @@ def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
     pos, hidden = _tree_verify_operands(dlen, spec_k)
     logits, caches, _ = _forward_step_all(
         params, cfg, toks, caches, dlen, chunk_size=chunk_size,
-        attn_impl=attn_impl, pos_offsets=pos, hidden=hidden)
+        attn_impl=attn_impl, pos_offsets=pos, hidden=hidden, tp=tp)
     emitted, j, cur2, _, _, _, _ = _spec_round_out(
         logits[:, :spec_k + 1], drafts, dlen, active, spec_k)
     ok = torch.isfinite(logits).all(dim=-1).all(dim=-1)       # [B]

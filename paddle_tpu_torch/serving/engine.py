@@ -79,11 +79,30 @@ nothing falls back.
   ``faults`` takes a ``serving/faults.FaultPlan`` (dispatch errors, NaN
   payloads, slow steps, ``stream_cb`` crashes) through test-only seams.
 
+* **Tensor parallelism** (``mesh=`` a ``torch.distributed.device_mesh.
+  DeviceMesh``, ``tp_axis`` its dimension): SPMD, one process per rank,
+  as ``torchrun`` launches it — every rank builds the engine with the
+  same arguments and submits the same requests in the same order.  Each
+  rank holds its Megatron shard of the weights (column-parallel
+  q/k/v/gate/up and their int8 scales, row-parallel wo/down, the rest
+  replicated; ``serving/sharding.py``), sliced where the model lives
+  (the CPU, for a model no single card holds) and then moved to its
+  card, and its ``Hkv / N`` heads of every cache and pool.  The decode
+  step all-reduces each row-parallel product over the axis's process
+  group (``tp_overlap`` segments it), and K8/K9 run on the local tensors
+  at the shard's heads.  The replicated ``lm_head`` gives every rank the
+  same tokens, so the host schedulers decide alike; the one host input
+  that is not a function of the tokens — the clock behind
+  ``deadline_ms`` — is read on rank 0 and broadcast, only while some
+  request carries a deadline.  An out-of-memory error is not retried
+  under TP (ranks re-issuing alone would put the group's collectives out
+  of step); an injected fault, raised on every rank alike before any
+  launch, still is.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-tensor parallelism, the request-scoped observability layer (flight
-recorder, SLO tracker and classes, watchdog), the host KV tier,
-prefill/decode disaggregation and the monolithic (``prefill_chunk=None``)
-prefill.
+the request-scoped observability layer (flight recorder, SLO tracker and
+classes, watchdog), the host KV tier, prefill/decode disaggregation and
+the monolithic (``prefill_chunk=None``) prefill.
 """
 from __future__ import annotations
 
@@ -96,10 +115,11 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddle_tpu_torch.core.device import h2d, resolve_impl
 from paddle_tpu_torch.models.llama_decode import (
-    QUANT_WEIGHTS, _decode_params_of, canon_weight_dtype,
+    QUANT_WEIGHTS, _decode_params_of, _rope_tables, canon_weight_dtype,
     quantize_decode_weights, serving_decode_steps, serving_prefill_chunk,
     serving_spec_draft_step, serving_spec_step,
 )
@@ -115,6 +135,7 @@ from paddle_tpu_torch.serving.kv_cache import (
 )
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.program_key import ProgramKey
+from paddle_tpu_torch.serving.sharding import shard_decode_params, tp_coords
 
 __all__ = ["AcceptWindow", "EngineOverloaded", "KVPoolExhausted", "Request",
            "ServingEngine", "SpecConfig"]
@@ -130,7 +151,8 @@ _LOG = logging.getLogger(__name__)
 #: ``hist_len``, is the last operation of its round and allocates
 #: nothing).  Every other CUDA error (an illegal address, a launch
 #: failure) leaves the context lost or is deterministic, and re-raises
-#: at once.  The injected twin rides the same path.
+#: at once.  The injected twin rides the same path.  Under tensor
+#: parallelism only the injected error retries (``_retry``).
 _RETRYABLE = (InjectedDispatchError, torch.cuda.OutOfMemoryError)
 
 
@@ -398,7 +420,13 @@ class ServingEngine:
     ``"greedy"`` or ``"spec"`` (speculative decoding; ``spec`` a
     ``SpecConfig`` or its kwargs dict, ``spec_k`` the default depth).
     ``max_pending`` / ``retry_attempts`` / ``retry_backoff`` / ``faults``:
-    the reliability layer (module docstring).  ``registry`` /
+    the reliability layer (module docstring).  ``mesh`` / ``tp_axis``:
+    tensor parallelism over a ``DeviceMesh`` dimension (module
+    docstring); the attention and KV head counts, the draft model's
+    included, must divide its size.  ``tp_overlap``: ``None`` or an int
+    >= 2, the output-feature segments of each row-parallel product, each
+    all-reduced behind the next one's GEMM (``models/llama_decode.py``
+    ``_mm_reduce``).  ``registry`` /
     ``instrument``: metrics.  ``recorder`` defaults to ``False`` here —
     the flight recorder is not ported yet."""
 
@@ -409,7 +437,7 @@ class ServingEngine:
                  prefill_budget=2, kv_block=None, max_live_tokens=None,
                  kv_dtype=None, attn_impl=None, prefill_impl=None,
                  spec_k=8, spec=None, weight_dtype=None, mesh=None,
-                 tp_axis=None, tp_overlap=None, max_pending=None,
+                 tp_axis="mp", tp_overlap=None, max_pending=None,
                  retry_attempts=3, retry_backoff=0.05, faults=None,
                  recorder=False, slo=None, watchdog=None,
                  host_tier_bytes=None, host_tier=None,
@@ -452,9 +480,19 @@ class ServingEngine:
         self._dspec = spec is not None and spec.source == "draft_model"
         self._mode = mode
         self._spec_k = int(spec_k)
-        if mesh is not None or tp_axis is not None or tp_overlap is not None:
-            _not_ported(where, "tensor parallelism (mesh=, tp_axis=, "
-                        "tp_overlap=)", "tensor-parallel serving")
+        # tensor parallelism: the mesh axis's process group, this rank and
+        # the axis size, validated before anything is built
+        self._tp_group, self._tp_rank, self._tp_n = (
+            tp_coords(mesh, tp_axis) if mesh is not None else (None, 0, 1))
+        # tp_overlap: split the row-parallel projections (wo/down) into N
+        # output-feature segments so each segment's all-reduce overlaps
+        # the next segment's GEMM; None keeps one GEMM and one reduction
+        if tp_overlap is not None:
+            if isinstance(tp_overlap, bool) or not isinstance(
+                    tp_overlap, int) or tp_overlap < 2:
+                raise ValueError(
+                    f"ServingEngine: tp_overlap must be None or an int "
+                    f">= 2 (segment count), got {tp_overlap!r}")
         if recorder not in (False, None) or slo is not None \
                 or watchdog is not None:
             _not_ported(where, "recorder / slo / watchdog",
@@ -469,8 +507,16 @@ class ServingEngine:
         if prefill_chunk is None:
             _not_ported(where, "prefill_chunk=None (monolithic prefill)",
                         "monolithic prefill")
-        self._device = model.llama.embed_tokens.weight.device
-        self._m = (EngineMetrics(registry, policy, int(batch_size))
+        # a TP rank runs on its mesh's device (a CPU-resident model is
+        # sharded there and each shard moved); otherwise on the model's
+        self._model_device = model.llama.embed_tokens.weight.device
+        self._device = self._model_device
+        if mesh is not None:
+            self._device = (
+                torch.device("cuda", torch.cuda.current_device())
+                if mesh.device_type == "cuda" else torch.device("cpu"))
+        self._m = (EngineMetrics(registry, policy, int(batch_size),
+                                 mesh_devices=self._tp_n)
                    if instrument else None)
         self._B = int(batch_size)
         self._lmax = int(max_len)
@@ -504,9 +550,35 @@ class ServingEngine:
             # a fresh dict: the model's cached params (views of its
             # parameters) are never replaced or mutated
             self._params = quantize_decode_weights(self._params, "int8")
+        # per generated token: every projection element once (1 byte)
+        # plus 2 bytes of scale per output channel, counted on the whole
+        # model (placement-independent, as the reference's gauge)
+        w8_bytes = sum(
+            lp[n].numel() + 2 * lp[n + "_scale"].numel()
+            for lp in self._params["layers"]
+            for n in QUANT_WEIGHTS) if self._w8 else 0
         self._dparams = self._dcfg = self._dcaches = None
         if self._dspec:
             self._init_draft(spec.draft_model, nkv, hd)
+        if mesh is not None:
+            if nkv % self._tp_n or nh % self._tp_n:
+                raise ValueError(
+                    f"heads not shardable {self._tp_n}-way along "
+                    f"{tp_axis!r}: num_attention_heads={nh}, "
+                    f"num_key_value_heads={nkv} (the KV cache shards "
+                    "along heads)")
+            if self._dspec:
+                dnh, dnkv, _, _ = self._dcfg
+                if dnkv % self._tp_n or dnh % self._tp_n:
+                    raise ValueError(
+                        f"draft heads not shardable {self._tp_n}-way along "
+                        f"{tp_axis!r}: num_attention_heads={dnh}, "
+                        f"num_key_value_heads={dnkv} (the draft KV "
+                        "shards along heads like the target's)")
+                self._dparams, self._dcfg = self._shard(
+                    spec.draft_model, self._dparams, self._dcfg, tp_axis)
+            self._params, self._cfg = self._shard(model, self._params,
+                                                  self._cfg, tp_axis)
         self._attn_impl = _resolve_engine_impl("attn_impl", attn_impl,
                                                self._device)
         self._prefill_impl = _resolve_engine_impl(
@@ -531,6 +603,7 @@ class ServingEngine:
                               prefill_impl=self._prefill_impl,
                               kv_dtype="int8" if self._q8 else None,
                               weight_dtype="int8" if self._w8 else None,
+                              tp_overlap=tp_overlap,
                               draft_source=spec.source if spec else None,
                               spec_depth=self._spec_k if spec else None,
                               spec_tree=spec.tree if spec else None)
@@ -556,24 +629,27 @@ class ServingEngine:
         self._k_want = [len(self._k_rungs) - 1] * self._B
         self._spec_pks = {k: self._pk.replace(spec_depth=k)
                           for k in self._k_rungs} if spec else {}
+        # the caches hold this rank's heads (all of them without a mesh)
+        local_nkv = self._cfg[1]
         if self._paged:
             # a draft model is a second pool tenant whose chains grow in
             # lockstep with the target's, so the default pool doubles (an
             # explicit max_live_tokens is respected as given)
             self._kv = PagedKVCacheManager(
-                len(self._params["layers"]), self._B, self._lmax, nkv, hd,
-                dtype, block=kv_block,
+                len(self._params["layers"]), self._B, self._lmax, local_nkv,
+                hd, dtype, block=kv_block,
                 max_live_tokens=(int(max_live_tokens) if max_live_tokens
                                  else (2 if self._dspec else 1)
                                  * self._B * self._lmax),
                 device=self._device, on_event=self._kv_event)
         else:
             self._kv = KVCacheManager(len(self._params["layers"]), self._B,
-                                      self._lmax, nkv, hd, dtype,
+                                      self._lmax, local_nkv, hd, dtype,
                                       device=self._device)
             if self._dspec:
                 # dense draft tenancy: separate per-draft-layer caches
-                # (dense rows are slot-indexed; sharing would clobber)
+                # (dense rows are slot-indexed; sharing would clobber),
+                # at the rank's draft heads (self._dcfg is local)
                 _, dnkv, dhd, _ = self._dcfg
                 ddtype = dtype if kv_dtype is not None else \
                     self._dparams["embed"].dtype
@@ -596,12 +672,7 @@ class ServingEngine:
                 self._m.hbm_gb_per_tok_q8.set(
                     n_layers * 2 * nkv * (hd + 2) / 1e9)
             if self._w8:
-                # per generated token: every projection element once (1
-                # byte) plus 2 bytes of scale per output channel
-                self._m.hbm_gb_per_tok_w8.set(sum(
-                    lp[n].numel() + 2 * lp[n + "_scale"].numel()
-                    for lp in self._params["layers"]
-                    for n in QUANT_WEIGHTS) / 1e9)
+                self._m.hbm_gb_per_tok_w8.set(w8_bytes / 1e9)
         # paged decode-time row growth is capped per slot by the token
         # budget reserved at admission (prompt + max_new + headroom)
         self._need_rows = np.zeros((self._B,), np.int64)
@@ -682,9 +753,9 @@ class ServingEngine:
         layers (draft layer ``l`` rides target layer ``l``'s pool)."""
         where = "ServingEngine"
         dev = draft_model.llama.embed_tokens.weight.device
-        if dev != self._device:
+        if dev != self._model_device:
             raise ValueError(f"{where}: the draft model is on {dev}, the "
-                             f"target on {self._device}")
+                             f"target on {self._model_device}")
         self._dparams, self._dcfg = _decode_params_of(draft_model,
                                                       self._lmax)
         _, dnkv, dhd, _ = self._dcfg
@@ -715,6 +786,21 @@ class ServingEngine:
                     f"{self._params['embed'].dtype}")
         if self._w8:
             self._dparams = quantize_decode_weights(self._dparams, "int8")
+
+    def _shard(self, model, params, cfg, axis):
+        """This rank's shard of ``params`` on the engine's device and the
+        local ``cfg`` (its heads).  The rope tables are rebuilt there when
+        the model lives elsewhere, so they are the tables a single-device
+        engine on this device would use."""
+        nh, nkv, hd, eps = cfg
+        n = self._tp_n
+        params, _ = shard_decode_params(params, self._tp_rank, n, axis,
+                                        device=self._device)
+        if self._model_device != self._device:
+            params["_rope"] = _rope_tables(
+                self._lmax, hd, model.config.rope_theta,
+                params["embed"].dtype, self._device)
+        return params, (nh // n, nkv // n, hd, eps)
 
     def _headroom(self):
         # greedy may overshoot a retiring slot by < sync_every cache rows,
@@ -908,19 +994,39 @@ class ServingEngine:
 
     def _expire_deadlines(self):
         """Retire every request past its ``deadline_ms``: queued ones
-        never reach a slot, resident ones free theirs this step."""
+        never reach a slot, resident ones free theirs this step.  Under
+        TP rank 0's clock decides for every rank (``_rank0_decides``), and
+        only while some request carries a deadline."""
+        queued = [r for r in self._queue if r._t_deadline is not None]
+        live = [(slot, r) for slot, r in enumerate(self._kv.reqs)
+                if r is not None and r._t_deadline is not None]
+        if not queued and not live:
+            return
         now = time.perf_counter()
-        expired = [r for r in self._queue
-                   if r._t_deadline is not None and now >= r._t_deadline]
+        due = self._rank0_decides(
+            [now >= r._t_deadline for r in queued]
+            + [now >= r._t_deadline for _, r in live])
+        expired = [r for r, d in zip(queued, due) if d]
         for r in expired:
             self._queue.remove(r)
             self._terminal_queued(r, "timed_out")
         if expired and self._m is not None:
             self._m.queue_depth.set(len(self._queue))
-        for slot, r in enumerate(self._kv.reqs):
-            if r is not None and r._t_deadline is not None \
-                    and now >= r._t_deadline:
+        for (slot, _), d in zip(live, due[len(queued):]):
+            if d:
                 self._retire(slot, "timed_out")
+
+    def _rank0_decides(self, flags):
+        """A host decision every rank must share: rank 0's ``flags``,
+        broadcast over the TP group (the ranks' lists are equally long —
+        their queues and slots agree); one host read.  Unchanged without
+        TP."""
+        if self._tp_group is None:
+            return flags
+        t = torch.tensor(flags, dtype=torch.uint8, device=self._device)
+        dist.broadcast(t, src=dist.get_global_rank(self._tp_group, 0),
+                       group=self._tp_group)
+        return [bool(x) for x in t.tolist()]
 
     # ------------------------------------------------- faults and retries
     def _inject_nan(self, slot):
@@ -972,7 +1078,13 @@ class ServingEngine:
             try:
                 return fn(attempt)
             except _RETRYABLE as e:
-                if attempt + 1 >= self._retry_attempts:
+                # under TP a real device error (out of memory) hit one
+                # rank mid-dispatch, after some of the group's collectives
+                # were issued: a re-issue on that rank alone would pair
+                # its collectives with the wrong ones of the others
+                if attempt + 1 >= self._retry_attempts or (
+                        self._tp_group is not None
+                        and not isinstance(e, InjectedDispatchError)):
                     raise
                 if self._m is not None:
                     self._m.dispatch_retries.inc()
@@ -1006,7 +1118,8 @@ class ServingEngine:
         toks, ok, _ = serving_decode_steps(
             self._params, self._cfg, cur, self._kv.caches, dev_len,
             n_steps=self._sync, chunk_size=self._chunk,
-            block_tables=self._tables(), program_key=self._pk)
+            block_tables=self._tables(), program_key=self._pk,
+            tp_group=self._tp_group)
         return toks, ok
 
     def _call_spec(self, cur, dev_len, active, k):
@@ -1021,19 +1134,21 @@ class ServingEngine:
                 block_tables=self._tables(),
                 draft_tables=(self._kv.device_draft_tables()
                               if self._paged else None),
-                program_key=pk, branch_count=self._tree_taken)
+                program_key=pk, branch_count=self._tree_taken,
+                tp_group=self._tp_group)
         return serving_spec_step(
             self._params, self._cfg, cur, self._kv.caches, dev_len,
             self._hist, self._hist_len, active, spec_k=k,
             chunk_size=self._chunk, block_tables=self._tables(),
-            program_key=pk)
+            program_key=pk, tp_group=self._tp_group)
 
     def _call_prefill_chunk(self, chunk, offset, prompt_len, slot):
         first, ok, _ = serving_prefill_chunk(
             self._params, self._cfg, h2d(chunk, self._device), offset,
             prompt_len, self._kv.caches, slot, chunk_size=self._chunk,
             block_tables=self._tables(), program_key=self._pk,
-            hist=self._hist, hist_len=self._hist_len)
+            hist=self._hist, hist_len=self._hist_len,
+            tp_group=self._tp_group)
         return first, ok
 
     def _call_draft_prefill_chunk(self, chunk, offset, prompt_len, slot):
@@ -1046,7 +1161,8 @@ class ServingEngine:
             prompt_len, self._kv.caches if self._paged else self._dcaches,
             slot, chunk_size=self._chunk,
             block_tables=(self._kv.device_draft_tables() if self._paged
-                          else None), program_key=self._pk)
+                          else None), program_key=self._pk,
+            tp_group=self._tp_group)
 
     # ------------------------------------------------ adaptive draft depth
     def _reset_spec_slot(self, slot):

@@ -30,6 +30,13 @@ refcount 0 — never parked evictable — so the draft tenant's accounting
 The rows a speculative rewind leaves mapped past a slot's accepted
 length stay in its chains (capped by the admission budget) and are
 released with them, both chains together, when the slot retires.
+
+Under tensor parallelism (``serving/sharding.py``) each rank's manager
+is built with the rank's ``num_kv_heads / N`` heads, so its caches and
+pools — int8 scale leaves and the draft tenant's layers included — hold
+only the rank's heads (``kv_cache_pspec``: the head axis, index 2 in both
+geometries).  The host bookkeeping is identical on every rank, so the
+ranks hand out the same slots and the same block ids.
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/serving/metrics.py`` ``EngineMetrics``,
 trimmed to the families this slice's engine posts: request and token
-counters, TTFT / TPOT / end-to-end latency, queue wait, chunked-prefill
+counters, the devices a tensor-parallel engine spans
+(``serving_mesh_devices``, ``paddle_tpu/serving/metrics.py:23-36``),
+TTFT / TPOT / end-to-end latency, queue wait, chunked-prefill
 progress, the pipelined-dispatch stall, paged-pool occupancy by tenant
 (target / draft), prefix reuse, the speculative-decoding series
 (drafted / accepted counters, the accept rate and draft-source info
@@ -32,12 +34,18 @@ _SPEC_SOURCES = ("prompt_lookup", "draft_model")
 class EngineMetrics:
     """One engine's metric children, bound once at construction."""
 
-    def __init__(self, registry, policy, batch_size):
+    def __init__(self, registry, policy, batch_size, mesh_devices=1):
         reg = registry if registry is not None else get_registry()
         self.registry = reg
         L = ("policy",)
         lbl = {"policy": policy}
         self._policy = policy
+        self.mesh_devices = reg.gauge(
+            "serving_mesh_devices",
+            "devices the engine's decode step spans (1 = single device; "
+            "N = the tensor-parallel ranks of its mesh axis)",
+            L).labels(**lbl)
+        self.mesh_devices.set(mesh_devices)
         self.queue_depth = reg.gauge(
             "serving_queue_depth", "requests waiting for a slot",
             L).labels(**lbl)

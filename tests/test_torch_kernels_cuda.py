@@ -44,6 +44,9 @@ branch row, and ranges over whole 64-key spans) in every cache dtype and
 int8, dense and paged, against its plain version and bitwise run to
 run; the tree engine on the card (K8's range launches counted, streams
 equal to greedy) and the reliability layer's retries and poison there.
+K8 and K9 at a TP-2 rank's heads (the serving model split two ways: Hkv
+2, G 4, D 128), bf16 and int8, against their plain versions; the engine
+over a one-rank NCCL mesh, bit for bit the single-device one.
 """
 import pytest
 import torch
@@ -1170,3 +1173,147 @@ def test_reliability_on_the_card():
     st, out = serve(FaultPlan(poison={1: 3}))
     assert st == {0: "done", 1: "poisoned", 2: "done"}
     assert out[0] == clean[0] and out[2] == clean[2]
+
+
+# ------------------------- tensor parallelism: the TP-2 shard's head count
+#: the serving model (16/4 heads, head_dim 128) split two ways: a rank's
+#: K8 and K9 see 8/2 heads, G 4 unchanged; its cache geometry (256-key
+#: blocks, max_len 2048) is the serving cell's
+TP2 = dict(hkv=2, g=4, d=128, c=256, lmax=2048)
+
+
+def _tp2_caches(dev, gen, kv, shape):
+    if kv == "int8":
+        def leaf():
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    (0.001 + 0.05 * torch.rand(shape[:-1], generator=gen))
+                    .to(dev, torch.float16))
+        return leaf(), leaf()
+    return (torch.randn(shape, generator=gen).to(dev, torch.bfloat16),
+            torch.randn(shape, generator=gen).to(dev, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("t", [1, 9])
+def test_decode_kernel_at_the_tp2_shard_matches_plain(kv, paged, t):
+    """K8 at a TP-2 rank's heads (Hkv 2, G 4, D 128, C 256, lmax 2048),
+    bf16 and int8 caches, a decode step (T 1) and the spec_k 8 verify
+    width (T 9), mixed lengths and a parked slot: within atol=rtol=1e-4
+    of the plain version, one launch a call, bitwise run to run."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(41)
+    hkv, g, d, c, lmax = (TP2[k] for k in ("hkv", "g", "d", "c", "lmax"))
+    lens = [0, 255, 256, 700, 1500, lmax - 9, lmax]
+    b, w = len(lens), lmax // c
+    n = b * w
+    kc, vc = _tp2_caches(dev, gen, kv, (n, c, hkv, d) if paged
+                         else (b, lmax, hkv, d))
+    table = None
+    if paged:
+        tbl = torch.full((b, w), n, dtype=torch.int32)
+        perm = torch.randperm(n, generator=gen).to(torch.int32)
+        for i, length in enumerate(lens[:-1]):
+            used = min(-(-(length + t) // c), w)
+            tbl[i, :used] = perm[i * w:i * w + used]
+        table = tbl.to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qg = torch.randn(b, hkv, g, t, d, generator=gen).to(dev)
+    before = k8.launches
+    out = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, c,
+                                    table, impl="cuda")
+    out2 = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, c,
+                                     table, impl="cuda")
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                              d ** -0.5, c, table)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 2
+    torch.testing.assert_close(out[:-1], ref[:-1], atol=1e-4, rtol=1e-4)
+    assert torch.isfinite(out).all() and torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_prefill_kernel_at_the_tp2_shard_matches_plain(kv, paged):
+    """K9's tensor-core instance at a TP-2 rank's heads (8 query heads,
+    Hkv 2, D 128, 256-row chunks chained at offsets 0-1792, 256-key
+    blocks): the caches bitwise the plain append's, the bf16 output within
+    2 bf16 ulps or 1e-6 of the plain version."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(43)
+    hkv, g, d, c, lmax = (TP2[k] for k in ("hkv", "g", "d", "c", "lmax"))
+    t, w = 256, lmax // c
+    shape = (w + 2, c, hkv, d) if paged else (3, lmax, hkv, d)
+    kc, vc = tda.init_kv_pool(*shape, dtype=kv, device=dev) if paged \
+        else tda.init_kv_cache(*shape, dtype=kv, device=dev)
+    trow = None
+    if paged:
+        trow = torch.randperm(w + 2, generator=gen)[:w].to(torch.int32) \
+            .view(1, w).to(dev)
+
+    def clone(x):
+        return tuple(y.clone() for y in x) if isinstance(x, tuple) \
+            else x.clone()
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    k2, v2 = clone(kc), clone(vc)
+    for off in range(0, lmax, t):
+        q = torch.randn(1, t, hkv * g, d, generator=gen).to(dev,
+                                                            torch.bfloat16)
+        kn = torch.randn(1, t, hkv, d, generator=gen).to(dev, torch.bfloat16)
+        vn = torch.randn(1, t, hkv, d, generator=gen).to(dev, torch.bfloat16)
+        before = k9.launches_mma
+        o1, _, _ = k9.prefill_attention(q, kn, vn, kc, vc, 2, off,
+                                        d ** -0.5, c, trow, impl="cuda")
+        o2, _, _ = k9.prefill_attention_reference(q, kn, vn, k2, v2, 2, off,
+                                                  d ** -0.5, c, trow)
+        torch.cuda.synchronize()
+        assert k9.launches_mma == before + 1
+        assert equal(kc, k2) and equal(vc, v2), off
+        near = (o1.float() - o2.float()).abs() <= 1e-6
+        assert ((_bf16_ulps(o1, o2) <= 2) | near).all(), off
+
+
+@pytest.mark.cuda
+def test_tp1_nccl_engine_on_the_card_equals_single_device(tmp_path):
+    """``ServingEngine(mesh=)`` over a one-rank NCCL group on the card:
+    its all-reduce is the identity, so greedy and prompt-lookup spec
+    (int8 KV, paged) stream bit for bit as the single-device engine, with
+    the kernels; ``tp_overlap=2`` keeps the tokens."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = _card()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device=dev,
+                             seed=0)
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(1, 200, (n,), generator=gen) for n in (7, 19, 40)]
+    geom = dict(batch_size=2, max_len=128, decode_chunk=32,
+                prefill_chunk=32, instrument=False)
+
+    def serve(**kw):
+        eng = ServingEngine(model, **geom, **kw)
+        reqs = [eng.submit(Request(p.numpy(), 16)) for p in prompts]
+        eng.run()
+        return [r.output_ids for r in reqs]
+    spec = dict(mode="spec", spec_k=4, kv_dtype="int8", kv_block=32)
+    single = serve(), serve(**spec)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("mp",))
+        before = (k8.plain_runs, k9.plain_runs, k8.launches)
+        assert (serve(mesh=mesh), serve(mesh=mesh, **spec)) == single
+        assert serve(mesh=mesh, tp_overlap=2) == single[0]
+        torch.cuda.synchronize()
+        assert (k8.plain_runs, k9.plain_runs) == before[:2]
+        assert k8.launches > before[2]
+    finally:
+        dist.destroy_process_group()

@@ -144,13 +144,35 @@ def tiny():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh=object()), dict(tp_overlap=2), dict(recorder=True),
-    dict(slo=()), dict(watchdog=5.0), dict(host_tier_bytes=1 << 20),
-    dict(prefill_only=True), dict(prefill_chunk=None),
+    dict(recorder=True), dict(slo=()), dict(watchdog=5.0),
+    dict(host_tier_bytes=1 << 20), dict(prefill_only=True),
+    dict(prefill_chunk=None),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(mesh=object()), dict(tp_overlap=2)],
+                         ids=lambda kw: next(iter(kw)))
+def test_tp_knobs_are_ported(tiny, knob):
+    """Tensor parallelism is ported: ``mesh=`` takes a ``DeviceMesh``
+    (anything else is refused by type), and ``tp_overlap`` segments the
+    row-parallel products, on one device too (the reference's ``_mm``),
+    without changing a token (tests/test_torch_serving_tp.py runs the
+    ranks)."""
+    if "mesh" in knob:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+        return
+    outs = []
+    for kw in (knob, {}):
+        eng = ServingEngine(tiny, batch_size=2, max_len=64, **kw)
+        assert eng._pk.tp_overlap == kw.get("tp_overlap")
+        r = eng.submit(Request(np.arange(1, 6), 4))
+        assert eng.drain() == {r.rid: "done"}
+        outs.append(r.output_ids)
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("knob", [
