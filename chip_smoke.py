@@ -87,11 +87,39 @@ Phases (any failure exits non-zero before the result line):
    single-device streams, and tok/s as a record only (the two ranks
    time-share the card).  Both ranks are joined with a timeout and
    stopped; a rank's failure fails the run.
+3e. The request observability layer, monolithic prefill and the host KV
+   tier at full width, on the serving model.  (a) Phase 3's first 8
+   requests (outputs capped at 64) with the recorder on and off: the
+   streams bitwise equal; the events by kind, a JSONL and a chrome-trace
+   dump written and read back, every timeline ordered, the SLO gauges on
+   the page; a 4 s ``FaultPlan(slow_steps=)`` stall under
+   ``watchdog=1.5`` gives exactly one stall dump and ``close()`` stops
+   the thread; an exporter on port 0 is scraped during a run
+   (``/metrics``, ``/healthz``, ``/debug/flightrecorder``); a
+   ``torch.profiler`` session over three steps shows the ``serving.*``
+   spans; tok/s with the recorder on and off (record only).  (b) K8 at
+   T = 64, 256 and 1024 query rows over a fresh dense ``[1, T]`` cache
+   (the monolithic prefill's mini cache), bf16 and int8, against its
+   plain version with phase 2's tolerances and bitwise run to run; its
+   time by events and device time, its bound, and SDPA (causal) at the
+   same shape.  Then phase 3's 16 requests (outputs capped at 64) on a
+   dense batch cache with ``prefill_chunk=None`` against chunked
+   prefill, bf16 and int8 KV: K8 launches 16 times a request at T = its
+   bucket, K9 never, no plain version; the token drift between the two.
+   (c) One slot on a pool of 8 blocks: the request leading the
+   768-token shared prefix, the two longest others (their admission
+   evicts its chain into the host tier) and the follower, whose
+   admission restores the prefix: host hits and restored blocks above
+   0, streams bit-equal to a pool that holds everything, and a tier
+   garbled (``FaultPlan(host_tier_corrupt=)``) at the restoring step
+   falls back to prefill with the same streams.
 4. End-to-end parity: the same engine at full width, 2 layers, f32, on
    the card (kernels) and on the CPU (plain versions), with float KV,
    int8 KV, int8 weights, and both: the streams match token for token
    (a divergence is allowed only where the CPU's top-2 logit margin is
-   below 1e-3, a near tie that summation order may break).
+   below 1e-3, a near tie that summation order may break).  In f32 the
+   card's monolithic prefill (dense caches) gives the streams of its
+   chunked prefill, dense and paged.
 5. The training path's kernels against their plain versions at the
    training shape (B 16, L 2048, H 16, Hkv 4, D 128, bf16, causal): K1/K2
    forward (out, lse), K3 delta, K4 dK/dV, K5 dQ, K6 RoPE (forward and
@@ -1922,6 +1950,390 @@ def tp2_rank(torch, rank, work):
     return 0
 
 
+# ---------------------------------------------------------------- phase 3e
+#: the observability arms: phase 3's first 8 requests, outputs capped at 64
+OBS_REQUESTS, OBS_NEW = 8, 64
+#: the monolithic arms: phase 3's 16 requests, outputs capped at 64; the
+#: dense geometry both prefills share (monolithic prefill needs one)
+MONO_NEW = 64
+MONO_ENGINE = dict(batch_size=8, max_len=2048, decode_chunk=256)
+#: K8 at T = the prompt bucket, checked and timed
+MONO_TIMED = (64, 256, 1024)
+#: the host-tier arms: one slot, outputs of 16 tokens; a pool of 8 blocks
+#: of 256 (one full-length request) evicts the 768-token shared prefix
+#: before the request that shares it arrives; the untiered twin's pool
+#: holds everything
+TIER_ENGINE = dict(batch_size=1, max_len=2048, kv_block=256,
+                   prefill_chunk=256, decode_chunk=256)
+TIER_SMALL, TIER_BIG, TIER_NEW = 2048, 8 * 2048, 16
+
+
+def k8_bucket(torch, dev, gen, t, q8, lib_ms=None):
+    """K8 at ``t`` query rows over a fresh dense ``[1, t]`` cache at length
+    0 (a monolithic prefill's mini cache; Hkv 4, G 4, D 128, chunk 256 —
+    clamped for t < 256), bf16 or int8: within atol=rtol=1e-4 of its plain
+    version, bitwise run to run; its time by events and device time, its
+    plain version's, its bound and SDPA (causal, bf16) at the same
+    shape."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+
+    HKV, G, D, C = 4, 4, 128, 256
+    shape = (1, t, HKV, D)
+    if q8:
+        def leaf():
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  device=dev, dtype=torch.int8),
+                    (0.001 + 0.05 * torch.rand(shape[:-1], generator=gen,
+                                               device=dev))
+                    .to(torch.float16))
+    else:
+        def leaf():
+            return torch.randn(shape, generator=gen, device=dev) \
+                .to(torch.bfloat16)
+    kc, vc = leaf(), leaf()
+    qg = torch.randn(1, HKV, G, t, D, generator=gen, device=dev)
+    lengths = torch.zeros((1,), dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+
+    def run(i=0):
+        return k8.paged_decode_attention(qg, kc, vc, lengths, scale, C,
+                                         impl="cuda")
+    n0 = k8.launches
+    out, again = run(), run()
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths, scale, C)
+    torch.cuda.synchronize()
+    check(k8.launches == n0 + 2, "K8 at the bucket: not one launch a call")
+    check(torch.equal(out, again), f"K8 T={t} differs from itself run to "
+          "run")
+    tag = f"K8 monolithic {'int8' if q8 else 'bf16'} T={t}"
+    err = check_f32(tag + " (bitwise run to run)", out, ref, 1e-4, 1e-4)
+    ms = time_ms(torch, run, 100)
+    dms = device_ms(torch, run, "paged_decode_kernel")
+    plain = time_ms(torch, lambda i: k8.paged_decode_attention_reference(
+        qg, kc, vc, lengths, scale, C), 10, warm=1)
+    row = HKV * (D + 2) if q8 else HKV * D * 2
+    b_ms, b_by = bound(2 * t * row + 2 * HKV * G * t * D * 4 + 4,
+                       4 * HKV * G * D * t * (t + 1) // 2)
+    if lib_ms is None:
+        F = torch.nn.functional
+        qs = torch.randn(1, HKV * G, t, D, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        ks = torch.randn(1, HKV, t, D, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qs, ks, ks, is_causal=True, enable_gqa=True), 100)
+    dev_s = "not measured" if dms is None else f"{dms * 1e3:.1f} us"
+    print(f"{tag}: {ms * 1e3:.1f} us/launch (device {dev_s}), plain "
+          f"{plain * 1e3:.1f} us, SDPA causal {lib_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def obs_serve(torch, model, prompts, olens, **knobs):
+    """One observability-arm run on ``ENGINE``: ``(engine, registry,
+    requests, wall seconds)``."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import Request, ServingEngine
+
+    reg = MetricsRegistry()
+    eng = ServingEngine(model, **ENGINE, registry=reg, **knobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts, olens)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r, o in zip(reqs, olens):
+        check(r.status == "done" and len(r.output_ids) == o,
+              f"observability: request {r.rid} finished {r.status} with "
+              f"{len(r.output_ids)}/{o} tokens")
+    return eng, reg, reqs, wall
+
+
+def obs_phase(torch, model):
+    """(a): recorder on against off (bitwise streams), the dumps, the
+    timelines, the SLO gauges, a watchdog stall, a live scrape and the
+    spans in a profiler session."""
+    import tempfile
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.observability import MetricsExporter
+    from paddle_tpu_torch.serving import FaultPlan, Request
+
+    prompts, olens = serving_workload()
+    prompts = prompts[:OBS_REQUESTS]
+    olens = [min(o, OBS_NEW) for o in olens[:OBS_REQUESTS]]
+    # warm-up (cuBLAS handles, the allocator), so neither timed arm is
+    # the first run on a fresh model
+    obs_serve(torch, model, prompts[:1], [8], recorder=False)
+    on, reg, reqs, w_on = obs_serve(torch, model, prompts, olens)
+    _, _, off_reqs, w_off = obs_serve(torch, model, prompts, olens,
+                                      recorder=False)
+    streams = [list(r.output_ids) for r in reqs]
+    check(streams == [list(r.output_ids) for r in off_reqs],
+          "observability: recorder-on streams differ from recorder-off")
+    fr = on.recorder
+    kinds = {}
+    for e in fr.events():
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    check(kinds.get("submit") == len(prompts)
+          and kinds.get("retire") == len(prompts) and not fr.dumps,
+          f"observability: events {kinds}, dumps {fr.dumps}")
+    for r in reqs:
+        tl = r.timeline()
+        ts = [x["t"] for x in tl]
+        phases = [x["phase"] for x in tl]
+        check(ts == sorted(ts) and phases[0] == "queued"
+              and phases[-1] == "done" and "decoding" in phases
+              and phases.index("decoding") > phases.index("prefilling"),
+              f"observability: request {r.rid} timeline out of order: "
+              f"{phases}")
+    with tempfile.TemporaryDirectory() as tmp:
+        jl = fr.dump_jsonl(f"{tmp}/events.jsonl")
+        ct = fr.dump_chrome_trace(f"{tmp}/trace.json")
+        with open(jl, encoding="utf-8") as f:
+            back = [json.loads(ln) for ln in f]
+        with open(ct, encoding="utf-8") as f:
+            trace = json.load(f)
+    check(back == json.loads(json.dumps(fr.events(), default=str))
+          and len(trace["traceEvents"]) == len(back),
+          "observability: the JSONL / chrome-trace dumps do not read back")
+    text = reg.to_prometheus()
+    for fam in ('serving_slo_attainment{policy="continuous",'
+                'slo_class="interactive"}',
+                'serving_slo_burn_rate{policy="continuous",'
+                'slo_class="batch"}', "span_seconds_count",
+                "serving_queue_seconds_count"):
+        check(fam in text, f"observability: {fam} missing from /metrics")
+    att = on.slo_tracker.snapshot()["classes"]["interactive"]
+    res = dict(events=len(back), kinds=kinds, dropped=fr.dropped,
+               tok_per_s_on=sum(olens) / w_on,
+               tok_per_s_off=sum(olens) / w_off,
+               slo_interactive=att)
+    print(f"observability: recorder on/off streams bitwise equal, ok; "
+          f"events by kind {json.dumps(kinds)}; JSONL and chrome-trace "
+          f"dumps read back ({len(back)} events); timelines ordered; SLO "
+          f"interactive attainment {att['attainment']:.3f} burn "
+          f"{att['burn_rate']:.3f}; tok/s recorder on "
+          f"{res['tok_per_s_on']:.1f} / off {res['tok_per_s_off']:.1f} "
+          "(record only)", flush=True)
+
+    # a slow step under the watchdog: exactly one stall dump
+    plan = FaultPlan(slow_steps={4: 4.0})
+    wd, wreg, _, _ = obs_serve(torch, model, prompts[:2],
+                               [16, 16], faults=plan, watchdog=1.5)
+    wd.close()
+    dumps = [d["reason"] for d in wd.recorder.dumps]
+    stalls = wreg.get("serving_watchdog_stalls_total").labels(
+        component="continuous").value
+    check(dumps == ["stall"] and stalls == 1
+          and not wd._watchdog.is_alive,
+          f"observability: watchdog dumps {dumps}, stalls {stalls}")
+    res["watchdog_dumps"] = dumps
+    print(f"observability: a 4.0 s slow step under watchdog=1.5 gave one "
+          f"stall dump ({sum(1 for e in wd.recorder.events() if e['kind'] == 'stall')} "
+          "stall events), the thread stopped at close(), ok", flush=True)
+
+    # a live scrape, and the spans in a profiler session
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import ServingEngine
+
+    reg = MetricsRegistry()
+    eng = ServingEngine(model, **ENGINE, registry=reg)
+    exp = MetricsExporter(registry=reg, port=0,
+                          debug_sources=eng.debug_sources()).start()
+    try:
+        for p, o in zip(prompts, olens):
+            eng.submit(Request(p, min(o, 16)))
+        for _ in range(3):
+            eng.step()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+        scraped = {}
+        for path in ("/metrics", "/healthz", "/debug/flightrecorder"):
+            with urllib.request.urlopen(exp.url + path, timeout=10) as r:
+                scraped[path] = (r.status, r.read().decode())
+        eng.run()
+    finally:
+        exp.stop()
+    health = json.loads(scraped["/healthz"][1])
+    rec = json.loads(scraped["/debug/flightrecorder"][1])
+    check(all(s == 200 for s, _ in scraped.values())
+          and "serving_steps_total" in scraped["/metrics"][1]
+          and health["queue_depth"] is not None and rec["recorded"] > 0,
+          f"observability: scrape {health}")
+    spans = sorted(e.key for e in prof.key_averages()
+                   if e.key.startswith("serving."))
+    check({"serving.step", "serving.decode"} <= set(spans),
+          f"observability: the profiler shows the spans {spans}")
+    res.update(scrape_health=health, profiler_spans=spans)
+    print(f"observability: live scrape of /metrics, /healthz and "
+          f"/debug/flightrecorder during the run ({rec['recorded']} events, "
+          f"healthz {json.dumps(health)}), profiler spans {spans}, ok",
+          flush=True)
+    return res
+
+
+def mono_phase(torch, dev, model):
+    """(b): K8 at T = the prompt bucket against its plain version, timed;
+    then phase 3's 16 requests with monolithic against chunked prefill,
+    bf16 and int8 KV: K8 launched at every touched bucket's width, no plain
+    version, the token drift between the two."""
+    from paddle_tpu_torch.ops import paged_attention_cuda as k8
+    from paddle_tpu_torch.ops import prefill_attention_cuda as k9
+    from paddle_tpu_torch.serving import Request, ServingEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    res = dict(k8={})
+    for t in MONO_TIMED:
+        bf = k8_bucket(torch, dev, gen, t, False)
+        q8 = k8_bucket(torch, dev, gen, t, True, lib_ms=bf["library_ms"])
+        res["k8"][str(t)] = dict(bf16=bf, int8=q8)
+    prompts, olens = serving_workload()
+    olens = [min(o, MONO_NEW) for o in olens]
+    buckets = {}
+    for p in prompts:
+        b = 16
+        while b < p.size:
+            b *= 2
+        buckets[b] = buckets.get(b, 0) + 1
+    n_layers = SERVE_CFG["num_hidden_layers"]
+    streams = {}
+    for kv in ("bf16", "kv8"):
+        knobs = dict(kv_dtype="int8") if kv == "kv8" else {}
+        for pre in ("mono", "chunk"):
+            eng = ServingEngine(
+                model, **MONO_ENGINE, instrument=False, **knobs,
+                prefill_chunk=None if pre == "mono" else 256)
+            torch.cuda.synchronize()
+            k8.launches = k9.launches = k8.plain_runs = k9.plain_runs = 0
+            k8.launches_t.clear()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(Request(p, o)) for p, o in zip(prompts,
+                                                             olens)]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_t = dict(k8.launches_t)
+            tag = f"monolithic {kv} {pre}"
+            for r, o in zip(reqs, olens):
+                check(r.status == "done" and len(r.output_ids) == o,
+                      f"{tag}: request {r.rid} finished {r.status}")
+            check(k8.plain_runs == 0 and k9.plain_runs == 0,
+                  f"{tag}: a plain version ran")
+            if pre == "mono":
+                check(k9.launches == 0 and all(
+                    by_t.get(b) == n * n_layers
+                    for b, n in buckets.items()),
+                      f"{tag}: K8 by width {by_t}, buckets {buckets}")
+                res[f"{kv}_launches_by_t"] = {str(k): v
+                                              for k, v in by_t.items()}
+                if kv == "bf16":
+                    res["launches"] = sum(by_t.get(b, 0) for b in buckets)
+            else:
+                check(k9.launches > 0, f"{tag}: K9 did not launch")
+            streams[(kv, pre)] = [list(map(int, r.output_ids))
+                                  for r in reqs]
+            res[f"{kv}_{pre}_tok_per_s"] = sum(olens) / wall
+            del eng
+        dr, flip = drift(streams[(kv, "chunk")], streams[(kv, "mono")])
+        res[f"{kv}_drift"], res[f"{kv}_flip_per_tok"] = dr, flip
+        print(f"monolithic {kv}: K8 at T = every touched bucket "
+              f"{json.dumps(res[f'{kv}_launches_by_t'])} ({buckets} "
+              f"requests by bucket x {n_layers} layers), no plain version, "
+              f"ok; drift against chunked prefill {dr:.4f} of positions "
+              f"(first-divergence {flip:.4f} per token); tok/s mono "
+              f"{res[f'{kv}_mono_tok_per_s']:.1f} / chunked "
+              f"{res[f'{kv}_chunk_tok_per_s']:.1f} (record only)",
+              flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def tier_phase(torch, model):
+    """(c): the host tier on a pool that evicts the 768-token shared
+    prefix before its follower arrives: host hits and restores, streams
+    bit-equal to a pool that holds everything, and a corrupted tier that
+    falls back to prefill with the same streams."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import FaultPlan, Request, ServingEngine
+
+    prompts, _ = serving_workload()
+    # the leader, two long fillers that evict its chain, the follower
+    order = [0] + sorted(range(1, len(prompts) - 1),
+                         key=lambda i: -prompts[i].size)[:2] \
+        + [len(prompts) - 1]
+    reqs_in = [prompts[i] for i in order]
+
+    def run(pool, **knobs):
+        reg = MetricsRegistry()
+        eng = ServingEngine(model, **TIER_ENGINE, max_live_tokens=pool,
+                            registry=reg, **knobs)
+        reqs = [eng.submit(Request(p, TIER_NEW)) for p in reqs_in]
+        eng.run()
+        for r in reqs:
+            check(r.status == "done" and len(r.output_ids) == TIER_NEW,
+                  f"host tier: request {r.rid} finished {r.status}")
+        return eng, reg, [list(map(int, r.output_ids)) for r in reqs]
+
+    _, _, full = run(TIER_BIG)
+    eng, reg, tiered = run(TIER_SMALL, host_tier_bytes=1 << 30)
+    lbl = dict(policy="continuous")
+    host = eng.kv_manager.host_tier
+    hits = reg.get("serving_prefix_hits_total").labels(
+        policy="continuous", tier="host").value
+    restores = reg.get("serving_tier_restores_total").labels(**lbl).value
+    check(tiered == full and hits > 0 and restores > 0
+          and eng.stats()["host_reuse_tokens"] >= 768,
+          f"host tier: streams equal {tiered == full}, host hits {hits}, "
+          f"restores {restores}, {eng.stats()}")
+    restore_step = next(e["step"] for e in eng.recorder.events()
+                        if e["kind"] == "restore")
+    plan = FaultPlan(host_tier_corrupt={restore_step: ("*", "garble")})
+    _, creg, corrupt = run(TIER_SMALL, host_tier_bytes=1 << 30,
+                           faults=plan)
+    errs = creg.get("serving_host_tier_errors_total").labels(**lbl).value
+    check(corrupt == full and errs > 0
+          and plan.stats["host_corrupts"] == 1,
+          f"host tier: the corrupted arm's streams equal "
+          f"{corrupt == full}, errors {errs}")
+    res = dict(host_hits=hits, restores=restores,
+               host_reuse_tokens=eng.stats()["host_reuse_tokens"],
+               demoted=host.stats["demoted"], corrupt_errors=errs,
+               restore_ms=[s * 1e3 for s in eng._restore_s])
+    print(f"host tier: {int(restores)} blocks restored in {int(hits)} host "
+          f"hits ({res['host_reuse_tokens']} tokens; restore "
+          f"{', '.join(f'{x:.2f}' for x in res['restore_ms'])} ms), "
+          f"{host.stats['demoted']} demoted; streams bit-equal to the pool "
+          f"that holds everything, ok; a garbled tier at step "
+          f"{restore_step} fell back to prefill ({int(errs)} rejected), "
+          "streams equal, ok", flush=True)
+    return res
+
+
+def phase_observability(torch, dev):
+    """Phase 3e (module docstring): the request observability layer,
+    monolithic prefill (K8 at T = the prompt bucket) and the host KV tier
+    on the serving model at full width."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CFG), device=dev, seed=0)
+    res = dict(observability=obs_phase(torch, model))
+    res["monolithic"] = mono_phase(torch, dev, model)
+    res["host_tier"] = tier_phase(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    print("observability " + json.dumps(res, default=str), flush=True)
+    return res
+
+
 # ----------------------------------------------------------------- phase 4
 def phase_parity(torch, dev):
     from paddle_tpu_torch.models import llama_decode as ld
@@ -2022,6 +2434,22 @@ def phase_parity(torch, dev):
         print(f"parity {tag}: token match rate {match}/{total} = "
               f"{match / max(total, 1):.4f}", flush=True)
         res[tag] = dict(match=match, total=total)
+        if tag == "f32":
+            # monolithic against chunked prefill on the card (dense
+            # caches, which monolithic prefill needs): K8 at T = the
+            # bucket against K9, both in f32
+            dense = {}
+            for pre in (None, 256):
+                eng = ServingEngine(gpu, **MONO_ENGINE, prefill_chunk=pre,
+                                    instrument=False)
+                reqs = [eng.submit(Request(p, new)) for p in prompts]
+                eng.run()
+                dense[pre] = [list(r.output_ids) for r in reqs]
+            check(dense[None] == dense[256] == out_g,
+                  "parity f32: monolithic and chunked prefill streams "
+                  "differ on the card")
+            print("parity f32: monolithic prefill streams equal chunked "
+                  "(dense) and paged on the card, ok", flush=True)
     return res
 
 
@@ -3512,6 +3940,10 @@ def main():
     print(f"phase tensor parallelism: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
+    obs = phase_observability(torch, dev)
+    print(f"phase observability: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
     phase_parity(torch, dev)
     print(f"phase parity: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
@@ -3558,6 +3990,15 @@ def main():
              branch="hidden key range (the tree verify's branch row)",
              launches=spec["dm_self_tree"]["launches"]["k8_hidden"],
              **kern["paged_decode_attention_range"]),
+        dict(name="paged_decode_attention_prefill", route="cuda",
+             source=f"{csrc}/paged_decode_attention.cu",
+             replaces="paddle_tpu/ops/paged_attention_pallas.py:259",
+             branch="T = the prompt bucket (monolithic prefill over a "
+                    "[1, bucket] cache)",
+             launches=obs["monolithic"]["launches"],
+             launches_by_t=obs["monolithic"]["bf16_launches_by_t"],
+             **obs["monolithic"]["k8"][str(MONO_TIMED[-1])]["bf16"],
+             by_t=obs["monolithic"]["k8"]),
         dict(name="prefill_attention", route="cuda",
              source=f"{csrc}/prefill_attention.cu",
              replaces="paddle_tpu/ops/prefill_attention_pallas.py:418",

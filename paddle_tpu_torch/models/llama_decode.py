@@ -31,6 +31,16 @@ asynchronously behind the next segment's GEMM).  ``lm_head`` is
 replicated, so every rank computes the same logits and picks the same
 tokens.
 
+Monolithic prefill (``serving_prefill_slot``) runs a whole ``[1, bucket]``
+prompt against fresh ``[1, bucket]`` mini caches through ``_forward`` —
+on the card K8 with ``T = bucket`` query rows — and copies the rows into
+the slot of the batch cache.
+
+Every serving entry point books its dispatch in ``_mon``
+(``CompileCacheMonitor("llama_decode")``) under the signature
+``jax.jit`` keyed the reference's program on, so ``trace_counts()``
+counts the programs the reference would have compiled for the same run.
+
 ``quantize_decode_weights`` makes the seven projections int8 with one
 f16 scale per output channel; ``_mm`` then dequantizes in the matmul,
 ``(x @ w.to(x.dtype)) * s.to(x.dtype)``: a plain ``torch.matmul``, as
@@ -49,14 +59,18 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from paddle_tpu_torch.observability.compilecache import CompileCacheMonitor
 from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, init_kv_cache, slot_prefill_attention,
 )
 
 __all__ = ["extract_decode_params", "decode_greedy", "decode_speculative",
-           "quantize_decode_weights", "serving_prefill_chunk",
-           "serving_decode_steps", "serving_spec_step",
-           "serving_spec_draft_step"]
+           "quantize_decode_weights", "serving_prefill_slot",
+           "serving_prefill_chunk", "serving_decode_steps",
+           "serving_spec_step", "serving_spec_draft_step"]
+
+#: first dispatches of each serving program's signature (module docstring)
+_mon = CompileCacheMonitor("llama_decode")
 
 #: the projections ``weight_dtype="int8"`` quantizes; norm gains, the
 #: embedding and ``lm_head`` keep the checkpoint dtype
@@ -212,6 +226,18 @@ def _rope_at(q, k, cos_t, sin_t, positions):
 def _pk_axis(program_key, name):
     return getattr(program_key, name, None) if program_key is not None \
         else None
+
+
+def _sig(cfg, program_key, chunk_size, caches, *shapes):
+    """The static part of a serving dispatch, as ``jax.jit`` keyed it:
+    ``cfg``, the program key, the chunk width, the caches' layer count,
+    leaf shapes and dtypes, and the given operand shapes (None for an
+    absent operand)."""
+    leaf = caches[0][0]
+    leaves = leaf if isinstance(leaf, tuple) else (leaf,)
+    return (cfg, program_key, chunk_size, len(caches),
+            tuple((tuple(x.shape), x.dtype) for x in leaves),
+            tuple(None if x is None else tuple(x.shape) for x in shapes))
 
 
 def _tp_of(program_key, tp_group):
@@ -429,6 +455,9 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
     t = tokens.shape[1]
     nh, nkv, hd, eps = cfg
     offset, slot = int(offset), int(slot)
+    _mon.dispatch("serving_prefill_chunk", _sig(
+        cfg, program_key, chunk_size, caches, tokens, block_tables, hist,
+        params["embed"]))
     h = params["embed"][tokens.long()]                        # [1, P, hidden]
     cos_t, sin_t = params["_rope"]
     tp = _tp_of(program_key, tp_group)
@@ -453,6 +482,64 @@ def serving_prefill_chunk(params, cfg, tokens, offset, prompt_len, caches,
     return first, ok, caches
 
 
+def serving_prefill_slot(params, cfg, tokens, prompt_len, caches, slot,
+                         chunk_size=None, program_key=None, hist=None,
+                         hist_len=None, tp_group=None):
+    """Admit one request by monolithic prefill: its whole prompt
+    ``tokens [1, bucket]`` (right-padded to the engine's bucket) against
+    fresh ``[1, bucket]`` mini caches, so the admission costs the prompt's
+    tokens whatever the batch.  The logits at the last prompt column
+    (``prompt_len - 1``, a host int; pad columns are causally invisible
+    to it) give the first token.  Each layer's mini-cache rows are then
+    copied into rows ``[0, bucket)`` of slot ``slot`` of the dense batch
+    cache, in place; rows past the prompt are stale pads, invisible to
+    the position masking and overwritten as the slot decodes.
+
+    The mini caches take the program key's ``kv_dtype`` ("int8" makes
+    them ``(data, scale)`` pairs, the batch cache's structure, so both
+    leaves are copied) and otherwise the model dtype (a float batch cache
+    of another dtype takes the rows cast).  With ``hist`` / ``hist_len``
+    (the prompt-lookup history, on the device) the slot's row is rebuilt
+    in place: the prompt, the first token at ``prompt_len``, and
+    ``hist_len[slot] = prompt_len + 1``.  ``tp_group`` as in
+    ``serving_prefill_chunk``.  Returns ``(first [1], ok [1] — all logits
+    finite —, caches)``, ``first`` and ``ok`` left on the device."""
+    t = tokens.shape[1]
+    nh, nkv, hd, eps = cfg
+    slot, plen = int(slot), int(prompt_len)
+    _mon.dispatch("serving_prefill_slot", _sig(
+        cfg, program_key, chunk_size, caches, tokens, hist,
+        params["embed"]))
+    dev = tokens.device
+    kvd = _pk_axis(program_key, "kv_dtype")
+    dtype = kvd if kvd is not None else params["embed"].dtype
+    mini = [init_kv_cache(1, t, nkv, hd, dtype, dev) for _ in caches]
+    last = torch.full((1,), min(max(plen - 1, 0), t - 1), dtype=torch.int32,
+                      device=dev)
+    logits, mini, _ = _forward(
+        params, cfg, tokens, mini, torch.zeros((1,), dtype=torch.int32,
+                                               device=dev),
+        last_only=True, last_idx=last, chunk_size=chunk_size,
+        attn_impl=_pk_axis(program_key, "attn_impl"),
+        tp=_tp_of(program_key, tp_group))
+    first = torch.argmax(logits, dim=-1).to(torch.int32)      # [1]
+    ok = torch.isfinite(logits).all(dim=-1)                   # [1]
+    for (kc, vc), (mk, mv) in zip(caches, mini):
+        for c, m in ((kc, mk), (vc, mv)):
+            for cl, ml in (zip(c, m) if isinstance(c, tuple)
+                           else ((c, m),)):
+                cl[slot, :t].copy_(ml[0])
+    if hist is not None:
+        lmax = hist.shape[1]
+        row = torch.zeros((lmax,), dtype=torch.int32, device=dev)
+        n = min(t, lmax)
+        row[:n] = tokens[0, :n].to(torch.int32)
+        row[min(max(plen, 0), lmax - 1)] = first[0]
+        hist[slot] = row
+        hist_len[slot] = plen + 1
+    return first, ok, caches
+
+
 def serving_decode_steps(params, cfg, cur, caches, dev_lengths, n_steps=1,
                          chunk_size=None, block_tables=None,
                          program_key=None, tp_group=None):
@@ -461,6 +548,9 @@ def serving_decode_steps(params, cfg, cur, caches, dev_lengths, n_steps=1,
     every cache write and read one chunk.  Returns ``(tokens [B,
     n_steps] int32, ok [B] — every step's logits finite for that slot —,
     caches)``, all left on the device."""
+    _mon.dispatch("serving_decode_steps", _sig(
+        cfg, program_key, chunk_size, caches, cur, block_tables,
+        params["embed"]) + (int(n_steps),))
     tok = cur.to(torch.int32)
     lengths = dev_lengths.to(torch.int32)
     ok = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
@@ -509,6 +599,9 @@ def serving_spec_step(params, cfg, cur, caches, dev_lengths, hist, hist_len,
     slots, the carry a pipelined engine feeds into the next dispatch
     without a host sync —, ok [B] — the verify logits finite)``, all left
     on the device."""
+    _mon.dispatch("serving_spec_step", _sig(
+        cfg, program_key, chunk_size, caches, cur, block_tables, hist,
+        params["embed"]) + (int(spec_k),))
     lmax = hist.shape[1]
     cur = cur.to(torch.int32)
     dev_lengths = dev_lengths.to(torch.int32)
@@ -607,6 +700,10 @@ def serving_spec_draft_step(params, dparams, cfg, dcfg, cur, caches, dcaches,
             "serving_spec_draft_step: spec_tree='top2' requires dense "
             "caches — the branch-row repair copies dense cache rows")
     dc = caches if paged else dcaches
+    _mon.dispatch("serving_spec_draft_step", _sig(
+        cfg, program_key, chunk_size, caches, cur, block_tables,
+        draft_tables, params["embed"], dparams["embed"])
+        + (dcfg, int(spec_k), _sig(dcfg, None, None, dc)))
     cur = cur.to(torch.int32)
     dlen = dev_lengths.to(torch.int32)
     attn_impl = _pk_axis(program_key, "attn_impl")
@@ -681,9 +778,10 @@ def decode_greedy(model, input_ids, max_new_tokens=32, max_len=None,
     prompts ``input_ids [B, prompt_len]`` on a dense cache; returns
     ``[B, max_new_tokens]`` int32.  Runs on the model's device: the whole
     prompt goes through one forward step, then one step per token.  On
-    the card the attention read is the K8 kernel, which needs
-    ``chunk_size`` dividing ``max_len``; ``chunk_size=None`` (the
-    reference's default full read) is for the plain version."""
+    the card the attention read is the K8 kernel, which needs a
+    ``chunk_size`` that divides ``max_len`` or spans it
+    (``fused_decode_supported``); ``chunk_size=None`` (the reference's
+    default full read) is for the plain version."""
     dev = model.llama.embed_tokens.weight.device
     ids = torch.as_tensor(input_ids, device=dev).to(torch.int32)
     b, prompt_len = ids.shape

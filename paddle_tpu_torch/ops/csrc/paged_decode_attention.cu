@@ -49,6 +49,11 @@
 // span wholly hidden for a row leaves (m = -1e30, l = 0) like an empty
 // one and merges with weight 0.  The range is a template flag, so the
 // instances without it are the kernels they were.
+// A dense cache may be shorter than one chunk (the wrapper then passes the
+// span rounded up to the 32-key sub-tile as C): keys at or past lmax are
+// never read.  Monolithic prefill runs the kernel this way at T = the
+// prompt bucket (16-1024 query rows a slot) over a fresh [1, bucket]
+// cache, G*T/16 row groups of one batch row.
 // The page table is read in the kernel (physical block
 // clamp(table[b, i], 0, N-1), the reference's mode="clip" gather: a
 // sentinel reads a real block whose rows the mask discards); a row reads
@@ -172,11 +177,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int eff = length < lmax ? length : 0;
   const int n_iter = min((eff + Tq + C - 1) / C, n_chunks);
   // keys past the CTA's last query position are masked for every row:
-  // no span holds only such keys
+  // no span holds only such keys; nor do keys at or past lmax (a dense
+  // span shorter than its one chunk, such as a monolithic prefill's
+  // [1, bucket] mini cache)
   const long long qpos_hi =
       static_cast<long long>(length) + last_token(row0, R, Tq);
   const int kv_end = static_cast<int>(
-      min(static_cast<long long>(n_iter) * C, qpos_hi + 1));
+      min(min(static_cast<long long>(n_iter) * C, qpos_hi + 1),
+          static_cast<long long>(lmax)));
   const int n_split = (kv_end + split - 1) / split;
   if (j >= n_split) return;
   const int key_lo = j * split, key_hi = min(key_lo + split, kv_end);

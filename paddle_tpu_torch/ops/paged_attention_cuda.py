@@ -138,16 +138,31 @@ def workspace(dev, n_rows, d, n_tickets):
     return ws
 
 
-def fused_decode_supported(chunk_size, lmax, head_dim):
+def kernel_chunk(chunk_size, lmax, dense):
+    """The chunk K8 reads a cache with: ``chunk_size``, except that a
+    DENSE span shorter than it (a monolithic prefill's ``[1, bucket]``
+    mini cache, a small engine's batch cache) is read as one chunk of the
+    span rounded up to the 32-key sub-tile; the kernel masks keys at or
+    past ``lmax``.  A paged pool's chunk is its block."""
+    c = int(chunk_size)
+    if dense and c > lmax:
+        c = -(-int(lmax) // _KEYS) * _KEYS
+    return c
+
+
+def fused_decode_supported(chunk_size, lmax, head_dim, dense=False):
     """Geometry gate for the K8 kernel: ``None`` when supported, else
     the reason.  The reference gate (``chunk_size`` set and dividing the
     span) plus the kernel's own tiling: chunks made of whole 32-key
-    sub-tiles, and ``head_dim <= 256``."""
+    sub-tiles, and ``head_dim <= 256``.  With ``dense`` a span shorter
+    than the chunk is covered too, as one chunk (``kernel_chunk``) —
+    where the reference's gate refused such a span and fell back to its
+    plain read (``paddle_tpu/ops/paged_attention_pallas.py:72-96``)."""
     if chunk_size is None:
         return ("chunk_size=None selects the single full-length read, "
                 "which the kernel does not implement")
-    c = int(chunk_size)
-    if c > lmax or lmax % c:
+    c = kernel_chunk(chunk_size, lmax, dense)
+    if c < lmax and lmax % c or not dense and c > lmax:
         return (f"chunk_size ({c}) must divide the cache span ({lmax}) "
                 "for uniform kernel blocks")
     if c % _KEYS:
@@ -241,11 +256,12 @@ def _launch(qg, k_cache, v_cache, lengths, scale, chunk_size, block_table,
                              f"{kd.shape[0]} != {b}")
         lmax = kd.shape[1]
         n_blocks = 0
-    reason = fused_decode_supported(chunk_size, lmax, d)
+    dense = block_table is None
+    reason = fused_decode_supported(chunk_size, lmax, d, dense=dense)
     if reason is not None:
         raise ValueError(f"paged_decode_attention: {reason}")
-    c = int(chunk_size)
-    n_chunks = lmax // c
+    c = kernel_chunk(chunk_size, lmax, dense)
+    n_chunks = -(-lmax // c)
     out = torch.empty((b, hkv, g, t, d), dtype=torch.float32, device=dev)
     n_rows, n_tickets = workspace_numel(b, hkv, g * t, d, lmax)
     ws_acc, ws_ml, tickets = workspace(dev, n_rows, d, n_tickets)

@@ -11,7 +11,12 @@ queued requests into them between steps:
   most ``prefill_budget`` chunks per scheduler step, so a long prompt
   never stalls resident decode for its whole prefill.  The final
   chunk's first token stays on the device and feeds the slot's first
-  decode dispatch.
+  decode dispatch.  ``prefill_chunk=None`` is the monolithic prefill of
+  a dense engine: each admission runs its whole prompt, padded to its
+  bucket, against fresh ``[1, bucket]`` mini caches
+  (``serving_prefill_slot``; on the card K8 with ``T = bucket`` query
+  rows) and copies the rows into the slot; the wave's first tokens are
+  read once, at admission.
 * **Dense or paged KV** (``kv_block``): the paged geometry budgets
   admission in tokens (``max_live_tokens``), adopts identical prompt
   prefixes from a radix cache instead of re-prefilling them, and evicts
@@ -99,19 +104,48 @@ nothing falls back.
   of step); an injected fault, raised on every rank alike before any
   launch, still is.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-the request-scoped observability layer (flight recorder, SLO tracker and
-classes, watchdog), the host KV tier, prefill/decode disaggregation and
-the monolithic (``prefill_chunk=None``) prefill.
+* **Request observability** (host bookkeeping only: no device value is
+  read for it, and the token streams are bitwise the same with the
+  recorder on or off).  ``recorder`` (default on) keeps a
+  ``FlightRecorder`` of engine events — the reference's kinds and
+  detail keys, from ``submit`` to ``retire`` — that auto-dumps on a
+  ``timed_out`` or ``poisoned`` retirement and on retry exhaustion, and
+  a ``RequestTrace`` a request (``Request.timeline()``) that feeds the
+  queue / prefill / decode phase histograms at retirement.  ``slo``
+  scores every retirement against its class's objectives
+  (``Request(slo_class=)``; windowed attainment and burn-rate gauges).
+  ``watchdog=<seconds>`` arms a ``DeadlockWatchdog`` thread that dumps
+  every thread's stack through the recorder when the step loop stalls
+  with work outstanding; ``close()`` stops it.  The steps, prefills and
+  dispatches run under the ``serving.*`` spans, which show in a
+  ``torch.profiler`` session.  ``debug_sources()`` plugs ``/debug/
+  requests``, ``/debug/flightrecorder`` and ``/debug/slo`` into a
+  ``MetricsExporter``.  Under TP each rank keeps its own recorder, with
+  the same events as rank 0's.
+
+* **Host KV tier** (``host_tier_bytes`` or a shared ``host_tier``
+  ``BlockStore``; paged engines): LRU eviction demotes registered prefix
+  chains into host RAM instead of destroying them (gathered on the
+  device at eviction, copied to the host between steps by the pump), and
+  admission restores the host continuation of a prompt into the pool
+  (``host_tier_min_blocks`` blocks at least) before the radix match, so
+  a restored prefix is adopted, not prefilled.  A damaged entry
+  (``FaultPlan(host_tier_corrupt=)``) fails its CRC or shape check and
+  falls back to prefill.
+
+Not ported yet (raises ``NotImplementedError`` naming its slice):
+prefill/decode disaggregation (``prefill_only`` / ``on_prefilled``).
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 import warnings
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -121,8 +155,13 @@ from paddle_tpu_torch.core.device import h2d, resolve_impl
 from paddle_tpu_torch.models.llama_decode import (
     QUANT_WEIGHTS, _decode_params_of, _rope_tables, canon_weight_dtype,
     quantize_decode_weights, serving_decode_steps, serving_prefill_chunk,
-    serving_spec_draft_step, serving_spec_step,
+    serving_prefill_slot, serving_spec_draft_step, serving_spec_step,
 )
+from paddle_tpu_torch.observability.flightrecorder import (
+    FlightRecorder, RequestTrace,
+)
+from paddle_tpu_torch.observability.slo import SLOTracker
+from paddle_tpu_torch.observability.watchdog import DeadlockWatchdog
 from paddle_tpu_torch.ops.decode_attention import init_kv_cache
 from paddle_tpu_torch.ops.decode_attention import kv_dtype as _kv_dtype
 from paddle_tpu_torch.ops.paged_attention_cuda import fused_decode_supported
@@ -131,7 +170,7 @@ from paddle_tpu_torch.ops.prefill_attention_cuda import (
 )
 from paddle_tpu_torch.serving.faults import InjectedDispatchError
 from paddle_tpu_torch.serving.kv_cache import (
-    KVCacheManager, KVPoolExhausted, PagedKVCacheManager,
+    BlockStore, KVCacheManager, KVPoolExhausted, PagedKVCacheManager,
 )
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.program_key import ProgramKey
@@ -141,6 +180,8 @@ __all__ = ["AcceptWindow", "EngineOverloaded", "KVPoolExhausted", "Request",
            "ServingEngine", "SpecConfig"]
 
 _LOG = logging.getLogger(__name__)
+
+_NULL_CTX = contextlib.nullcontext()
 
 #: the errors a dispatch or fetch retries.  ``torch.cuda.OutOfMemoryError``
 #: is the one CUDA error PyTorch raises on the host, from the caching
@@ -206,9 +247,10 @@ class SpecConfig:
     ``spec_k``); under the adaptive policy, the depth ceiling.
     ``adaptive_window``: ``None`` = fixed depth; an int >= 1 sizes each
     slot's sliding window of rounds whose accept rate moves the depth
-    ladder.  ``k_min``: the ladder's floor.  ``tree``: ``None`` or
-    ``"top2"`` (validated; the engine raises ``NotImplementedError`` for
-    it — not ported yet)."""
+    ladder.  ``k_min``: the ladder's floor.  ``tree``: ``None`` (the
+    linear chain) or ``"top2"`` (the draft's second choice verified as a
+    branch row in the same forward; ``source="draft_model"`` and dense
+    caches)."""
 
     source: str = "prompt_lookup"
     draft_model: object = None
@@ -347,13 +389,18 @@ class Request:
     ``latency``.  ``status``: ``None`` while in flight, then one of
     ``"done"``, ``"timed_out"``, ``"cancelled"``, ``"poisoned"``
     (non-finite logits quarantine) or ``"shed"`` (rejected at submit; the
-    only terminal status that leaves ``done`` False)."""
+    only terminal status that leaves ``done`` False).  ``slo_class``
+    names the request's traffic class for the engine's SLO tracker
+    (``None``: ``"interactive"``; keep classes few — they label gauges).
+    ``timeline()``: the lifecycle transitions the engine recorded
+    (``queued`` -> ``prefilling`` a chunk -> ``decoding`` -> the terminal
+    status) as ``{"t", "phase", ...}`` dicts on the ``perf_counter``
+    clock; empty before ``submit()`` or with the recorder off."""
 
     def __init__(self, prompt_ids, max_new_tokens, eos_token_id=None,
                  stream_cb=None, rid=None, deadline_ms=None, slo_class=None,
                  priority=0):
-        if slo_class is not None:
-            _not_ported("Request", "slo_class", "observability")
+        self.slo_class = None if slo_class is None else str(slo_class)
         self.deadline_ms = (float(deadline_ms)
                             if deadline_ms is not None else None)
         if self.deadline_ms is not None and self.deadline_ms < 0:
@@ -379,7 +426,14 @@ class Request:
         self.t_first = None
         self.t_done = None
         self._bucket = None
+        self._trace = None        # RequestTrace, attached at submit()
         self._cb_err_logged = False
+
+    def timeline(self):
+        """The lifecycle transitions recorded for this request (class
+        docstring); ``[]`` before ``submit()``."""
+        tr = self._trace
+        return [] if tr is None else tr.as_dicts()
 
     @property
     def latency(self):
@@ -419,6 +473,9 @@ class ServingEngine:
     card) or ``"reference"`` (plain versions; CPU only).  ``mode``:
     ``"greedy"`` or ``"spec"`` (speculative decoding; ``spec`` a
     ``SpecConfig`` or its kwargs dict, ``spec_k`` the default depth).
+    ``prefill_chunk=None``: monolithic prefill, one ``[1, bucket]``
+    forward an admission (dense engines, no draft model; module
+    docstring).
     ``max_pending`` / ``retry_attempts`` / ``retry_backoff`` / ``faults``:
     the reliability layer (module docstring).  ``mesh`` / ``tp_axis``:
     tensor parallelism over a ``DeviceMesh`` dimension (module
@@ -427,8 +484,18 @@ class ServingEngine:
     >= 2, the output-feature segments of each row-parallel product, each
     all-reduced behind the next one's GEMM (``models/llama_decode.py``
     ``_mm_reduce``).  ``registry`` /
-    ``instrument``: metrics.  ``recorder`` defaults to ``False`` here —
-    the flight recorder is not ported yet."""
+    ``instrument``: metrics.  ``recorder``: ``True`` (default) builds a
+    ``FlightRecorder``, ``False`` turns request-scoped recording off
+    (timelines included), or pass a configured one (capacity,
+    ``dump_dir``).  ``slo``: ``None`` (``DEFAULT_OBJECTIVES``), an
+    iterable of ``SLObjective`` or an ``SLOTracker``.  ``watchdog``:
+    seconds of step-loop staleness (with work outstanding) that dump
+    every thread's stack.  ``host_tier_bytes`` / ``host_tier`` /
+    ``host_tier_min_blocks``: the host KV tier (paged engines; a budget
+    builds a private ``BlockStore``, ``host_tier`` shares one; chains
+    shorter than ``host_tier_min_blocks`` blocks are prefilled instead
+    of restored).  ``prefill_only`` / ``on_prefilled``
+    (disaggregation) are not ported and raise."""
 
     def __init__(self, model, batch_size=8, max_len=2048, mode="greedy",
                  sync_every=1, policy="continuous", prompt_buckets=None,
@@ -439,9 +506,9 @@ class ServingEngine:
                  spec_k=8, spec=None, weight_dtype=None, mesh=None,
                  tp_axis="mp", tp_overlap=None, max_pending=None,
                  retry_attempts=3, retry_backoff=0.05, faults=None,
-                 recorder=False, slo=None, watchdog=None,
+                 recorder=True, slo=None, watchdog=None,
                  host_tier_bytes=None, host_tier=None,
-                 host_tier_min_blocks=None, prefill_only=False,
+                 host_tier_min_blocks=1, prefill_only=False,
                  on_prefilled=None):
         where = "ServingEngine"
         if mode not in ("greedy", "spec"):
@@ -493,20 +560,9 @@ class ServingEngine:
                 raise ValueError(
                     f"ServingEngine: tp_overlap must be None or an int "
                     f">= 2 (segment count), got {tp_overlap!r}")
-        if recorder not in (False, None) or slo is not None \
-                or watchdog is not None:
-            _not_ported(where, "recorder / slo / watchdog",
-                        "observability")
-        if (host_tier_bytes is not None or host_tier is not None
-                or host_tier_min_blocks is not None):
-            _not_ported(where, "the host KV tier (host_tier*)",
-                        "tiered KV cache")
         if prefill_only or on_prefilled is not None:
             _not_ported(where, "prefill_only / on_prefilled",
                         "prefill/decode disaggregation")
-        if prefill_chunk is None:
-            _not_ported(where, "prefill_chunk=None (monolithic prefill)",
-                        "monolithic prefill")
         # a TP rank runs on its mesh's device (a CPU-resident model is
         # sharded there and each shard moved); otherwise on the model's
         self._model_device = model.llama.embed_tokens.weight.device
@@ -518,6 +574,27 @@ class ServingEngine:
         self._m = (EngineMetrics(registry, policy, int(batch_size),
                                  mesh_devices=self._tp_n)
                    if instrument else None)
+        # request-scoped observability: the flight-recorder ring, the
+        # rid-keyed lifecycle traces and the SLO window, fed from host
+        # values only
+        if recorder is True:
+            recorder = FlightRecorder(policy=policy)
+        elif recorder is False:
+            recorder = None
+        self._fr = recorder
+        if self._fr is not None and self._fr.on_dump is None \
+                and self._m is not None:
+            self._fr.on_dump = self._m.recorder_dump
+        if isinstance(slo, SLOTracker):
+            self._slo = slo
+        else:
+            self._slo = SLOTracker(
+                objectives=slo, policy=policy,
+                registry=self._m.registry if self._m is not None else None)
+        self._traces = OrderedDict()   # rid -> RequestTrace, newest last
+        self._trace_cap = 1024
+        self._trace_lock = threading.Lock()
+        self._last_step_unix = 0.0     # the watchdog's progress probe
         self._B = int(batch_size)
         self._lmax = int(max_len)
         self._sync = max(1, int(sync_every))
@@ -525,13 +602,25 @@ class ServingEngine:
         self._detok = detokenizer
         self._pipeline = bool(pipeline)
         self._chunk = int(decode_chunk) if decode_chunk else None
-        self._pchunk = min(int(prefill_chunk), self._lmax)
-        if self._pchunk < 1:
-            raise ValueError("prefill_chunk must be >= 1")
+        # None: monolithic prefill (one [1, bucket] forward an admission)
+        self._pchunk = (min(int(prefill_chunk), self._lmax)
+                        if prefill_chunk else None)
+        if self._pchunk is not None and self._pchunk < 1:
+            raise ValueError("prefill_chunk must be >= 1 or None")
         self._pbudget = max(1, int(prefill_budget))
+        if self._dspec and self._pchunk is None:
+            raise ValueError(
+                "SpecConfig(source='draft_model') requires chunked "
+                "prefill (prefill_chunk=): the draft model's prompt KV "
+                "is built by per-chunk draft prefill dispatches riding "
+                "the admission path")
         self._paged = kv_block is not None
         if self._paged:
             kv_block = int(kv_block)
+            if self._pchunk is None:
+                raise ValueError(
+                    "paged KV (kv_block=) requires chunked prefill "
+                    "(prefill_chunk=)")
             if self._pchunk % kv_block and kv_block % self._pchunk:
                 raise ValueError(
                     f"prefill_chunk ({self._pchunk}) and kv_block "
@@ -584,21 +673,25 @@ class ServingEngine:
         self._prefill_impl = _resolve_engine_impl(
             "prefill_impl", prefill_impl, self._device)
         # the kernels cover every verify width (T = k+1 rows a slot):
-        # the gates depend on the cache geometry and head_dim only
+        # the gates depend on the cache geometry and head_dim only (the
+        # monolithic prefill's mini caches are gated with the buckets)
         for hdim in (hd, self._dcfg[2]) if self._dspec else (hd,):
             if self._attn_impl == "cuda":
                 reason = fused_decode_supported(self._chunk, self._lmax,
-                                                hdim)
+                                                hdim, dense=not self._paged)
                 if reason is not None:
                     raise ValueError(f"{where}: the decode kernel (K8) does "
                                      f"not cover this geometry — {reason}")
-            if self._prefill_impl == "cuda":
+            if self._prefill_impl == "cuda" and self._pchunk is not None:
                 reason = fused_prefill_supported(
                     self._chunk, self._lmax, self._pchunk, self._paged, hdim)
                 if reason is not None:
                     raise ValueError(f"{where}: the prefill kernel (K9) "
                                      f"does not cover this geometry — "
                                      f"{reason}")
+        # the dispatch events' labels
+        self._kvq = "int8" if self._q8 else "off"
+        self._wq = "int8" if self._w8 else "off"
         self._pk = ProgramKey(attn_impl=self._attn_impl,
                               prefill_impl=self._prefill_impl,
                               kv_dtype="int8" if self._q8 else None,
@@ -629,6 +722,26 @@ class ServingEngine:
         self._k_want = [len(self._k_rungs) - 1] * self._B
         self._spec_pks = {k: self._pk.replace(spec_depth=k)
                           for k in self._k_rungs} if spec else {}
+        # host KV tier: evictions demote into a byte-budgeted host-RAM
+        # BlockStore and admission restores from it (a copy, not a suffix
+        # prefill); ``host_tier=`` shares a caller-built store
+        if host_tier is not None and host_tier_bytes is not None:
+            raise ValueError(
+                "pass host_tier= (a BlockStore) OR host_tier_bytes= (a "
+                "budget for a private one), not both")
+        host_store = host_tier
+        if host_store is None and host_tier_bytes:
+            if not self._paged:
+                raise ValueError(
+                    "host_tier_bytes requires paged KV (kv_block=): only "
+                    "a block pool has demotable prefix chains")
+            host_store = BlockStore(int(host_tier_bytes), block=kv_block)
+        if host_store is not None and not self._paged:
+            raise ValueError(
+                "host_tier requires paged KV (kv_block=): only a block "
+                "pool has demotable prefix chains")
+        self._host_min_blocks = max(1, int(host_tier_min_blocks))
+        self._restore_s = []   # per-admission restore wall times
         # the caches hold this rank's heads (all of them without a mesh)
         local_nkv = self._cfg[1]
         if self._paged:
@@ -641,7 +754,8 @@ class ServingEngine:
                 max_live_tokens=(int(max_live_tokens) if max_live_tokens
                                  else (2 if self._dspec else 1)
                                  * self._B * self._lmax),
-                device=self._device, on_event=self._kv_event)
+                device=self._device, on_event=self._kv_event,
+                host_store=host_store)
         else:
             self._kv = KVCacheManager(len(self._params["layers"]), self._B,
                                       self._lmax, local_nkv, hd, dtype,
@@ -689,6 +803,16 @@ class ServingEngine:
             raise ValueError(
                 "prompt_buckets must be sorted strictly ascending (submit "
                 f"bisects over them), got {self._buckets}")
+        if self._pchunk is None and self._attn_impl == "cuda":
+            # monolithic prefill reads each bucket's [1, bucket] mini
+            # cache with K8 at T = bucket
+            for b in self._buckets:
+                reason = fused_decode_supported(self._chunk, b, hd,
+                                                dense=True)
+                if reason is not None:
+                    raise ValueError(
+                        f"{where}: the decode kernel (K8) does not cover "
+                        f"the prompt bucket {b} — {reason}")
         self._cur = np.zeros((self._B,), np.int32)   # host next-token mirror
         # the prompt-lookup history, on the device (a draft model needs
         # none)
@@ -735,12 +859,36 @@ class ServingEngine:
         self._n_preempted = 0
         self._n_resume_suffix = 0
         self._n_resume_total = 0
+        self._n_host_reuse_tokens = 0
+        # monolithic prefill: the slots admitted since the last dispatch
+        # (their first token and length are host values) and whether this
+        # step ran an admission wave
+        self._adm_pending = set()
+        self._adm_wave = False
+        # the runtime deadlock watchdog (a daemon thread), armed last: its
+        # probe reads the step stamp, 0 until the first step
+        self._watchdog = None
+        if watchdog:
+            self._watchdog = DeadlockWatchdog(
+                self._watchdog_probe, stall_after=float(watchdog),
+                recorder=self._fr,
+                registry=self._m.registry if self._m is not None else None,
+                component=policy).start()
 
     # ------------------------------------------------------------- scheduling
     @property
     def has_work(self):
         return (bool(self._queue) or self._kv.any_live()
                 or self._inflight is not None)
+
+    def _watchdog_probe(self):
+        """The watchdog's progress probe: the last step's wall clock while
+        work is outstanding, None while idle (an idle engine is not
+        stalled)."""
+        t = self._last_step_unix
+        if not t or not self.has_work:
+            return None
+        return t
 
     @property
     def kv_manager(self):
@@ -835,6 +983,9 @@ class ServingEngine:
             request.status = "shed"
             if self._m is not None:
                 self._m.terminal("shed")
+            if self._fr is not None:
+                self._fr.record("shed", step=self._step_idx,
+                                rid=request.rid, queued=len(self._queue))
             raise EngineOverloaded(
                 f"admission queue full ({len(self._queue)} pending >= "
                 f"max_pending={self._max_pending}); request shed")
@@ -853,6 +1004,18 @@ class ServingEngine:
         if request.deadline_ms is not None:
             request._t_deadline = request.t_submit \
                 + request.deadline_ms / 1e3
+        # the lifecycle trace, born "queued", indexed by rid in a bounded
+        # map for /debug/requests (recorder=False records none)
+        if self._fr is not None:
+            tr = RequestTrace(request.rid)
+            request._trace = tr
+            with self._trace_lock:
+                self._traces[request.rid] = tr
+                while len(self._traces) > self._trace_cap:
+                    self._traces.popitem(last=False)
+            tr.mark("queued")
+            self._fr.record("submit", step=self._step_idx, rid=request.rid,
+                            prompt_len=p, slo_class=request.slo_class)
         self._queue.append(request)
         if self._m is not None:
             self._m.queue_depth.set(len(self._queue))
@@ -889,6 +1052,12 @@ class ServingEngine:
         r.preempts += 1
         r._adm_ids = None
         self._n_preempted += 1
+        if r._trace is not None:
+            r._trace.mark("preempted", slot=slot)
+        if self._fr is not None:
+            self._fr.record("preempt", step=self._step_idx, rid=r.rid,
+                            slot=slot, cached_tokens=int(cached.size),
+                            n_out=len(r.output_ids))
         self._queue.appendleft(r)
         if self._m is not None:
             self._m.preempted.inc()
@@ -922,28 +1091,66 @@ class ServingEngine:
                           key=lambda sr: (sr[1].priority, -sr[1].t_submit))
             self._preempt_slot(slot)
 
-    def _admission_budget(self, r):
+    def _admission_budget(self, r, restore=False):
         """Paged admission arithmetic for ``r``: ``(need rows, matched
-        prefix tokens, new blocks to reserve, matched blocks)`` — its
-        worst case (admission tokens + remaining tokens + headroom, capped
-        at max_len) minus the radix match, aligned down to a
-        prefill-chunk boundary so a hit runs the same chunks a miss
-        would."""
+        prefix tokens, new blocks to reserve, matched blocks, matched
+        tokens restored from the host tier)`` — its worst case (admission
+        tokens + remaining tokens + headroom, capped at max_len) minus the
+        radix match, aligned down to a prefill-chunk boundary so a hit
+        runs the same chunks a miss would.  With ``restore`` (admission),
+        a device match that breaks before its cap first pulls the host
+        tier's continuation into the pool and matches again: restored
+        blocks park like a released chain, so the rest is tier-blind."""
         tok = self._admission_ids(r)
         C, P = self._kv.block, self._pchunk
+        p = int(tok.size)
         rem = max(1, r.max_new_tokens - len(r.output_ids))
-        need = min(self._lmax, int(tok.size) + rem + self._headroom())
+        need = min(self._lmax, p + rem + self._headroom())
         off0, shared = self._kv.match_prefix(tok)
+        off_dev = off0
+        host = self._kv.host_tier
+        if (restore and host is not None and host.n_blocks
+                and len(shared) < (p - 1) // C):
+            t0 = time.perf_counter()
+            got = self._kv.restore_from_host(
+                tok, rid=r.rid, min_blocks=self._host_min_blocks)
+            if got:
+                self._restore_s.append(time.perf_counter() - t0)
+                if self._m is not None:
+                    self._m.tier_restore_seconds.observe(self._restore_s[-1])
+                off0, shared = self._kv.match_prefix(tok)
         if P > C:
             off0 = (off0 // P) * P
             shared = shared[:off0 // C]
-        return need, off0, -(-need // C) - len(shared), shared
+        return (need, off0, -(-need // C) - len(shared), shared,
+                max(0, off0 - min(off_dev, off0)))
 
     # -------------------------------------------------- request lifecycle
     # every terminal path below retires through the write-drop parking the
     # scheduler already uses: the freed slot is parked at lmax from the
     # next dispatch on and its stale pipelined tokens fail the drain's
     # identity check
+    def _on_terminal(self, r, status, slot=None):
+        """The request-scoped fanout of one terminal transition: the
+        timeline's terminal mark, the recorder's ``retire`` event (and
+        its auto-dump for ``timed_out`` / ``poisoned``), the phase
+        histograms and the SLO window.  Host bookkeeping only."""
+        tr = r._trace
+        if tr is not None:
+            if slot is not None:
+                tr.mark(status, slot=slot)
+            else:
+                tr.mark(status)
+        if self._fr is not None:
+            self._fr.record("retire", step=self._step_idx, rid=r.rid,
+                            slot=slot, status=status,
+                            n_out=len(r.output_ids))
+            if status in ("timed_out", "poisoned"):
+                self._fr.auto_dump(status)
+        if self._m is not None and tr is not None:
+            self._m.observe_phases(tr.durations())
+        self._slo.observe(r)
+
     def _terminal_queued(self, r, status):
         """Retire a request that never reached a slot."""
         r.status = status
@@ -952,10 +1159,12 @@ class ServingEngine:
         self._finished.append(r)
         if self._m is not None:
             self._m.terminal(status)
+        self._on_terminal(r, status)
 
     def _forget_slot(self, slot):
         self._pf.pop(slot, None)
         self._dev_first.pop(slot, None)
+        self._adm_pending.discard(slot)
         self._pending_firsts = [t for t in self._pending_firsts
                                 if t[0] != slot]
 
@@ -973,6 +1182,7 @@ class ServingEngine:
         if self._m is not None:
             self._m.terminal(status)
             self._m.slots_occupied.set(self._kv.occupied())
+        self._on_terminal(r, status, slot=slot)
 
     def cancel(self, rid):
         """Retire ``rid`` wherever it is — queued, mid-prefill or decoding
@@ -982,12 +1192,17 @@ class ServingEngine:
         for r in self._queue:
             if r.rid == rid:
                 self._queue.remove(r)
+                if self._fr is not None:
+                    self._fr.record("cancel", step=self._step_idx, rid=rid)
                 self._terminal_queued(r, "cancelled")
                 if self._m is not None:
                     self._m.queue_depth.set(len(self._queue))
                 return True
         for slot, r in enumerate(self._kv.reqs):
             if r is not None and r.rid == rid:
+                if self._fr is not None:
+                    self._fr.record("cancel", step=self._step_idx, rid=rid,
+                                    slot=slot)
                 self._retire(slot, "cancelled")
                 return True
         return False
@@ -1061,6 +1276,25 @@ class ServingEngine:
                 continue
             self._inject_nan(slot)
             f.mark_poisoned(r.rid)
+            if self._fr is not None:
+                self._fr.record("poison", step=self._step_idx, rid=r.rid,
+                                slot=slot)
+
+    def _apply_host_corrupt(self):
+        """Inject every due ``FaultPlan(host_tier_corrupt=...)`` payload:
+        damage the host-tier entries along a token chain (or every entry),
+        so the next restore meets the validation and falls back to suffix
+        prefill.  No-op without a host tier; the device pool is never
+        touched."""
+        f = self._faults
+        if (f is None or not f.host_tier_corrupt or not self._paged
+                or self._kv.host_tier is None):
+            return
+        for tokens, mode in f.host_corrupts_due(self._step_idx):
+            n = self._kv.corrupt_host(tokens, mode=mode)
+            if self._fr is not None:
+                self._fr.record("host_corrupt", step=self._step_idx,
+                                mode=mode, entries=n)
 
     def _fault_point(self, kind, attempt):
         if self._faults is not None:
@@ -1078,16 +1312,28 @@ class ServingEngine:
             try:
                 return fn(attempt)
             except _RETRYABLE as e:
+                exhausted = attempt + 1 >= self._retry_attempts
+                if exhausted and self._fr is not None:
+                    # about to surface the error: snapshot what led here
+                    self._fr.record(
+                        "retry", step=self._step_idx, what=what,
+                        attempt=attempt + 1, error=type(e).__name__,
+                        exhausted=True)
+                    self._fr.auto_dump("retry_exhausted")
                 # under TP a real device error (out of memory) hit one
                 # rank mid-dispatch, after some of the group's collectives
                 # were issued: a re-issue on that rank alone would pair
                 # its collectives with the wrong ones of the others
-                if attempt + 1 >= self._retry_attempts or (
+                if exhausted or (
                         self._tp_group is not None
                         and not isinstance(e, InjectedDispatchError)):
                     raise
                 if self._m is not None:
                     self._m.dispatch_retries.inc()
+                if self._fr is not None:
+                    self._fr.record("retry", step=self._step_idx,
+                                    what=what, attempt=attempt + 1,
+                                    error=type(e).__name__)
                 _LOG.warning(
                     "serving %s failed (%s: %s) — retrying (attempt %d/%d) "
                     "after %.3fs backoff", what, type(e).__name__, e,
@@ -1106,10 +1352,26 @@ class ServingEngine:
 
     # --------------------------------------------------- program dispatch
     def _kv_event(self, kind, **info):
+        """The paged manager's event hook: allocator and host-tier events
+        (``block_alloc`` / ``block_free`` / ``demote`` / ``restore`` /
+        ``host_evict`` / ``host_error``) go to the flight recorder, and
+        the pool and host-tier gauges stay current."""
+        if self._fr is not None:
+            self._fr.record(kind, step=self._step_idx, **info)
         if self._m is not None:
             draft_used = self._kv.draft_blocks_used()
             self._m.set_kv_blocks(self._kv.blocks_used() - draft_used,
                                   draft_used, self._kv.free_count())
+            host = self._kv.host_tier
+            if host is not None:
+                self._m.kv_host_blocks.set(host.n_blocks)
+                self._m.kv_host_bytes.set(host.total_bytes)
+                if kind == "demote":
+                    self._m.tier_demotions.inc(info.get("n_blocks", 1))
+                elif kind == "restore":
+                    self._m.tier_restores.inc(info.get("n_blocks", 1))
+                elif kind == "host_error":
+                    self._m.host_tier_errors.inc()
 
     def _tables(self):
         return self._kv.device_tables() if self._paged else None
@@ -1141,6 +1403,14 @@ class ServingEngine:
             self._hist, self._hist_len, active, spec_k=k,
             chunk_size=self._chunk, block_tables=self._tables(),
             program_key=pk, tp_group=self._tp_group)
+
+    def _call_prefill_slot(self, tokens, prompt_len, slot):
+        first, ok, _ = serving_prefill_slot(
+            self._params, self._cfg, h2d(tokens, self._device), prompt_len,
+            self._kv.caches, slot, chunk_size=self._chunk,
+            program_key=self._pk, hist=self._hist, hist_len=self._hist_len,
+            tp_group=self._tp_group)
+        return first, ok
 
     def _call_prefill_chunk(self, chunk, offset, prompt_len, slot):
         first, ok, _ = serving_prefill_chunk(
@@ -1209,6 +1479,9 @@ class ServingEngine:
             return
         if self._policy == "gang" and len(free) < self._B:
             return  # run-to-completion: wait for the whole batch to drain
+        if self._pchunk is None:
+            self._admit_monolithic(free)
+            return
         m = self._m
         P = self._pchunk
         while free and self._queue:
@@ -1219,15 +1492,17 @@ class ServingEngine:
             r = max(self._queue, key=lambda q: q.priority)
             tok = self._admission_ids(r)
             p = int(tok.size)
-            off0, shared, budget, need = 0, [], 0, 0
+            off0, shared, budget, need, host_tok = 0, [], 0, 0, 0
             doff0, dshared, dbudget = 0, [], 0
             if self._paged:
                 # token-budget admission: reserve the request's worst-case
                 # block count minus its radix-matched prefix (aligned down
                 # to a prefill-chunk boundary: byte-identity across hit
-                # and miss); a head the pool can't cover defers
+                # and miss), host-tier restores included; a head the pool
+                # can't cover defers
                 C = self._kv.block
-                need, off0, budget, shared = self._admission_budget(r)
+                need, off0, budget, shared, host_tok = \
+                    self._admission_budget(r, restore=True)
                 if self._dspec:
                     # the draft chain needs the same block count (its
                     # own namespace), reserved up front so a slot is
@@ -1238,6 +1513,10 @@ class ServingEngine:
                         dshared = dshared[:doff0 // C]
                     dbudget = -(-need // C) - len(dshared)
                 if not self._kv.can_reserve(budget + dbudget):
+                    if self._fr is not None:
+                        self._fr.record("admit_defer", step=self._step_idx,
+                                        rid=r.rid,
+                                        need_blocks=budget + dbudget)
                     break
             self._queue.remove(r)
             slot = free.pop(0)
@@ -1251,16 +1530,30 @@ class ServingEngine:
                 self._need_rows[slot] = need
                 self._n_prompt_tokens += p
                 self._n_reuse_tokens += off0
+                self._n_host_reuse_tokens += host_tok
             r._adm_ids = tok
+            if r._trace is not None:
+                r._trace.mark("prefilling", slot=slot)
+            if self._fr is not None:
+                self._fr.record("admit", step=self._step_idx, rid=r.rid,
+                                slot=slot, bucket=r._bucket)
             if r.preempts:
                 # a preemption resume: the adopted chain covers [0, off0),
                 # the suffix is the whole recompute cost
                 self._n_resume_suffix += p - off0
                 self._n_resume_total += p
+                if self._fr is not None:
+                    self._fr.record("resume", step=self._step_idx,
+                                    rid=r.rid, slot=slot,
+                                    suffix_tokens=p - off0, total_tokens=p)
                 if m is not None:
                     m.preempt_resume_tokens.inc(p - off0)
             padded = np.zeros((-(-p // P) * P,), np.int32)
             padded[:p] = tok
+            if off0 and self._fr is not None:
+                self._fr.record("prefix_hit", step=self._step_idx,
+                                rid=r.rid, slot=slot, tokens=off0,
+                                host_tokens=host_tok)
             if off0 and self._hist is not None:
                 # the skipped chunks would have written history columns
                 # [0, off0): rebuild the slot's whole prompt row (draft
@@ -1278,12 +1571,62 @@ class ServingEngine:
                     m.prompt_tokens.inc(p)
                 if off0:
                     m.prefix_reuse_tokens.inc(off0)
-                    m.prefix_hits.inc()
+                    if off0 > host_tok:
+                        m.prefix_hit("device")
+                    if host_tok:
+                        m.prefix_hit("host")
                 m.queue_wait.observe(time.perf_counter() - r.t_submit)
         if m is not None:
             m.queue_depth.set(len(self._queue))
             m.slots_occupied.set(self._kv.occupied())
             m.live_tokens.set(self._kv.live_tokens())
+
+    def _admit_monolithic(self, free):
+        """``prefill_chunk=None``: admit queued requests FIFO into the
+        free slots, each prompt in one ``[1, bucket]`` prefill
+        (``serving_prefill_slot``), then read the wave's first tokens and
+        finite flags from the device once and emit them.  Those slots
+        join the next dispatch with host-known tokens and lengths
+        (``_adm_pending``)."""
+        self._adm_wave = True
+        m = self._m
+        pending = []
+        while free and self._queue:
+            r = self._queue.popleft()
+            slot = free.pop(0)
+            self._kv.assign(slot, r)
+            self._reset_spec_slot(slot)
+            p = int(r.prompt_ids.size)
+            if r._trace is not None:
+                r._trace.mark("prefilling", slot=slot)
+            if self._fr is not None:
+                self._fr.record("admit", step=self._step_idx, rid=r.rid,
+                                slot=slot, bucket=r._bucket)
+            if m is not None:
+                m.admitted.inc()
+                m.prefill(r._bucket)
+                m.queue_wait.observe(time.perf_counter() - r.t_submit)
+            tokens = np.zeros((1, r._bucket), np.int32)
+            tokens[0, :p] = r.prompt_ids
+            with m.span_prefill if m is not None else _NULL_CTX:
+                first, okf = self._call_prefill_slot(tokens, p, slot)
+            self._kv.lengths[slot] = p
+            self._adm_pending.add(slot)
+            pending.append((slot, first, okf))
+        # every prefill of the wave is enqueued; one wait for all of their
+        # first tokens and finite flags
+        vals = _host_fetch(_Fetch([x for _, f, o in pending
+                                   for x in (f, o)]))
+        for n, (slot, _, _) in enumerate(pending):
+            fv, ov = vals[2 * n], vals[2 * n + 1]
+            if not bool(ov[0]):
+                self._retire(slot, "poisoned")
+                continue
+            self._cur[slot] = int(fv[0])
+            self._emit(slot, [int(fv[0])])
+        if m is not None:
+            m.queue_depth.set(len(self._queue))
+            m.slots_occupied.set(self._kv.occupied())
 
     def _spend_prefill(self):
         """Dispatch up to ``prefill_budget`` prompt chunks across the
@@ -1303,6 +1646,15 @@ class ServingEngine:
             st = self._pf[slot]
             while budget:
                 if st["off"] < st["p"]:
+                    k = st["off"] // P
+                    if st["req"]._trace is not None:
+                        st["req"]._trace.mark("prefilling", chunk=k,
+                                              slot=slot)
+                    if self._fr is not None:
+                        self._fr.record("prefill_chunk",
+                                        step=self._step_idx,
+                                        rid=st["req"].rid, slot=slot,
+                                        chunk=k)
                     if self._paged:
                         # map the chunk's real rows before its writes go
                         # out (pad rows past the prompt drop on the
@@ -1310,8 +1662,9 @@ class ServingEngine:
                         self._kv.ensure_rows(
                             slot, min(st["off"] + P, st["p"]))
                     chunk = st["tok"][st["off"]:st["off"] + P][None, :]
-                    first, okf = self._call_prefill_chunk(
-                        chunk, st["off"], st["p"], slot)
+                    with m.span_prefill if m is not None else _NULL_CTX:
+                        first, okf = self._call_prefill_chunk(
+                            chunk, st["off"], st["p"], slot)
                     st["off"] += P
                     if m is not None:
                         m.prefill_chunks.inc()
@@ -1325,9 +1678,10 @@ class ServingEngine:
                     if self._paged:
                         self._kv.ensure_draft_rows(
                             slot, min(st["doff"] + P, st["p"]))
-                    self._call_draft_prefill_chunk(
-                        st["tok"][st["doff"]:st["doff"] + P][None, :],
-                        st["doff"], st["p"], slot)
+                    with m.span_prefill if m is not None else _NULL_CTX:
+                        self._call_draft_prefill_chunk(
+                            st["tok"][st["doff"]:st["doff"] + P][None, :],
+                            st["doff"], st["p"], slot)
                     st["doff"] += P
                 budget -= 1
                 spent += 1
@@ -1394,6 +1748,8 @@ class ServingEngine:
                 r.t_first = time.perf_counter()
                 if m is not None:
                     m.ttft.observe(r.t_first - r.t_submit)
+                if r._trace is not None:
+                    r._trace.mark("decoding", slot=slot)
             if len(r.output_ids) >= r.max_new_tokens or (
                     r.eos_token_id is not None
                     and int(t) == int(r.eos_token_id)):
@@ -1428,32 +1784,54 @@ class ServingEngine:
                 m.e2e.observe(r.t_done - r.t_submit)
                 m.tpot.observe(r.tpot)
                 m.slots_occupied.set(self._kv.occupied())
+            self._on_terminal(r, "done", slot=slot)
         return took
 
     # ------------------------------------------------------------ step / run
     @torch.no_grad()
     def step(self):
         """One scheduler iteration: admit, spend the prefill budget, then
-        one decode dispatch over every live slot.  Returns tokens
-        emitted."""
-        if self._m is not None:
-            self._m.steps.inc()
+        one decode dispatch over every live slot (under the
+        ``serving.step`` span).  Returns tokens emitted."""
+        self._last_step_unix = time.time()
+        m = self._m
+        if m is None:
+            return self._step_impl()
+        m.steps.inc()
+        m.last_step_time.set(self._last_step_unix)
+        with m.span_step:
+            return self._step_impl()
+
+    def _step_impl(self):
         self._step_idx += 1
         if self._faults is not None:
-            self._faults.maybe_slow_step(self._step_idx)
+            stalled = self._faults.maybe_slow_step(self._step_idx)
+            if stalled and self._fr is not None:
+                self._fr.record("stall", step=self._step_idx,
+                                seconds=stalled, injected=True)
         self._expire_deadlines()
         self._apply_poison()
+        self._apply_host_corrupt()
         self._maybe_preempt()
+        self._adm_wave = False
         self._admit()
         spent = self._spend_prefill()
-        adm_active = spent > 0 or bool(self._pf)
+        # an admission wave ran, chunks went out, or a prefill is pending
+        adm_active = self._adm_wave or spent > 0 or bool(self._pf)
         if not self._pipeline:
-            return self._step_sync(adm_active)
-        # the double buffer: issue the next dispatch, then drain the
-        # previous one while the new one runs on the card
-        prev, self._inflight = self._inflight, None
-        self._dispatch(adm_active)
-        return self._drain(prev)
+            self._adm_pending.clear()
+            out = self._step_sync(adm_active)
+        else:
+            # the double buffer: issue the next dispatch, then drain the
+            # previous one while the new one runs on the card
+            prev, self._inflight = self._inflight, None
+            self._dispatch(adm_active)
+            out = self._drain(prev)
+        if self._paged:
+            # staged demotions reach the host between steps: their
+            # gathers ran long ago, ahead of the dispatches drained here
+            self._kv.pump_host_tier()
+        return out
 
     def _observe_interference(self, adm_active, per_slot_tokens):
         now = time.perf_counter()
@@ -1487,19 +1865,26 @@ class ServingEngine:
         if not live:
             return emitted
         self._ensure_decode_rows(live)
+        m = self._m
         active = np.array([self._decodable(i) for i in range(self._B)])
         cur = h2d(self._cur, self._device)
         dev_len = self._kv.device_lengths(active)
+        self._record_dispatch(live, False)
         if self._mode == "spec":
             k = self._next_k(live)
+            self._record_draft(k, live)
             dev_active = h2d(active, self._device)
 
             def go(attempt):
                 self._fault_point("dispatch", attempt)
                 return self._call_spec(cur, dev_len, dev_active, k)
-            blk, j, cur2, _, oks = self._retry(go, "spec dispatch")
-            blk, j, cur2, oks = self._fetch(
-                "drain", _Fetch([blk, j, cur2, oks]))
+            with m.span_spec if m is not None else _NULL_CTX:
+                blk, j, cur2, _, oks = self._retry(go, "spec dispatch")
+                blk, j, cur2, oks = self._fetch(
+                    "drain", _Fetch([blk, j, cur2, oks]))
+            if self._fr is not None:
+                self._fr.record("drain", step=self._step_idx, mode="spec",
+                                n_live=len(live))
             rounds = []
             for i in live:
                 if not bool(oks[i]):
@@ -1514,8 +1899,12 @@ class ServingEngine:
         def go(attempt):
             self._fault_point("dispatch", attempt)
             return self._call_decode(cur, dev_len)
-        toks, okd = self._retry(go, "decode dispatch")
-        toks, okd = self._fetch("drain", _Fetch([toks, okd]))
+        with m.span_decode if m is not None else _NULL_CTX:
+            toks, okd = self._retry(go, "decode dispatch")
+            toks, okd = self._fetch("drain", _Fetch([toks, okd]))
+        if self._fr is not None:
+            self._fr.record("drain", step=self._step_idx, mode="greedy",
+                            n_live=len(live))
         self._observe_interference(adm_active, self._sync)
         for i in live:
             if not bool(okd[i]):
@@ -1526,11 +1915,33 @@ class ServingEngine:
             self._cur[i] = toks[i, -1]
         return emitted
 
+    def _record_dispatch(self, live, pipelined):
+        """The recorder's ``dispatch`` event of one decode dispatch."""
+        if self._fr is None:
+            return
+        extra = {"pipelined": True} if pipelined else {}
+        self._fr.record("dispatch", step=self._step_idx, mode=self._mode,
+                        n_live=len(live), **extra, kv_quant=self._kvq,
+                        attn_impl=self._attn_impl,
+                        prefill_impl=self._prefill_impl,
+                        weight_dtype=self._wq)
+
+    def _record_draft(self, k, live):
+        """The recorder's ``draft`` event of one spec dispatch."""
+        if self._fr is not None:
+            self._fr.record("draft", step=self._step_idx,
+                            source=self._spec.source, k=k, n_live=len(live))
+
     def _spec_drained(self, rounds, k, adm_active):
         """Book one drained verify round: ``rounds`` ``[(slot, j)]`` of
         the slots that emitted, each of which drafted ``k`` and accepted
         ``j`` (the +1 bonus token is the verify forward's own pick)."""
         accepted = sum(j for _, j in rounds)
+        if self._fr is not None:
+            self._fr.record("verify", step=self._step_idx, k=k,
+                            drafted=k * len(rounds), accepted=accepted)
+            self._fr.record("rewind", step=self._step_idx,
+                            tokens=k * len(rounds) - accepted)
         self._adapt_k(rounds, k)
         self._observe_interference(
             adm_active, 1.0 + accepted / max(1, len(rounds)))
@@ -1548,13 +1959,20 @@ class ServingEngine:
         if not live:
             return
         self._ensure_decode_rows(live)
+        m = self._m
+        self._record_dispatch(live, True)
         active = np.array([self._decodable(i) for i in range(self._B)])
         host_len = self._kv.device_lengths(active)
         host_cur = h2d(self._cur, self._device)
+        # the host knows better for dead slots and for slots a monolithic
+        # prefill admitted since the last dispatch
+        use_host = ~active
+        use_host[list(self._adm_pending)] = True
+        self._adm_pending.clear()
         if self._dev_cur is None:
             cur = host_cur
         else:
-            cur = torch.where(h2d(~active, self._device), host_cur,
+            cur = torch.where(h2d(use_host, self._device), host_cur,
                               self._dev_cur)
         fresh = list(self._dev_first)
         for s, f in self._dev_first.items():
@@ -1565,30 +1983,34 @@ class ServingEngine:
         if self._mode == "spec":
             # spec lengths advance by the DEVICE-known j+1: the previous
             # round's new_len is the carry; the host mirror is right only
-            # for dead slots (masked to lmax) and slots whose final
-            # prefill chunk just went out (the prompt length)
-            use_host = ~active
+            # for dead slots (masked to lmax), freshly admitted ones and
+            # slots whose final prefill chunk just went out (the prompt
+            # length)
             use_host[fresh] = True
             dev_len = host_len if self._dev_len is None else torch.where(
                 h2d(use_host, self._device), host_len, self._dev_len)
             k = self._next_k(live)
+            self._record_draft(k, live)
             dev_active = h2d(active, self._device)
 
             def go(attempt):
                 self._fault_point("dispatch", attempt)
                 return self._call_spec(cur, dev_len, dev_active, k)
-            blk, j, cur2, new_len, oks = self._retry(go, "spec dispatch")
+            with m.span_spec if m is not None else _NULL_CTX:
+                blk, j, cur2, new_len, oks = self._retry(go,
+                                                         "spec dispatch")
             self._dev_cur, self._dev_len = cur2, new_len
             self._inflight = {"fetch": _Fetch([blk, j, oks] + fo), "k": k,
                               "reqs": list(self._kv.reqs), "live": live,
                               "firsts": firsts, "adm": adm_active}
-            if self._m is not None:
-                self._m.inflight.set(1)
+            if m is not None:
+                m.inflight.set(1)
             return
         def go(attempt):
             self._fault_point("dispatch", attempt)
             return self._call_decode(cur, host_len)
-        toks, okd = self._retry(go, "decode dispatch")
+        with m.span_decode if m is not None else _NULL_CTX:
+            toks, okd = self._retry(go, "decode dispatch")
         self._dev_cur = toks[:, -1]
         # greedy lengths are host-derivable: every live slot advances
         # exactly sync_every per dispatch
@@ -1597,8 +2019,8 @@ class ServingEngine:
         fetch = _Fetch([toks, okd] + fo)
         self._inflight = {"fetch": fetch, "reqs": list(self._kv.reqs),
                           "live": live, "firsts": firsts, "adm": adm_active}
-        if self._m is not None:
-            self._m.inflight.set(1)
+        if m is not None:
+            m.inflight.set(1)
 
     def _drain(self, rec):
         """Wait for the PREVIOUS dispatch's outputs (the next one is
@@ -1610,12 +2032,18 @@ class ServingEngine:
         still_inflight = 1 if self._inflight is not None else 0
         t0 = time.perf_counter()
         vals = self._fetch("drain", rec["fetch"])
+        stall = time.perf_counter() - t0
         spec = "k" in rec
         nout = 3 if spec else 2
         fvals = vals[nout:]
         if m is not None:
-            m.pipeline_stall.observe(time.perf_counter() - t0)
+            m.pipeline_stall.observe(stall)
             m.inflight.set(still_inflight)
+        if self._fr is not None:
+            self._fr.record("stall", step=self._step_idx, seconds=stall)
+            self._fr.record("drain", step=self._step_idx,
+                            mode="spec" if spec else "greedy",
+                            n_live=len(rec["live"]), pipelined=True)
         if not spec:
             self._observe_interference(rec["adm"], self._sync)
         emitted = 0
@@ -1671,7 +2099,9 @@ class ServingEngine:
         partial output), then retire every queued and resident request
         as ``"cancelled"``.  Returns ``{rid: terminal status}`` over every
         request the engine finished; a second call returns the same
-        map."""
+        map.  Stops the watchdog first."""
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if self._inflight is not None:
             prev, self._inflight = self._inflight, None
             self._drain(prev)
@@ -1705,7 +2135,57 @@ class ServingEngine:
             "live_tokens": int(self._kv.live_tokens()),
             "prompt_tokens": self._n_prompt_tokens,
             "prefix_reuse_tokens": self._n_reuse_tokens,
+            "host_reuse_tokens": self._n_host_reuse_tokens,
             "preempted": self._n_preempted,
             "preempt_resume_suffix_tokens": self._n_resume_suffix,
             "preempt_resume_total_tokens": self._n_resume_total,
         }
+
+    # ------------------------------------------------- debug introspection
+    @property
+    def recorder(self):
+        """The engine's ``FlightRecorder`` (None when ``recorder=False``)."""
+        return self._fr
+
+    @property
+    def slo_tracker(self):
+        """The engine's ``SLOTracker``."""
+        return self._slo
+
+    def requests_snapshot(self, last=64):
+        """JSON-ready view of the newest ``last`` request timelines
+        (still-live requests included); copies under the trace lock, so a
+        scrape thread may call it mid-``step()``."""
+        with self._trace_lock:
+            traces = list(self._traces.values())[-int(last):]
+        return {
+            "n_tracked": len(traces),
+            "requests": [{"rid": t.rid, "phase": t.phase,
+                          "timeline": t.as_dicts()} for t in traces],
+        }
+
+    def recorder_snapshot(self, last=256):
+        """JSON-ready flight-recorder view, with the fault plan when one
+        is set."""
+        if self._fr is None:
+            return {"enabled": False}
+        snap = self._fr.snapshot(last=last)
+        snap["enabled"] = True
+        if self._faults is not None:
+            snap["fault_plan"] = self._faults.snapshot()
+        return snap
+
+    def slo_snapshot(self):
+        """JSON-ready windowed SLO attainment / burn-rate view."""
+        return self._slo.snapshot()
+
+    def debug_sources(self):
+        """``{name: callable}`` for ``MetricsExporter``: the engine's
+        ``/debug/requests``, ``/debug/flightrecorder`` and ``/debug/slo``
+        endpoints in one call::
+
+            MetricsExporter(debug_sources=engine.debug_sources()).start()
+        """
+        return {"requests": self.requests_snapshot,
+                "flightrecorder": self.recorder_snapshot,
+                "slo": self.slo_snapshot}

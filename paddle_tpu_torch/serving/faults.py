@@ -25,11 +25,14 @@ engine's test-only seams (``ServingEngine(faults=...)``):
 * **stream_cb crashes** — ``cb_crash_steps``: ``maybe_crash_stream_cb``
   raises ``InjectedStreamCbError`` inside the engine's emission callback
   guard, proving a crashing user callback is counted and survived.
-* **host-tier corruption** and **worker deaths** (``host_tier_corrupt``,
-  ``worker_kill``) keep the reference's fields and draws; their
-  consumers (the host KV tier, the fleet) are not in the port, so a plan
-  that sets them injects nothing here, as in the reference without a
-  host tier.
+* **host-tier corruption** — ``host_tier_corrupt`` maps ``step ->
+  chain``: at that scheduler step the host KV tier's entries along the
+  chain's token ids are damaged (``None`` or ``"*"``: every stored
+  entry; a ``(tokens, mode)`` pair picks ``"truncate"`` or
+  ``"garble"``).  The next restore must reject the damage and fall back
+  to suffix prefill.  Without a host tier the plan injects nothing.
+* **worker deaths** (``worker_kill``) keep the reference's fields and
+  draws; their consumer, the fleet, is not in the port.
 
 ``stats`` counts every fault actually fired, so a test can assert the
 plan executed.  Determinism: the only randomness is

@@ -16,19 +16,29 @@ analytic bytes per token (``paddle_tpu/serving/metrics.py:279-290,
 (shed / timed out / cancelled / poisoned), dispatch retries, priority
 preemptions and their resume cost, and ``stream_cb`` errors by
 exception type (``paddle_tpu/serving/metrics.py:93-135, 220-232,
-386-390``), every one registered at zero at construction.  The series
-live in ``registry`` (default: the process-wide one) under a ``policy``
-label; every touch is host-side bookkeeping.
+386-390``); the request-lifecycle series — the ``serving.step`` /
+``serving.prefill`` / ``serving.decode`` / ``serving.spec_step`` spans
+(``span_seconds``), the queue / prefill / decode phase histograms fed
+from each request's trace, flight-recorder dumps by reason and the last
+step's wall-clock stamp (``:60-95, :337-344``) — and the host KV tier's
+occupancy gauges, demotion / restore / error counters, restore latency
+and prefix hits by tier (``:233-265``); every one registered at zero at
+construction.  The series live in ``registry`` (default: the
+process-wide one) under a ``policy`` label; every touch is host-side
+bookkeeping.
 """
 from __future__ import annotations
 
 from paddle_tpu_torch.observability.metrics import get_registry
+from paddle_tpu_torch.observability.trace import span
 
 __all__ = ["EngineMetrics"]
 
 _IMPLS = ("reference", "cuda")
 _QUANT_MODES = ("off", "int8")
 _SPEC_SOURCES = ("prompt_lookup", "draft_model")
+_DUMP_REASONS = ("timed_out", "poisoned", "retry_exhausted", "stall")
+_HIT_TIERS = ("device", "host", "fleet")
 
 
 class EngineMetrics:
@@ -40,6 +50,9 @@ class EngineMetrics:
         L = ("policy",)
         lbl = {"policy": policy}
         self._policy = policy
+        # a tensor-parallel engine labels its spans with its rank count,
+        # so a one-device run ("") and a TP run stay separable
+        mesh_label = str(mesh_devices) if mesh_devices > 1 else ""
         self.mesh_devices = reg.gauge(
             "serving_mesh_devices",
             "devices the engine's decode step spans (1 = single device; "
@@ -116,6 +129,32 @@ class EngineMetrics:
             "mean per-token time after the first", L).labels(**lbl)
         self.e2e = reg.histogram(
             "serving_e2e_seconds", "submit -> completion", L).labels(**lbl)
+        # the lifecycle legs queued -> prefilling -> decoding -> terminal,
+        # fed from each request's trace at retirement
+        self.queue_seconds = reg.histogram(
+            "serving_queue_seconds",
+            "lifecycle phase: submit -> slot admission (RequestTrace)",
+            L).labels(**lbl)
+        self.prefill_seconds = reg.histogram(
+            "serving_prefill_seconds",
+            "lifecycle phase: slot admission -> first token (RequestTrace)",
+            L).labels(**lbl)
+        self.decode_seconds = reg.histogram(
+            "serving_decode_seconds",
+            "lifecycle phase: first token -> terminal status (RequestTrace)",
+            L).labels(**lbl)
+        # flight-recorder anomaly dumps, every reason pre-registered
+        self._recorder_dumps = reg.counter(
+            "flight_recorder_dumps_total",
+            "anomaly-triggered flight-recorder snapshots, by trigger",
+            ("policy", "reason"))
+        for reason in _DUMP_REASONS:
+            self._recorder_dumps.labels(policy=policy, reason=reason)
+        # /healthz derives the last-step age from this stamp
+        self.last_step_time = reg.gauge(
+            "serving_last_step_unixtime",
+            "time.time() of the engine's most recent scheduler step "
+            "(0 until the first step)", L).labels(**lbl)
         self.prefill_chunks = reg.counter(
             "serving_prefill_chunks_total",
             "prompt chunks dispatched by the chunked-prefill path",
@@ -187,10 +226,42 @@ class EngineMetrics:
             "serving_prompt_tokens_total",
             "prompt tokens admitted on the paged path (prefix hit-rate "
             "denominator)", L).labels(**lbl)
-        self.prefix_hits = reg.counter(
+        self._prefix_hits = reg.counter(
             "serving_prefix_hits_total",
-            "admissions that adopted a cached prefix from the pool",
+            "admissions that adopted a cached prefix, by serving tier "
+            "(device = radix blocks already in the pool, host = blocks "
+            "restored from the host tier, fleet = chains imported from "
+            "another engine)", ("policy", "tier"))
+        for tier in _HIT_TIERS:
+            self._prefix_hits.labels(policy=policy, tier=tier)
+        # the host KV tier (host_tier_bytes=): occupancy, demotion and
+        # restore volumes, validation failures, restore latency
+        self.kv_host_blocks = reg.gauge(
+            "serving_kv_host_blocks",
+            "KV blocks resident in the host-RAM demotion tier",
             L).labels(**lbl)
+        self.kv_host_bytes = reg.gauge(
+            "serving_kv_host_bytes",
+            "bytes resident in the host-RAM demotion tier (its LRU "
+            "evicts at the host_tier_bytes budget)", L).labels(**lbl)
+        self.tier_demotions = reg.counter(
+            "serving_tier_demotions_total",
+            "KV blocks demoted (evicted device chain copied into the "
+            "host tier off the step path)", L).labels(**lbl)
+        self.tier_restores = reg.counter(
+            "serving_tier_restores_total",
+            "KV blocks restored from the host tier at admission (a copy "
+            "into the pool, not a suffix prefill)", L).labels(**lbl)
+        self.host_tier_errors = reg.counter(
+            "serving_host_tier_errors_total",
+            "host-tier entries dropped by restore-time validation "
+            "(structure or CRC mismatch) — admission fell back to "
+            "suffix prefill instead of splicing wrong bytes",
+            L).labels(**lbl)
+        self.tier_restore_seconds = reg.histogram(
+            "serving_tier_restore_seconds",
+            "admission-side wall time of one host-tier chain restore "
+            "(fetch + validate + copy into the pool)", L).labels(**lbl)
         # implementation info gauges: every known child pre-registered to
         # 0, the active one set to 1 at construction
         self._decode_kernel = reg.gauge(
@@ -235,9 +306,38 @@ class EngineMetrics:
         for mode in _QUANT_MODES:
             self._kv_quant_mode.labels(policy=policy, mode=mode).set(0)
             self._weight_quant_mode.labels(policy=policy, mode=mode).set(0)
+        self.span_step = span("serving.step", registry=reg,
+                              mesh=mesh_label)
+        self.span_prefill = span("serving.prefill", registry=reg,
+                                 mesh=mesh_label)
+        self.span_decode = span("serving.decode", registry=reg,
+                                mesh=mesh_label)
+        self.span_spec = span("serving.spec_step", registry=reg,
+                              mesh=mesh_label)
 
     def prefill(self, bucket):
         self._prefills.labels(policy=self._policy, bucket=bucket).inc()
+
+    def prefix_hit(self, tier):
+        """Count one prefix-adopting admission against ``tier``
+        ('device' | 'host' | 'fleet')."""
+        self._prefix_hits.labels(policy=self._policy, tier=tier).inc()
+
+    def recorder_dump(self, reason):
+        """Count one anomaly auto-dump (the ``FlightRecorder.on_dump``
+        hook)."""
+        self._recorder_dumps.labels(policy=self._policy,
+                                    reason=reason).inc()
+
+    def observe_phases(self, durations):
+        """Feed the lifecycle phase histograms from a ``RequestTrace``'s
+        ``durations()`` (absent legs are skipped)."""
+        for leg, hist in (("queue", self.queue_seconds),
+                          ("prefill", self.prefill_seconds),
+                          ("decode", self.decode_seconds)):
+            v = durations.get(leg)
+            if v is not None:
+                hist.observe(v)
 
     def terminal(self, status):
         """Count a non-``done`` terminal status (``done`` keeps its own

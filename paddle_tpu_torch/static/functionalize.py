@@ -19,15 +19,30 @@ bf16 second moments, never widened between steps.  On the card the
 fused int8 AdamW (K7) updates parameters and state in place, so the
 copy back is a self copy, which PyTorch skips.
 
+Every step runs under the ``train.step`` span and books its dispatch in
+``CompileCacheMonitor("functionalize")`` (program ``train_step``), as
+the reference does (``paddle_tpu/static/functionalize.py:36, :44``): the
+first step of a ``TrainStep`` at a new set of input shapes and dtypes —
+what ``jax.jit`` retraced on — counts a trace.
+
 Gradient clipping, amp, ZeRO sharding and gradient merge are not ported
 yet and raise.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from paddle_tpu_torch.observability.compilecache import CompileCacheMonitor
+from paddle_tpu_torch.observability.trace import span
+
 __all__ = ["TrainStep", "build_train_step"]
+
+_mon = CompileCacheMonitor("functionalize")
+_train_span = span("train.step")
+_serials = itertools.count()
 
 
 class TrainStep:
@@ -55,6 +70,7 @@ class TrainStep:
         self._states = optimizer.functional_init_states(
             {n: p.detach() for n, p in network.named_parameters()})
         self._step_count = int(getattr(optimizer, "_global_step", 0) or 0)
+        self._serial = next(_serials)   # one jitted program a TrainStep
 
     def _loss(self, *datas):
         if self._loss_fn is not None:
@@ -62,6 +78,13 @@ class TrainStep:
         return self._network(*datas)
 
     def __call__(self, *datas):
+        _mon.dispatch("train_step", (self._serial,) + tuple(
+            (tuple(d.shape), d.dtype) if isinstance(d, torch.Tensor)
+            else type(d) for d in datas))
+        with _train_span:
+            return self._step(*datas)
+
+    def _step(self, *datas):
         self._step_count += 1
         params = dict(self._network.named_parameters())
         train = {n: p for n, p in params.items() if p.requires_grad}

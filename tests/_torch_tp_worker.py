@@ -8,8 +8,10 @@ ports), builds a one-axis ``DeviceMesh`` ("mp") over it, loads the tiny
 f32 Llama from ``WORKDIR/weights.npz`` and serves every case of
 ``CASES`` with ``ServingEngine(mesh=...)`` — SPMD: every rank submits the
 same requests in the same order.  It writes ``WORKDIR/result_r{RANK}.json``:
-each case's token streams and statuses, the construction errors the
-engine raises under the mesh, and the local shapes of the rank's shards.
+each case's token streams, statuses and flight-recorder events (kind,
+rid, slot, step; a fault injected on one rank only is left out), the
+construction errors the engine raises under the mesh, and the local
+shapes of the rank's shards.
 Imports torch and the port only (never jax).  The test process runs the
 same cases on one device with ``run_case(..., mesh=None)``.
 """
@@ -24,9 +26,8 @@ WORLD = 4
 AXIS = "mp"
 
 #: the reference matrix's geometry (tests/test_serving_tp.py:116-188):
-#: batch 2, max_len 64.  The port has no monolithic prefill, so the
-#: reference's ``prefill_chunk=None`` cases take one 64-token chunk a
-#: prompt (the whole prompt) here
+#: batch 2, max_len 64; its "whole" cases prefill monolithically
+#: (``prefill_chunk=None``)
 SMALL = dict(batch_size=2, max_len=64, decode_chunk=16)
 #: its paged cases (:189-198): batch 3, max_len 128, 16-token blocks
 PAGED = dict(batch_size=3, max_len=128, decode_chunk=16, prefill_chunk=16,
@@ -55,13 +56,13 @@ def workload(name):
 #: device — runs), ``deadline`` ({request index: deadline_ms}).
 CASES = {
     # the reference's matrix: mode x pipeline x chunking
-    "greedy-pipe-whole": ("matrix", dict(SMALL, prefill_chunk=64), {}),
+    "greedy-pipe-whole": ("matrix", dict(SMALL, prefill_chunk=None), {}),
     "greedy-sync-chunk4": ("matrix", dict(SMALL, pipeline=False,
                                           prefill_chunk=4), {}),
     "spec-pipe-chunk4": ("matrix", dict(SMALL, mode="spec", spec_k=4,
                                         prefill_chunk=4), {}),
     "spec-sync-whole": ("matrix", dict(SMALL, mode="spec", spec_k=4,
-                                       pipeline=False, prefill_chunk=64),
+                                       pipeline=False, prefill_chunk=None),
                         {}),
     # int8 KV, dense and paged (the scale leaf split on heads)
     "q8-dense": ("q8", dict(SMALL, kv_dtype="int8"), {}),
@@ -120,7 +121,9 @@ def build_models(state):
 
 def run_case(name, models, rank=0, **kw):
     """Serve case ``name``: ``{"streams": {rid: tokens}, "status": {rid:
-    status}}`` (rids as strings); ``kw`` adds engine knobs (``mesh``)."""
+    status}, "events": [[kind, rid, slot, step], ...]}`` (rids as
+    strings; an injected stall, which one rank alone may take, left out);
+    ``kw`` adds engine knobs (``mesh``)."""
     from paddle_tpu_torch.serving import FaultPlan, Request, ServingEngine
 
     wl, knobs, extra = CASES[name]
@@ -144,7 +147,10 @@ def run_case(name, models, rank=0, **kw):
     assert not eng.has_work
     return {"streams": {str(r.rid): list(map(int, r.output_ids))
                         for r in reqs},
-            "status": {str(r.rid): r.status for r in reqs}}
+            "status": {str(r.rid): r.status for r in reqs},
+            "events": [[e["kind"], e["rid"], e["slot"], e["step"]]
+                       for e in eng.recorder.events()
+                       if not e.get("injected")]}
 
 
 def construction_errors(models, mesh):

@@ -1317,3 +1317,72 @@ def test_tp1_nccl_engine_on_the_card_equals_single_device(tmp_path):
         assert k8.launches > before[2]
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------ monolithic prefill: K8 at T = the bucket
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES + [torch.int8], ids=str)
+@pytest.mark.parametrize("t", [16, 48, 64, 256, 512])
+def test_decode_kernel_at_the_prompt_bucket(dtype, t):
+    """K8 with ``t`` query rows over a fresh dense ``[1, t]`` cache at
+    length 0 — a monolithic prefill's mini cache — read with a chunk of
+    256: wider than the span for t < 256 (one chunk of the span rounded
+    up to 32 keys, keys past it masked), 256-key chunks at 512.  Within
+    atol=rtol=1e-4 of the plain version and bitwise run to run."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(31)
+    hkv, g, d = 2, 4, 128
+    shape = (1, t, hkv, d)
+    if dtype == torch.int8:
+        def leaf():
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    (0.001 + 0.05 * torch.rand(shape[:-1], generator=gen))
+                    .to(dev, torch.float16))
+        kc, vc = leaf(), leaf()
+    else:
+        kc = torch.randn(shape, generator=gen).to(dev, dtype)
+        vc = torch.randn(shape, generator=gen).to(dev, dtype)
+    qg = torch.randn(1, hkv, g, t, d, generator=gen).to(dev)
+    lengths = torch.zeros((1,), dtype=torch.int32, device=dev)
+    before = k8.launches_t.get(t, 0)
+    out = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, 256,
+                                    impl="cuda")
+    out2 = k8.paged_decode_attention(qg, kc, vc, lengths, d ** -0.5, 256,
+                                     impl="cuda")
+    ref = k8.paged_decode_attention_reference(qg, kc, vc, lengths,
+                                              d ** -0.5, 256)
+    torch.cuda.synchronize()
+    assert k8.launches_t[t] == before + 2
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_monolithic_engine_on_the_card():
+    """``prefill_chunk=None`` on the card: every admission launches K8 at
+    T = its bucket once a layer, no plain version runs, and the f32
+    streams equal chunked prefill's."""
+    dev = _card()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device=dev,
+                             seed=0)
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(1, 200, (n,), generator=gen) for n in (7, 19,
+                                                                    40)]
+    geom = dict(batch_size=2, max_len=128, decode_chunk=32,
+                instrument=False)
+
+    def serve(pchunk):
+        eng = ServingEngine(model, **geom, prefill_chunk=pchunk)
+        reqs = [eng.submit(Request(p.numpy(), 12)) for p in prompts]
+        eng.run()
+        return [r.output_ids for r in reqs]
+    k8.launches_t.clear()
+    k8.plain_runs = k9.plain_runs = 0
+    mono = serve(None)
+    n_layers = len(model.llama.layers)
+    assert k8.launches_t.get(16) == n_layers
+    assert k8.launches_t.get(32) == n_layers
+    assert k8.launches_t.get(64) == n_layers
+    assert k8.plain_runs == 0 and k9.plain_runs == 0
+    assert mono == serve(32)

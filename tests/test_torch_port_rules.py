@@ -143,14 +143,41 @@ def tiny():
     return LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device="cpu")
 
 
-@pytest.mark.parametrize("knob", [
-    dict(recorder=True), dict(slo=()), dict(watchdog=5.0),
-    dict(host_tier_bytes=1 << 20), dict(prefill_only=True),
-    dict(prefill_chunk=None),
-], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("knob", [dict(prefill_only=True)],
+                         ids=lambda kw: next(iter(kw)))
 def test_unported_engine_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tiny, batch_size=2, max_len=64, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(recorder=True), dict(slo=()), dict(watchdog=5.0),
+    dict(host_tier_bytes=1 << 20), dict(prefill_chunk=None),
+], ids=lambda kw: next(iter(kw)))
+def test_observability_tier_and_monolithic_knobs_are_ported(tiny, knob):
+    """The request observability layer, the host KV tier and monolithic
+    prefill are ported: each knob builds an engine that carries it and
+    serves a request (the host tier on a paged pool, which it needs)."""
+    extra = dict(kv_block=16) if "host_tier_bytes" in knob else {}
+    eng = ServingEngine(tiny, batch_size=2, max_len=64, **knob, **extra)
+    try:
+        r = eng.submit(Request(np.arange(1, 6), 4))
+        assert eng.drain() == {r.rid: "done"} and len(r.output_ids) == 4
+    finally:
+        eng.close()
+    if "recorder" in knob:
+        assert [t["phase"] for t in r.timeline()][-1] == "done"
+    if "slo" in knob:
+        assert eng.slo_tracker.snapshot()["classes"] == {
+            "interactive": {"objectives": {}, "window_requests": 1,
+                            "good": 1, "attainment": 1.0,
+                            "burn_rate": 0.0}}
+    if "watchdog" in knob:
+        assert not eng._watchdog.is_alive
+    if "host_tier_bytes" in knob:
+        assert eng.kv_manager.host_tier.max_bytes == 1 << 20
+    if "prefill_chunk" in knob:
+        assert eng._pchunk is None and not eng._pf
 
 
 @pytest.mark.parametrize("knob", [dict(mesh=object()), dict(tp_overlap=2)],
@@ -219,10 +246,12 @@ def test_spec_knobs_are_accepted(tiny, knob):
     assert eng._pk.spec_depth == (8 if spec else None)
 
 
-@pytest.mark.parametrize("kw", [dict(slo_class="x")], ids=str)
-def test_unported_request_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Request(np.arange(4), 2, **kw)
+def test_slo_class_is_accepted():
+    """``Request(slo_class=)`` is ported: the class names the request's
+    SLO objectives, and ``timeline()`` is empty before ``submit()``."""
+    r = Request(np.arange(4), 2, slo_class="batch")
+    assert r.slo_class == "batch" and r.timeline() == []
+    assert Request(np.arange(4), 2).slo_class is None
 
 
 @pytest.mark.parametrize("kw", [dict(deadline_ms=10), dict(priority=1)],

@@ -15,14 +15,14 @@ One gloo group of four CPU ranks (``tests/_torch_tp_worker.py``, a
 ``FileStore`` in ``tmp_path``, a 120 s group timeout, one thread a rank)
 serves the whole matrix at f32 on ``LlamaConfig.tiny(num_key_value_heads
 =4)``: greedy and prompt-lookup spec, pipeline on and off, chunked and
-whole-prompt prefill, int8 KV dense and paged, the paged pool with prefix
-hits, the draft model on the paged pool, the adaptive ladder, the top-2
-tree, int8 weights, ``tp_overlap=2``, an identical ``FaultPlan`` on every
-rank, and a deadline only rank 0's clock expires.  Every rank's streams
-must be equal to each other's and to the port's single-device engine;
-the ``pipeline=False`` greedy and spec cases also equal the JAX
-single-device engine.  The reference's ``prefill_chunk=None`` cases take
-one whole-prompt chunk here (the port has no monolithic prefill).
+monolithic (``prefill_chunk=None``) prefill, int8 KV dense and paged, the
+paged pool with prefix hits, the draft model on the paged pool, the
+adaptive ladder, the top-2 tree, int8 weights, ``tp_overlap=2``, an
+identical ``FaultPlan`` on every rank, and a deadline only rank 0's
+clock expires.  Every rank's streams and flight-recorder events (kind,
+rid, slot, step) must be equal to each other's and to the port's
+single-device engine; the ``pipeline=False`` greedy and spec cases also
+equal the JAX single-device engine.
 """
 import importlib.util
 import json
@@ -350,6 +350,7 @@ def test_tp_group_matches_single_device(group, name):
     single = group["single"][name]
     assert outs[0]["streams"] == single["streams"]
     assert outs[0]["status"] == single["status"]
+    assert outs[0]["events"] == single["events"]
     if name in worker.JAX_CASES:
         assert outs[0]["streams"] == group["jax"][name]
     status = set(single["status"].values())
