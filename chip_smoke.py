@@ -149,6 +149,22 @@ Phases (any failure exits non-zero before the result line):
    Prints tokens/s, step ms, MFU (``bench.py``'s FLOP count over the
    dense bf16 peak), peak memory, and a profiled step's device-busy
    share and top device operations.
+6b. The training-step knobs at phase 6's configuration: (a) AdamW with
+   int8 moments under a warmup/cosine schedule and global-norm clipping,
+   merged over 2 micro-steps, 4 micro-steps: K7 launches 147 times on
+   each apply step and never on the others, the parameters stay
+   bit-equal across the non-apply steps, each rate is the host
+   scheduler's, each clip factor its f64 recomputation's; (b) amp O1 on
+   f32 parameters (batch ``AMP_BATCH``), every attention launch on the
+   bf16 wgmma instances; (c) every knob at once (clip, schedule, merge,
+   amp O1, recompute ``dots`` / ``named``) for Momentum, AdamW-amsgrad,
+   Lamb and AdamW-int8 (K7), card against the CPU port at phase 7's
+   shapes; (d) the eager ``step()`` bitwise equal to ``build_train_step``
+   (Momentum + clip, full width), and ``GradScaler`` under float16
+   ``auto_cast`` on a stack of ``Linear`` layers skipping a step with an
+   injected inf and halving its scale; (e) recompute ``dots`` against
+   ``full``.  Prints the accumulate and apply step times beside phase 6's
+   plain step, each arm's peak memory, and the launches.
 7. Training parity: the same trainer at full width, 2 layers, f32,
    batch 2, seq 256, 3 steps, on the card (kernels) and on the CPU
    (plain versions), with f32 and with int8 moments; with int8 moments
@@ -3667,6 +3683,460 @@ def code_drift(torch, card, cpu, show=20):
     return n
 
 
+# ----------------------------------------------------------------- phase 6b
+#: the knobs-on trainer's schedule: LinearWarmup over CosineAnnealingDecay
+KNOB_LR = dict(peak=1e-4, T_max=100, warmup_steps=2, start=1e-5)
+#: the knobs-on trainer's clip limit: its merged gradients' global norm
+#: is 0.39 and 0.34 at its two apply steps (an H100, 700 W), so a limit
+#: of 1.0 would never clip; 0.25 clips both
+KNOB_CLIP = 0.25
+#: amp O1 on f32 parameters: batch cut from 16 so that f32 weights, f32
+#: moments, their f32 gradients and the f32 residual stream sit well
+#: inside the card's 80 GB
+AMP_BATCH = 8
+#: the eager-API arm's batch (full widths and depth)
+EAGER_BATCH = 4
+#: phase 6b(c): (optimizer, recompute policy, peak rate of its schedule)
+KNOB_PARITY_ARMS = (("momentum", "dots", 0.1),
+                    ("adamw_amsgrad", "named", 1e-4),
+                    ("lamb", "dots", 1e-3),
+                    ("adamw_int8", "named", 1e-4))
+
+
+def knob_schedule(tlr, peak, T_max=100, warmup_steps=2):
+    return tlr.LinearWarmup(tlr.CosineAnnealingDecay(peak, T_max=T_max),
+                            warmup_steps=warmup_steps, start_lr=peak / 10,
+                            end_lr=peak)
+
+
+def recording_clip(clip_norm):
+    """A ``ClipGradByGlobalNorm`` that keeps its last call's factor and the
+    gradients it was computed from (references, no copies), so the factor
+    can be held to a recomputation after the step."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    class RecordingClip(ClipGradByGlobalNorm):
+        last = None
+
+        def _dygraph_clip(self, params_grads):
+            out = super()._dygraph_clip(params_grads)
+            self.last = (self.global_scale(params_grads),
+                         [g for p, g in params_grads
+                          if g is not None and getattr(p, "need_clip",
+                                                       True)])
+            return out
+    return RecordingClip(clip_norm)
+
+
+def clip_factor_check(torch, clip, tag):
+    """The recorded factor against ``min(clip_norm / norm, 1)`` with the
+    norm recomputed in f64 from the same gradients: within 1e-5 relative
+    (f32 sums of f32 squares in another order)."""
+    s, grads = clip.last
+    norm = float(sum(g.double().square().sum() for g in grads).sqrt())
+    want = min(clip.clip_norm / max(norm, 1e-12), 1.0)
+    got = float(s)
+    print(f"train knobs {tag}: global norm {norm:.6e}, clip factor "
+          f"{got:.9e} vs f64 recomputation {want:.9e} (rel "
+          f"{abs(got - want) / want:.2e})", flush=True)
+    check(abs(got - want) <= 1e-5 * want,
+          f"{tag}: clip factor {got} vs recomputed {want}")
+    clip.last = None
+    return dict(norm=norm, factor=got, factor_f64=want)
+
+
+def phase_train_knobs(torch, dev, plain):
+    """Phase 6b: the training-step knobs at full width (see the module
+    docstring).  ``plain`` is phase 6's summary, printed beside."""
+    res = dict(knobs=knobs_trainer(torch, dev, plain))
+    res["amp_o1"] = amp_trainer(torch, dev)
+    res["parity"] = {arm: knobs_parity_run(torch, dev, arm, policy, peak)
+                     for arm, policy, peak in KNOB_PARITY_ARMS}
+    res["eager"] = eager_vs_train_step(torch, dev)
+    res["scaler"] = scaler_arm(torch, dev)
+    res["dots"] = dots_trainer(torch, dev, plain)
+    return res
+
+
+def per_step_launches(cfg, n_tensors, k7):
+    """One training step's launches at phase 6's configuration (``k7``:
+    whether K7 runs)."""
+    L, rl = cfg["num_hidden_layers"], cfg["recompute_layers"]
+    return dict(fwd=L + rl, delta=L, dkv=L, dq=L, fwd_seg=0, dkv_seg=0,
+                dq_seg=0, fwd_wgmma=L + rl, dkv_wgmma=L, fwd_seg_wgmma=0,
+                dkv_seg_wgmma=0, dq_wgmma=L, dq_seg_wgmma=0,
+                rope=2 * L + rl, rope_vec=2 * L + rl,
+                adamw=n_tensors if k7 else 0, plain_flash=0, plain_rope=0,
+                plain_adamw=0, dense_sdpa=0)
+
+
+def train_batch(torch, dev, vocab, b, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (b, TRAIN_SEQ)
+    return (torch.from_numpy(rng.integers(0, vocab, shape)).to(dev),
+            torch.from_numpy(rng.integers(0, vocab, shape)).to(dev))
+
+
+def knobs_trainer(torch, dev, plain, n_micro=4):
+    """(a) ``AdamW(moment_dtype="int8")`` under a warmup/cosine schedule
+    and ``ClipGradByGlobalNorm(KNOB_CLIP)``, merged over 2 micro-steps, 4
+    micro-steps at phase 6's configuration: K7 launches 147 times on each
+    apply step and never on the others, the parameters are bit-equal
+    across the non-apply steps, each step's rate is the CPU scheduler's,
+    the clip factor is its recomputation's, the losses are finite."""
+    from paddle_tpu_torch.incubate.optimizer import GradientMergeOptimizer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as tlr
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    n_tensors = sum(1 for _ in model.parameters())
+    sched = knob_schedule(tlr, KNOB_LR["peak"])
+    twin = knob_schedule(tlr, KNOB_LR["peak"])      # host floats only
+    clip = recording_clip(KNOB_CLIP)
+    inner = AdamW(learning_rate=sched, parameters=model.parameters(),
+                  weight_decay=0.01, grad_clip=clip, moment_dtype="int8")
+    inner._lr_scheduler = sched
+    step = build_train_step(model, None, GradientMergeOptimizer(inner, 2))
+    ids, labels = train_batch(torch, dev, cfg.vocab_size, TRAIN_BATCH)
+    read, zero = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, k7, rates, clips = [], [], [], [], []
+    total = {}
+    for i in range(n_micro):
+        rate = twin()
+        twin.step()
+        check(inner.get_lr() == rate,
+              f"step {i + 1}: rate {inner.get_lr()} vs the scheduler's {rate}")
+        rates.append(rate)
+        apply = (i + 1) % 2 == 0
+        before = None if apply else [p.detach().clone()
+                                     for p in model.parameters()]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read()
+        losses.append(float(loss))
+        k7.append(counts["adamw"])
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        want = per_step_launches(TRAIN_CFG, n_tensors, apply)
+        check(counts == want, f"knobs step {i + 1}: launches {counts}, "
+              f"expected {want}")
+        if apply:
+            clips.append(clip_factor_check(torch, clip, f"step {i + 1}"))
+        else:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(before, model.parameters()))
+            check(same, f"step {i + 1} (no apply) moved the parameters")
+            del before
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"non-finite knobs loss: {losses}")
+    out = dict(losses=losses, step_ms=ms, rates=rates, k7_launches=k7,
+               clip=clips, accumulate_ms=ms[2], apply_ms=ms[3],
+               plain_step_ms=plain["step_ms"], peak_mem_gb=peak_gb,
+               plain_peak_mem_gb=plain["peak_mem_gb"], launches=total)
+    print("train knobs " + json.dumps(out), flush=True)
+    print(f"train knobs: accumulate step {ms[2]:.1f} ms, apply step "
+          f"{ms[3]:.1f} ms, phase 6's plain step {plain['step_ms']:.1f} ms; "
+          f"peak memory {peak_gb:.2f} GB vs {plain['peak_mem_gb']:.2f} GB",
+          flush=True)
+    del model, inner, step, clip
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_trainer(torch, dev, n_steps=2):
+    """(b) Amp O1 on f32 parameters at phase 6's widths and depth, batch
+    ``AMP_BATCH``, f32 AdamW moments: every attention launch takes the
+    bf16 wgmma instances, K6 its vector one, no plain version runs."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**dict(TRAIN_CFG, dtype="float32"))
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    n_tensors = sum(1 for _ in model.parameters())
+    step = build_train_step(model, None, AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        weight_decay=0.01), amp_level="O1")
+    ids, labels = train_batch(torch, dev, cfg.vocab_size, AMP_BATCH)
+    read, zero = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    losses, ms = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * n_steps for k, v in
+            per_step_launches(TRAIN_CFG, n_tensors, False).items()}
+    print(f"train amp O1 (f32 parameters, batch {AMP_BATCH}): losses "
+          f"{losses}, step ms {ms}, peak memory {peak_gb:.2f} GB, launches "
+          f"{counts}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite amp loss: {losses}")
+    check(counts == want, f"amp O1 launches {counts}, expected {want}")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(batch=AMP_BATCH, losses=losses, step_ms=ms[-1],
+                peak_mem_gb=peak_gb, launches=counts)
+
+
+def knob_optimizer(arm, sched, params, clip):
+    from paddle_tpu_torch import optimizer as topt
+
+    if arm == "momentum":
+        return topt.Momentum(sched, parameters=params, grad_clip=clip)
+    if arm == "lamb":
+        return topt.Lamb(sched, parameters=params, grad_clip=clip)
+    return topt.AdamW(sched, parameters=params, weight_decay=0.01,
+                      grad_clip=clip, amsgrad=arm == "adamw_amsgrad",
+                      moment_dtype="int8" if arm == "adamw_int8" else None)
+
+
+def knobs_parity_run(torch, dev, arm, policy, peak, n_micro=4):
+    """(c) Every knob at once — clip, schedule, merge k=2, amp O1,
+    recompute ``policy`` — at phase 7's shapes (full width, 2 layers, f32
+    weights, batch 2, seq 256), card (kernels) against CPU (plain
+    versions) from the same weights and data, 4 micro-steps.  Under amp
+    the two sides round bf16 products in another order, so: losses
+    within 2e-3 relative (bf16 keeps 2^-8); with f32 moments (amsgrad)
+    every parameter within 2.02 times the sum of the apply steps' rates
+    (Adam's first updates are at most 1.004·lr, phase 7); with int8
+    moments all but 1e-5 of them: a first-moment code that flips between
+    the two sides at the first apply (their bf16 gradients differ) moves
+    that element's second update by 0.9·s/(c1·sqrt(v̂)), which exceeds lr
+    where the block's scale s is large against the element's own
+    moments (phase 7 holds such flips step by step at f32; here they are
+    counted); for Momentum and Lamb the card's update of the parameters
+    (final less initial) within 5e-2 of the CPU's in norm."""
+    from paddle_tpu_torch.incubate.optimizer import GradientMergeOptimizer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as tlr
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**{**TRAIN_CFG, "num_hidden_layers": 2,
+                         "recompute_layers": 1, "dtype": "float32",
+                         "recompute_policy": policy})
+    gpu = LlamaForCausalLM(cfg, device=dev, seed=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=2)
+    p0 = gpu.numpy_state()
+    cpu.load_numpy_state(p0)
+    n_tensors = len(p0)
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    read, zero = kernel_counters()
+    losses, counts, rates = {}, {}, []
+    for tag, model in (("card", gpu), ("cpu", cpu)):
+        d = model.llama.embed_tokens.weight.device
+        sched = knob_schedule(tlr, peak)
+        inner = knob_optimizer(arm, sched, model.parameters(),
+                               ClipGradByGlobalNorm(1.0))
+        inner._lr_scheduler = sched
+        st = build_train_step(model, None, GradientMergeOptimizer(inner, 2),
+                              amp_level="O1")
+        zero()
+        losses[tag] = []
+        for i in range(n_micro):
+            if tag == "cpu" and i % 2:
+                rates.append(inner.get_lr())
+            losses[tag].append(float(st(ids.to(d), labels.to(d))))
+        counts[tag] = read()
+    tag_a = f"{arm}/{policy}"
+    check(counts["card"]["fwd"] > 0 and counts["card"]["plain_flash"] == 0
+          and counts["card"]["fwd_wgmma"] == counts["card"]["fwd"],
+          f"parity knobs {tag_a}: card run did not take the bf16 kernels: "
+          f"{counts['card']}")
+    check(counts["cpu"]["fwd"] == 0 and counts["cpu"]["plain_flash"] > 0,
+          f"parity knobs {tag_a}: cpu run took no plain versions")
+    k7 = counts["card"]["adamw"]
+    check(k7 == (n_tensors * n_micro // 2 if arm == "adamw_int8" else 0)
+          and counts["cpu"]["adamw"] == 0,
+          f"parity knobs {tag_a}: K7 launches {k7}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                    losses["cpu"]))
+    pg, pc = gpu.numpy_state(), cpu.numpy_state()
+    worst = max(float(np.abs(pg[n] - pc[n]).max()) for n in pc)
+    bound_adam = 2.02 * sum(rates)
+    n_all = sum(v.size for v in pc.values())
+    n_beyond = sum(int((np.abs(pg[n] - pc[n]) > bound_adam).sum())
+                   for n in pc)
+    du = np.sqrt(sum(float(np.square((pg[n] - p0[n]) - (pc[n] - p0[n]))
+                           .sum()) for n in pc))
+    un = np.sqrt(sum(float(np.square(pc[n] - p0[n]).sum()) for n in pc))
+    print(f"parity knobs {tag_a}: losses card {losses['card']} cpu "
+          f"{losses['cpu']} max rel {rel:.3e}; params max abs diff "
+          f"{worst:.3e} (Adam bound {bound_adam:.3e}, {n_beyond} of "
+          f"{n_all} beyond); update diff "
+          f"{du:.3e} of {un:.3e} ({du / max(un, 1e-30):.3e}); K7 {k7}",
+          flush=True)
+    check(rel <= 2e-3, f"parity knobs {tag_a}: losses differ {rel:.3e}")
+    if arm == "adamw_int8":
+        check(n_beyond <= 1e-5 * n_all, f"parity knobs {tag_a}: "
+              f"{n_beyond} parameters beyond {bound_adam:.3e}")
+    elif arm.startswith("adamw"):
+        check(worst <= bound_adam, f"parity knobs {tag_a}: parameters "
+              f"differ by {worst:.3e} > {bound_adam:.3e}")
+    else:
+        check(du <= 5e-2 * un, f"parity knobs {tag_a}: updates differ "
+              f"{du / un:.3e} of their norm")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(losses=losses, max_rel_loss=rel, max_param_diff=worst,
+                beyond_adam_bound=n_beyond, adam_bound=bound_adam,
+                update_rel_diff=du / max(un, 1e-30), k7_launches=k7)
+
+
+def eager_vs_train_step(torch, dev, n_steps=2):
+    """(d) ``Momentum`` (f32 masters of the bf16 parameters: the eager
+    step keeps them, as the reference's does) with
+    ``ClipGradByGlobalNorm(1.0)`` at phase 6's widths and depth, batch
+    ``EAGER_BATCH``: ``loss.backward(); opt.step(); opt.clear_grad()``
+    against ``build_train_step`` over the same optimizer — the same
+    kernels in the same order, the parameters bitwise equal after each
+    step."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    ids, labels = train_batch(torch, dev, cfg.vocab_size, EAGER_BATCH)
+
+    def make(model):
+        return Momentum(1e-3, parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0),
+                        multi_precision=True)
+    eager = LlamaForCausalLM(cfg, device=dev, seed=0)
+    fused = LlamaForCausalLM(cfg, device=dev, seed=0)
+    opt = make(eager)
+    step = build_train_step(fused, None, make(fused))
+    read, zero = kernel_counters()
+    counts = {}
+    for i in range(n_steps):
+        zero()
+        loss_e = eager(ids, labels)
+        loss_e.backward()
+        opt.step()
+        opt.clear_grad()
+        counts["eager"] = read()
+        zero()
+        loss_f = step(ids, labels)
+        counts["train_step"] = read()
+        check(torch.equal(loss_e.detach(), loss_f),
+              f"eager step {i + 1}: loss {float(loss_e.detach())} vs "
+              f"{float(loss_f)}")
+        same = all(torch.equal(a, b) for a, b in zip(eager.parameters(),
+                                                     fused.parameters()))
+        check(same, f"eager step {i + 1}: parameters differ from "
+              "build_train_step's")
+        check(counts["eager"] == counts["train_step"],
+              f"eager launches {counts}")
+    print(f"train eager: Momentum + global clip, {n_steps} steps bitwise "
+          f"equal to build_train_step (loss {float(loss_f):.6f}); "
+          f"launches a step {counts['eager']}", flush=True)
+    del eager, fused, opt, step
+    torch.cuda.empty_cache()
+    return dict(bitwise=True, loss=float(loss_f), launches=counts["eager"])
+
+
+def scaler_arm(torch, dev):
+    """(d) ``GradScaler`` under ``auto_cast(dtype="float16")`` on an
+    attention-free stack of the port's ``Linear`` layers (4 x 2048 wide,
+    4096 rows): a clean step moves the parameters; a step with an
+    injected inf is skipped and halves the scale."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.layer import Linear
+    from paddle_tpu_torch.optimizer import SGD
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    layers = []
+    for _ in range(4):
+        lin = Linear(2048, 2048, device=dev)
+        lin.reset_parameters(g)
+        layers += [lin, torch.nn.ReLU()]
+    net = torch.nn.Sequential(*layers[:-1])
+    opt = SGD(1e-3, parameters=net.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 16)
+    x = torch.randn((4096, 2048), device=dev, generator=g)
+    y = torch.randn((4096, 2048), device=dev, generator=g)
+    scales, moved = [], []
+    for i in range(2):
+        with amp.auto_cast(dtype="float16"):
+            out = net(x)
+            check(out.dtype == torch.float16, f"f16 amp output {out.dtype}")
+            loss = ((out.float() - y) ** 2).mean()
+        scaler.scale(loss).backward()
+        if i == 1:
+            net[0].weight.grad[0, 0] = float("inf")
+        before = [p.detach().clone() for p in net.parameters()]
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        moved.append(not all(torch.equal(a, b) for a, b in
+                             zip(before, net.parameters())))
+        scales.append(scaler.get_init_loss_scaling())
+    print(f"train scaler: f16 Linear stack, moved {moved}, scales "
+          f"{scales}", flush=True)
+    check(moved == [True, False], f"GradScaler steps moved {moved}")
+    check(scales == [2.0 ** 16, 2.0 ** 15], f"GradScaler scales {scales}")
+    del net, opt
+    torch.cuda.empty_cache()
+    return dict(moved=moved, scales=scales)
+
+
+def dots_trainer(torch, dev, plain, n_steps=2):
+    """(e) Phase 6's trainer with ``recompute_policy="dots"`` on its 7
+    recomputed layers: the launches as phase 6's (the recompute re-runs
+    the kernels; only the matmuls' outputs are kept), step ms and peak
+    memory beside phase 6's full recompute."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import build_train_step
+
+    cfg = LlamaConfig(**dict(TRAIN_CFG, recompute_policy="dots"))
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    n_tensors = sum(1 for _ in model.parameters())
+    step = build_train_step(model, None, AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        weight_decay=0.01, moment_dtype="int8"))
+    ids, labels = train_batch(torch, dev, cfg.vocab_size, TRAIN_BATCH)
+    read, zero = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, labels))]
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(ids, labels) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps * 1e3
+    counts = read()
+    losses += [float(x) for x in timed]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * n_steps for k, v in
+            per_step_launches(TRAIN_CFG, n_tensors, True).items()}
+    full_ms = plain["step_ms"]
+    print(f"train recompute dots: step {dt:.1f} ms vs full {full_ms:.1f} "
+          f"ms, peak memory {peak_gb:.2f} GB vs "
+          f"{plain['peak_mem_gb']:.2f} GB; losses {losses}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite dots loss: {losses}")
+    check(counts == want, f"dots launches {counts}, expected {want}")
+    del model, step, timed
+    torch.cuda.empty_cache()
+    return dict(step_ms=dt, peak_mem_gb=peak_gb, losses=losses,
+                full_step_ms=plain["step_ms"],
+                full_peak_mem_gb=plain["peak_mem_gb"])
+
+
 # ----------------------------------------------------------------- phase 8
 def mlm_net(torch, model):
     """bench_bert's ``_Net``: the model's own chunked masked-LM loss, with
@@ -3957,8 +4427,11 @@ def main():
     rk10 = phase_rope_kernels(torch, dev)
     print(f"phase rope kernels: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    _, train_launches = phase_train(torch, dev)
+    train_plain, train_launches = phase_train(torch, dev)
     print(f"phase train: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    knobs = phase_train_knobs(torch, dev, train_plain)
+    print(f"phase train knobs: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     phase_train_parity(torch, dev)
     print(f"phase train parity: {time.perf_counter() - t:.1f} s", flush=True)
@@ -4019,7 +4492,9 @@ def main():
              source=f"{csrc}/fused_adamw.cu",
              replaces="paddle_tpu/ops/fused_adamw.py:169",
              also_replaces="paddle_tpu/ops/fused_adamw.py:211",
-             launches=train_launches["adamw"], **tk["adamw"]),
+             launches=train_launches["adamw"],
+             launches_knobs=knobs["knobs"]["launches"]["adamw"],
+             **tk["adamw"]),
     ]
     fa = "paddle_tpu/ops/flash_attention.py"
     unmasked = bert["unmasked"][1]
@@ -4046,6 +4521,8 @@ def main():
         entry = dict(name=kname, route="cuda",
                      source=f"paddle_tpu_torch/ops/csrc/{src}",
                      replaces=replaces, launches=train_launches[key],
+                     launches_knobs=knobs["knobs"]["launches"][key],
+                     launches_amp_o1=knobs["amp_o1"]["launches"][key],
                      **tk[key])
         if key in ("fwd", "dkv", "dq"):
             entry.update(wgmma(key, SEG=0, ROPE=0),

@@ -13,8 +13,12 @@ uniform projections, unit-normal embedding, unit norm gains).
 RoPE (K6) on the packed projections where its gate passes, attention
 through ``nn.functional.scaled_dot_product_attention`` (the flash
 kernels K1-K5), per-layer recompute of the first ``recompute_layers``
-layers, and the LM loss — chunked (``loss_chunk_size``) or over full f32
-logits.  The parameters require gradients; the serving path
+layers (under ``recompute_policy``; ``"named"`` tags the attention
+output with ``ckpt_name``), and the LM loss — chunked
+(``loss_chunk_size``) or over full f32 logits.  Under ``amp.auto_cast``
+the model's ops carry the reference's op names (``linear`` for every
+projection and the head, ``rope``, ``chunked_lm_loss``; see
+``amp/auto_cast.py``).  The parameters require gradients; the serving path
 (``models/llama_decode.py``) reads detached views of them under
 ``no_grad``.
 """
@@ -28,10 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch.amp.auto_cast import amp_op
 from paddle_tpu_torch.core.device import resolve_device, torch_dtype
-from paddle_tpu_torch.distributed.fleet.recompute import recompute
+from paddle_tpu_torch.distributed.fleet.recompute import ckpt_name, recompute
 from paddle_tpu_torch.nn.functional import (
-    rms_norm, scaled_dot_product_attention,
+    linear, rms_norm, scaled_dot_product_attention,
 )
 from paddle_tpu_torch.ops import fused_rope
 from paddle_tpu_torch.ops.chunked_ce import chunked_token_ce
@@ -125,21 +130,31 @@ class _Attention(nn.Module):
         b, l, _ = x.shape
         nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        self.head_dim)
-        qp = x @ self.q_proj.weight
-        kp = x @ self.k_proj.weight
-        vp = x @ self.v_proj.weight
-        if fused_rope.available(qp.shape, kp.shape, nh, nkv):
-            cos, sin = _rope_cos_sin(l, hd, cfg.rope_theta, qp.dtype,
-                                     x.device)
-            qp, kp = fused_rope.fused_rope(qp, kp, cos, sin, nh, nkv)
-        else:
-            q4, k4 = _apply_rope(qp.view(b, l, nh, hd),
-                                 kp.view(b, l, nkv, hd), cfg.rope_theta)
-            qp, kp = q4.reshape(b, l, nh * hd), k4.reshape(b, l, nkv * hd)
+        qp = linear(x, self.q_proj.weight)
+        kp = linear(x, self.k_proj.weight)
+        vp = linear(x, self.v_proj.weight)
+        qp, kp = _rope(qp, kp, nh, nkv, hd, cfg.rope_theta)
         out = scaled_dot_product_attention(
             qp.view(b, l, nh, hd), kp.view(b, l, nkv, hd),
             vp.view(b, l, nkv, hd), is_causal=l > 1)
-        return out.reshape(b, l, nh * hd) @ self.o_proj.weight
+        if cfg.recompute and cfg.recompute_policy == "named":
+            # kept by the "named" policy (the reference's
+            # checkpoint_name(out, "ckpt"))
+            out = ckpt_name(out)
+        return linear(out.reshape(b, l, nh * hd), self.o_proj.weight)
+
+
+@amp_op("rope")
+def _rope(qp, kp, nh, nkv, hd, theta):
+    """RoPE on the packed projections: the fused kernel (K6) where its
+    gate passes, else the plain rotation."""
+    b, l, _ = qp.shape
+    if fused_rope.available(qp.shape, kp.shape, nh, nkv):
+        cos, sin = _rope_cos_sin(l, hd, theta, qp.dtype, qp.device)
+        return fused_rope.fused_rope(qp, kp, cos, sin, nh, nkv)
+    q4, k4 = _apply_rope(qp.view(b, l, nh, hd), kp.view(b, l, nkv, hd),
+                         theta)
+    return q4.reshape(b, l, nh * hd), k4.reshape(b, l, nkv * hd)
 
 
 class _MLP(nn.Module):
@@ -151,8 +166,9 @@ class _MLP(nn.Module):
         self.down_proj = _Weight((i, h), dtype, device)
 
     def forward(self, x):
-        return (F.silu(x @ self.gate_proj.weight)
-                * (x @ self.up_proj.weight)) @ self.down_proj.weight
+        return linear(F.silu(linear(x, self.gate_proj.weight))
+                      * linear(x, self.up_proj.weight),
+                      self.down_proj.weight)
 
 
 class _DecoderLayer(nn.Module):
@@ -195,6 +211,11 @@ class _LlamaModel(nn.Module):
         return rms_norm(h, self.norm.weight, cfg.rms_norm_eps)
 
 
+@amp_op("chunked_lm_loss")
+def _chunked_lm_loss(h, labels, w, chunk_size):
+    return chunked_token_ce(h, labels, w, chunk_size)
+
+
 class LlamaForCausalLM(nn.Module):
     """The Llama weight tree.  ``device=None`` places it on ``cuda``
     (raising without a card); ``generator`` (a ``torch.Generator`` on the
@@ -233,9 +254,9 @@ class LlamaForCausalLM(nn.Module):
         h = self.llama(input_ids)
         w = self._head_weight()
         if labels is not None and self.config.loss_chunk_size > 0:
-            return chunked_token_ce(h[:, :-1, :], labels[:, 1:], w,
+            return _chunked_lm_loss(h[:, :-1, :], labels[:, 1:], w,
                                     self.config.loss_chunk_size)
-        logits = h @ w
+        logits = linear(h, w)
         if labels is None:
             return logits
         b, l, v = logits.shape

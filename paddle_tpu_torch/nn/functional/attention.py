@@ -17,11 +17,16 @@ back to the dense path behind it.
 ``flash_attn_unpadded`` (varlen over packed sequences) tags each token
 with its sequence index and runs one segment-masked pass, causal
 composing with the segments into per-sequence causality.
+
+Under ``auto_cast`` the first two are the reference's white-listed
+``scaled_dot_product_attention`` and ``flash_attention``: f32 inputs
+arrive in the amp dtype, so the flash kernels take bf16.
 """
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import amp_op
 from paddle_tpu_torch.ops.flash_attention import (
     available, blockwise_attention, flash_attention_blhd, repeat_kv,
     validate_gqa,
@@ -88,6 +93,7 @@ def _is_key_padding_mask(mask, q_shape, k_shape):
     return tuple(mask.shape) in ((b, lk), (b, 1, 1, lk))
 
 
+@amp_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
@@ -114,6 +120,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                      generator=generator)
 
 
+@amp_op("flash_attention")
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, training=True, generator=None):
     """The reference's ``flash_attention``: ``(out, None)``."""

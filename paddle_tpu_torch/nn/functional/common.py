@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dropout"]
+from paddle_tpu_torch.amp.auto_cast import amp_op
+
+__all__ = ["dropout", "linear"]
 
 
 def dropout(x, p=0.5, training=True, generator=None):
@@ -26,3 +28,12 @@ def dropout(x, p=0.5, training=True, generator=None):
     return torch.where(keep, x / (1.0 - p),
                        torch.zeros((), dtype=x.dtype,
                                    device=x.device)).to(x.dtype)
+
+
+@amp_op("linear")
+def linear(x, weight, bias=None):
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
+    y = x @ weight
+    return y if bias is None else y + bias.to(y.dtype)

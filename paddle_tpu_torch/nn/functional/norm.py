@@ -9,11 +9,14 @@ tensor — and recomputes in f32 exactly as the reference's: RMSNorm from
 ``(a, w, rstd)``, LayerNorm from ``(a, w, b, mean, rstd)`` with one
 dual reduction (``sum(gn)``, ``sum(gn * xhat)``) per row.  Plain
 autograd of the formulas would round differently in bf16 and keep
-full-size f32 residuals.
+full-size f32 residuals.  Under ``auto_cast`` both are the reference's
+black-listed ops: their inputs arrive in f32.
 """
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.amp.auto_cast import amp_op
 
 __all__ = ["layer_norm", "rms_norm"]
 
@@ -38,6 +41,7 @@ class _RMSNormWeighted(torch.autograd.Function):
         return ga, gw, None
 
 
+@amp_op("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm over the last axis; the weighted form carries the custom
     backward above."""
@@ -84,6 +88,7 @@ class _LayerNormAffine(torch.autograd.Function):
         return ga, gw, gb, None, None
 
 
+@amp_op("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     """LayerNorm over the trailing ``normalized_shape`` axes (the
     reference's ``F.layer_norm``), with the custom backward above."""

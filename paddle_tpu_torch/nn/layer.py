@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from paddle_tpu_torch.nn.functional import dropout, layer_norm
+from paddle_tpu_torch.nn.functional import dropout, layer_norm, linear
 
 __all__ = ["Dropout", "Embedding", "LayerNorm", "Linear"]
 
@@ -53,8 +53,7 @@ class Linear(nn.Module):
     def forward(self, x):
         # mixed dtypes promote as in the reference (a bf16 input into an
         # f32 head computes in f32)
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return x.to(dt) @ self.weight.to(dt) + self.bias.to(dt)
+        return linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):

@@ -50,13 +50,17 @@ def _inputs(b, lq, lk, h, hkv, d, dtype="float32", seed=0):
 
 
 def _jax(q, k, v, do, cos, sin, h, hkv, causal):
-    """JAX: (out, dq, dk, dv, dcos, dsin) as f32 numpy arrays."""
-    def f(q_, k_, v_, c_, s_):
-        return jfa.flash_attention_packed_rope(q_, k_, v_, c_, s_, h, hkv,
-                                               causal, None, True)
-    out, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v, cos, sin)))
-    grads = vjp(jnp.asarray(do))
-    return [np.asarray(x).astype(np.float32) for x in (out, *grads)]
+    """JAX: (out, dq, dk, dv, dcos, dsin) as f32 numpy arrays; the forward
+    and its vjp jitted together (the same values as eager, in one
+    compile)."""
+    def fwd_bwd(q_, k_, v_, c_, s_, do_):
+        def f(*xs):
+            return jfa.flash_attention_packed_rope(*xs, h, hkv, causal,
+                                                   None, True)
+        out, vjp = jax.vjp(f, q_, k_, v_, c_, s_)
+        return (out, *vjp(do_))
+    outs = jax.jit(fwd_bwd)(*map(jnp.asarray, (q, k, v, cos, sin, do)))
+    return [np.asarray(x).astype(np.float32) for x in outs]
 
 
 def _t(x, dtype):

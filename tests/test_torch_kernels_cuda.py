@@ -27,7 +27,9 @@ against their plain versions (K9's appended codes and scales bitwise,
 and equal to ``_q8_quantize``), and K7, the fused int8 AdamW, bitwise
 against its plain version for the dtypes the optimizer passes (bf16 and
 f32 parameters, bf16 and f32 gradients, with and without an f32
-master), whole and ragged blocks, aligned and not.  The split-K K8 at
+master), whole and ragged blocks, aligned and not, and under the
+training-step knobs (a schedule, clipping, a merge window: launches on the
+apply steps only, bitwise its plain version).  The split-K K8 at
 head_dim 128 with lengths on every pool-block and span edge (every cache
 dtype, dense and paged, T 1 and 4): one launch a call and bitwise equal
 run to run; K9's tensor-core instance (bf16 q over bf16 and int8 KV) at
@@ -691,6 +693,63 @@ def test_fused_adamw_kernel_unaligned_view():
     torch.cuda.synchronize()
     for k in ("p", "codes", "scales", "v"):
         assert torch.equal(views[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_adamw_under_a_schedule_and_a_merge_window(monkeypatch):
+    """K7 driven by the knobs-on trainer's optimizer stack — a warmup /
+    cosine schedule, global-norm clipping of the merged gradient and a
+    merge window of 2 — over 4 micro-steps: K7 launches once a parameter
+    on the apply steps only, and the parameters and state are BITWISE
+    those of the same stack running K7's plain version on the card."""
+    import functools
+
+    from paddle_tpu_torch.incubate.optimizer import GradientMergeOptimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as tlr
+    from paddle_tpu_torch.optimizer import optimizers as topts
+    from paddle_tpu_torch.static.functionalize import _apply_clip
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(41)
+    shapes = {"w": (64, 512), "b": (300,), "e": (1000, 96)}
+    p0 = {k: torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+          for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+              for k, s in shapes.items()} for _ in range(4)]
+    real = k7.fused_adamw_q8
+
+    def run(impl):
+        monkeypatch.setattr(topts, "fused_adamw_q8",
+                            functools.partial(real, impl=impl))
+        sched = tlr.LinearWarmup(tlr.CosineAnnealingDecay(1e-3, T_max=10),
+                                 2, 1e-4, 1e-3)
+        inner = AdamW(sched, weight_decay=0.01, moment_dtype="int8")
+        gm = GradientMergeOptimizer(inner, 2)
+        gm._merged_clip = functools.partial(
+            _apply_clip, ClipGradByGlobalNorm(1.0), params=dict(p0))
+        params = {k: v.clone() for k, v in p0.items()}
+        states = gm.functional_init_states(params)
+        counts = []
+        for i, g in enumerate(grads):
+            before = (k7.launches, k7.plain_runs)
+            gm._global_step = i + 1
+            params, states = gm.functional_update(params, g, states,
+                                                  inner.get_lr())
+            sched.step()
+            counts.append(k7.launches - before[0]
+                          + k7.plain_runs - before[1])
+        torch.cuda.synchronize()
+        return params, states, counts
+
+    pa, sa, ca = run("cuda")
+    pb, sb, cb = run("reference")
+    assert ca == cb == [0, 3, 0, 3]
+    for k in shapes:
+        assert torch.equal(pa[k], pb[k]), k
+        for n in ("moment1", "moment1@scale", "moment2", "gm_acc"):
+            assert torch.equal(sa[n][k], sb[n][k]), (n, k)
 
 
 # ------------------------------- the redesigned serving kernels (K8, K9)

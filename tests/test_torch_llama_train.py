@@ -34,8 +34,10 @@ import paddle_tpu as paddle
 from paddle_tpu.models.llama import LlamaConfig as JConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JModel
 from paddle_tpu.nn.functional.norm import _rms_norm_weighted
+from paddle_tpu.autograd import engine as jengine
 from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu.static.functionalize import build_train_step as j_build
+from paddle_tpu.tensor.tensor import Tensor as JTensor
 from paddle_tpu_torch.distributed.fleet import recompute
 from paddle_tpu_torch.interop import (
     optimizer_states_from_numpy, tensor_from_numpy,
@@ -63,13 +65,49 @@ LR = 1e-3
 _MEMO = {}
 
 
-def _pair(cfg):
-    paddle.seed(0)
-    jm = JModel(JConfig(**cfg))
+#: config fields that do not change the weights a seed draws
+_FLAGS = ("recompute", "recompute_layers", "recompute_policy",
+          "loss_chunk_size")
+_STATES = {}
+
+
+def _reference(cfg):
+    """The reference model of ``cfg``'s widths (seed 0) and its initial
+    weights as numpy, drawn once per set of widths; never trained (the
+    callers that train get a fresh model from ``_pair``)."""
+    key = tuple(sorted((k, v) for k, v in cfg.items() if k not in _FLAGS))
+    if key not in _STATES:
+        paddle.seed(0)
+        jm = JModel(JConfig(**dict(key)))
+        _STATES[key] = (jm, {k: np.asarray(v) for k, v in
+                             jm.functional_state()[0].items()})
+    return _STATES[key]
+
+
+def _port(cfg):
+    """The port's model of ``cfg`` holding the reference's seed-0
+    weights."""
     tm = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
-    state, _ = jm.functional_state()
-    tm.load_numpy_state({k: np.asarray(v) for k, v in state.items()})
-    return jm, tm
+    tm.load_numpy_state(_reference(cfg)[1])
+    return tm
+
+
+def _pair(cfg):
+    """A fresh reference model of ``cfg`` and the port's copy of it."""
+    paddle.seed(0)
+    return JModel(JConfig(**cfg)), _port(cfg)
+
+
+def _jax_forward(jm, *arrays):
+    """The reference's forward through ``functional_call``, jitted (as its
+    train and serving programs run it)."""
+    params, buffers = jm.functional_state()
+
+    def fwd(ps):
+        with jengine.no_grad():
+            return jm.functional_call(ps, buffers,
+                                      *map(JTensor, arrays)).data
+    return np.asarray(jax.jit(fwd)(params))
 
 
 def _data(cfg, b, l, seed=0):
@@ -82,10 +120,11 @@ def _data(cfg, b, l, seed=0):
     ("tiny", TINY, 2, 16), ("d128-l128", WIDE, 2, 128),
     ("entry-l256", ENTRY, 2, 256)], ids=["tiny", "d128-l128", "entry-l256"])
 def test_forward_logits_match_jax(name, cfg, b, l):
-    jm, tm = _pair(cfg)
+    jm, _ = _reference(cfg)
+    tm = _port(cfg)
     ids, _ = _data(cfg, b, l)
     runs = tfa.plain_runs["fwd"]
-    jl = np.asarray(jm(paddle.to_tensor(ids)).data)
+    jl = _jax_forward(jm, ids)
     with torch.no_grad():
         tl = tm(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=1e-4)
@@ -99,8 +138,7 @@ def test_loss_matches_jax(chunk):
     cfg = dict(WIDE, loss_chunk_size=chunk)
     jm, tm = _pair(cfg)
     ids, labels = _data(cfg, 2, 128, seed=1)
-    jl = float(np.asarray(jm(paddle.to_tensor(ids),
-                             paddle.to_tensor(labels)).data))
+    jl = float(_jax_forward(jm, ids, labels))
     with torch.no_grad():
         tl = float(tm(torch.from_numpy(ids), torch.from_numpy(labels)))
     assert abs(tl - jl) <= 1e-6 * abs(jl)
@@ -144,7 +182,7 @@ def test_train_steps_match_build_train_step(remat):
     cfg = dict(WIDE, recompute=remat, recompute_layers=1,
                loss_chunk_size=100 if remat else 0)
     jlosses, jparams, _ = _jax_run(cfg, 3)
-    _, tm = _pair(cfg)
+    tm = _port(cfg)
     ids, labels = _data(cfg, 2, 128, seed=2)
     step = build_train_step(tm, None, AdamW(learning_rate=LR,
                                             parameters=tm.parameters(),
@@ -173,7 +211,7 @@ def test_int8_moment_train_steps_match_build_train_step(remat):
     cfg = dict(WIDE, recompute=remat, recompute_layers=1,
                loss_chunk_size=100 if remat else 0)
     jlosses, jparams, jstates = _jax_run(cfg, 3, "int8")
-    _, tm = _pair(cfg)
+    tm = _port(cfg)
     ids, labels = _data(cfg, 2, 128, seed=2)
     step = build_train_step(tm, None, AdamW(learning_rate=LR,
                                             parameters=tm.parameters(),
@@ -241,7 +279,7 @@ def test_int8_optimizer_states_cross_bit_for_bit():
 
 
 def _grads(cfg, seed=3):
-    _, tm = _pair(cfg)
+    tm = _port(cfg)
     ids, labels = _data(cfg, 2, 128, seed=seed)
     loss = tm(torch.from_numpy(ids), torch.from_numpy(labels))
     names = [n for n, _ in tm.named_parameters()]
@@ -261,7 +299,7 @@ def test_recompute_on_equals_off_bitwise():
     ids, labels = (torch.from_numpy(x) for x in _data(WIDE, 2, 128))
     runs = []
     for remat in (False, True):
-        _, tm = _pair(WIDE)
+        tm = _port(WIDE)
         step = build_train_step(tm, None, AdamW(parameters=tm.parameters()),
                                 recompute=remat)
         runs.append((step(ids, labels), tm.numpy_state()))
@@ -378,26 +416,36 @@ def test_functional_update_matches_the_reference_for_bf16_params():
 
 
 def test_int8_moments_and_unported_knobs_raise():
-    """int8 moments work; the knobs that are not ported raise."""
+    """int8 moments work; the training-step knobs are ported (amsgrad,
+    lr_ratio, clipping, amp, gradient merge, the selective recompute
+    policies build and run); what is still to port raises, naming its
+    slice: ZeRO sharding and sequence parallelism."""
+    from paddle_tpu_torch.incubate.optimizer import GradientMergeOptimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
     assert AdamW(moment_dtype="int8")._moment_storage("moment2") \
         == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="amsgrad"):
-        AdamW(moment_dtype="int8", amsgrad=True)
-    with pytest.raises(NotImplementedError, match="lr_ratio"):
-        AdamW(moment_dtype="int8", lr_ratio=lambda p: 1.0)
+    assert AdamW(moment_dtype="int8", amsgrad=True)._accum_names[-1] \
+        == "moment2_max"
+    assert not AdamW(moment_dtype="int8", lr_ratio=lambda p: 1.0)._fused()
     with pytest.raises(ValueError, match="unknown moment_dtype"):
         AdamW(moment_dtype="int4")
-    with pytest.raises(NotImplementedError, match="clipping"):
-        AdamW(grad_clip=object())
-    _, tm = _pair(TINY)
-    opt = AdamW(parameters=tm.parameters())
-    with pytest.raises(NotImplementedError, match="amp"):
-        build_train_step(tm, None, opt, amp_level="O1")
-    opt.k_steps = 2
-    with pytest.raises(NotImplementedError, match="merge"):
+    tm = _port(TINY)
+    ids, labels = (torch.from_numpy(x) for x in _data(TINY, 2, 16))
+    opt = AdamW(parameters=tm.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    build_train_step(tm, None, GradientMergeOptimizer(opt, 2),
+                     amp_level="O1")(ids, labels)
+    for policy in ("dots", "dots_no_batch", "named"):
+        x = torch.ones(2, 3, requires_grad=True)
+        recompute(lambda t: (t @ t.t()).sum(), x, policy=policy).backward()
+        assert torch.equal(x.grad, 4 * torch.ones(2, 3))
+    opt._group_sharded_level = 2
+    with pytest.raises(NotImplementedError, match="distributed-training"):
         build_train_step(tm, None, opt)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        recompute(lambda x: x, torch.zeros(2), policy="named")
+    with pytest.raises(NotImplementedError, match="distributed-training"):
+        LlamaForCausalLM(LlamaConfig(**dict(TINY, sequence_parallel=True)),
+                         device="cpu")
     with pytest.raises(ValueError, match="unknown recompute policy"):
         recompute(lambda x: x, torch.zeros(2), policy="bogus")
 
